@@ -1,0 +1,44 @@
+"""`python -m shadow_tpu_torch run CONFIG` (port of shadow_tpu/cli.py,
+the `run` subcommand). Runs on the GPU unless `--device cpu` is given."""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def main(argv: "list[str] | None" = None) -> int:
+    import shadow_tpu_torch
+
+    parser = argparse.ArgumentParser(
+        prog="shadow-tpu-torch",
+        description="PDES network simulator (PyTorch/CUDA port of shadow-tpu)",
+    )
+    parser.add_argument(
+        "--version", action="version", version=f"shadow_tpu_torch {shadow_tpu_torch.__version__}"
+    )
+    sub = parser.add_subparsers(dest="command")
+    run_p = sub.add_parser("run", help="run a simulation from a YAML config")
+    run_p.add_argument("config", help="path to shadow.yaml-style config")
+    run_p.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help="where the simulation state lives (default: cuda)",
+    )
+    run_p.add_argument("--show-config", action="store_true", help="print resolved config and exit")
+    args = parser.parse_args(argv)
+
+    if args.command == "run":
+        from shadow_tpu_torch.runtime.cli_run import CliUserError, run_from_config
+
+        try:
+            return run_from_config(args.config, device=args.device, show_config=args.show_config)
+        except CliUserError as e:
+            print(f"shadow-tpu-torch: error: {e}", file=sys.stderr)
+            return 1
+        except RuntimeError as e:
+            if "CUDA not available" not in str(e):
+                raise
+            print(f"shadow-tpu-torch: error: {e}", file=sys.stderr)
+            return 1
+    parser.print_help()
+    return 2

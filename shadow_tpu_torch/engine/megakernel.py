@@ -1,0 +1,266 @@
+"""The pump megakernel: `pump_k` packet-pump microsteps per host in one
+CUDA launch (port of shadow_tpu/engine/megakernel.py).
+
+The TPU kernel (shadow_tpu/engine/megakernel.py::_launch, a Pallas
+pallas_call over VMEM-resident host tiles) becomes a CUDA C++ kernel for
+sm_90a, csrc/pump_megakernel.cu: one thread per host row, the queue kept
+in device memory, the row's working set in registers, and the state
+updated in place. Its plain twin is engine/pump.py::pump_stage.
+
+`megakernel_stage` dispatches on where the state lives: on the card it
+launches the kernel (or raises — there is no fallback), on the CPU it
+runs the twin. The kernel is built with nvcc from the repo's own source
+on first use, into build/shadow_tpu_torch/ at the repo root, as a plain
+C shared library loaded with ctypes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+from shadow_tpu_torch.config.options import NotYetPorted
+from shadow_tpu_torch.engine.pump import pump_stage
+from shadow_tpu_torch.engine.state import EngineConfig, SimState
+from shadow_tpu_torch.graph.routing import RoutingTables
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "pump_megakernel.cu"
+BUILD_DIR = _PKG.parent / "build" / "shadow_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# (field, kind) in the order of the C struct PumpArgs. kind is the torch
+# dtype a pointer field must have, or None for an int64 scalar field.
+_I64, _I32, _B, _F32 = torch.int64, torch.int32, torch.bool, torch.float32
+_FIELDS = (
+    [("q_time", _I64), ("q_tie", _I64), ("q_kind", _I32), ("q_data", _I32),
+     ("q_aux", _I32), ("q_count", _I32), ("q_overflow", _I32), ("q_head", _I64)]
+    + [(n, _I64) for n in ("tx_refill", "tx_tokens", "tx_last", "rx_refill",
+                           "rx_tokens", "rx_last", "codel_first_above",
+                           "codel_drop_next")]
+    + [("codel_count", _I32), ("codel_dropping", _B)]
+    + [(n, _I64) for n in ("rx_backlog", "codel_dropped", "bytes_sent", "bytes_recv")]
+    + [("st", _I32), ("lport", _I32), ("rport", _I32), ("rhost", _I32)]
+    + [(n, _I64) for n in ("snd_una", "snd_nxt", "snd_max", "snd_end")]
+    + [("fin_pending", _B), ("fin_sent", _B)]
+    + [(n, _I64) for n in ("peer_wnd", "rcv_nxt", "rcv_fin", "delivered", "ooo",
+                           "sacked", "cwnd", "ssthresh")]
+    + [("dupacks", _I32), ("in_rec", _B)]
+    + [(n, _I64) for n in ("srtt", "rttvar", "rto")]
+    + [("rtt_pending", _B), ("rtt_seq", _I64), ("rtt_ts", _I64), ("rto_expire", _I64),
+       ("backoff", _I32), ("tev_time", _I64)]
+    + [(n, _I64) for n in ("retransmits", "segs_in", "segs_out", "bytes_down")]
+    + [("ob_valid", _B), ("ob_dst", _I32), ("ob_time", _I64), ("ob_tie", _I64),
+       ("ob_data", _I32), ("ob_aux", _I32), ("ob_fill", _I32), ("ob_overflow", _I32)]
+    + [(n, _I64) for n in ("seq", "rng_counter", "events_handled", "packets_sent",
+                           "packets_dropped", "packets_unroutable", "trk_bytes_ctrl",
+                           "trk_bytes_data", "trk_retrans", "window_end", "min_used")]
+    + [("rejected", _I32)]
+    + [("host_id", _I32), ("rng_key", _I64), ("host_node", _I32), ("lat_ns", _I64),
+       ("rel", _F32), ("codel_table", _I64)]
+    + [(n, None) for n in ("H", "Q", "O", "S", "R", "N", "num_global_hosts", "pump_k",
+                           "bootstrap_end_ns", "use_netstack", "use_sack", "tracker",
+                           "dyn_runahead", "num_clients", "num_servers", "req_bytes",
+                           "mss", "header_bytes", "rcv_wnd", "rto_min_ns",
+                           "rto_max_ns", "granularity_ns", "segs_per_flush",
+                           "draws_per_event", "packet_emits")]
+)
+
+
+class PumpArgs(ctypes.Structure):
+    _fields_ = [
+        (name, ctypes.c_void_p if kind is not None else ctypes.c_int64)
+        for name, kind in _FIELDS
+    ]
+
+
+class PumpMegakernel:
+    """The built kernel and its launch counter. `launches` counts kernel
+    launches only (the CPU twin does not count)."""
+
+    def __init__(self):
+        self.launches = 0
+        self.build_seconds = None
+        self.build_log = ""
+        self._lib = None
+        self._codel = {}
+
+    def library(self) -> ctypes.CDLL:
+        """Build (first use) and load the shared library."""
+        if self._lib is None:
+            self._lib = self._build()
+        return self._lib
+
+    def _build(self) -> ctypes.CDLL:
+        src = SOURCE.read_bytes()
+        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        out = BUILD_DIR / f"pump_megakernel_{tag}.so"
+        if not out.exists():
+            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+            if not os.path.exists(nvcc):
+                raise RuntimeError("nvcc not found: the pump megakernel cannot be built")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                capture_output=True, text=True,
+            )
+            self.build_seconds = time.perf_counter() - t0
+            self.build_log = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed to build {SOURCE}:\n{self.build_log}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        lib.pump_megakernel_launch.argtypes = [ctypes.POINTER(PumpArgs), ctypes.c_void_p]
+        lib.pump_megakernel_launch.restype = ctypes.c_int
+        lib.pump_megakernel_args_size.restype = ctypes.c_int
+        if lib.pump_megakernel_args_size() != ctypes.sizeof(PumpArgs):
+            raise RuntimeError("PumpArgs layout differs between Python and CUDA")
+        return lib
+
+    def codel_table(self, device) -> torch.Tensor:
+        from shadow_tpu_torch.netstack import codel_table
+
+        key = str(device)
+        if key not in self._codel:
+            self._codel[key] = codel_table(device)
+        return self._codel[key]
+
+    def launch(self, args: PumpArgs, device) -> None:
+        lib = self.library()
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.pump_megakernel_launch(ctypes.byref(args), ctypes.c_void_p(stream))
+        if err != 0:
+            raise RuntimeError(f"pump megakernel launch failed: CUDA error {err}")
+        self.launches += 1
+
+
+PUMP_KERNEL = PumpMegakernel()
+
+
+def _tgen_only(model):
+    from shadow_tpu_torch.models.tgen import TgenModel
+
+    if not isinstance(model, TgenModel):
+        raise NotYetPorted(f"the pump megakernel for model {type(model).__name__}")
+    return model
+
+
+def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTables,
+                cfg: EngineConfig, rejected: torch.Tensor, codel_table: torch.Tensor):
+    """The kernel's argument struct for `st`, after checking device,
+    dtype, shape and contiguity of every tensor it points at. Returns
+    (args, tensors): keep `tensors` alive until the launch is enqueued."""
+    model = _tgen_only(model)
+    p = model.tcp_params
+    q, ob, net, ts, tr = st.queue, st.outbox, st.net, st.model.tcp, st.tracker
+    h, cap = q.time.shape
+    o = ob.valid.shape[1]
+    s, r = p.num_sockets, p.ooo_ranges
+    if not (cfg.pump_k <= 16 and s <= 8 and r <= 8 and p.segs_per_flush <= 8):
+        raise ValueError("pump megakernel supports pump_k <= 16, S, R, segs <= 8")
+    n = tables.lat_ns.shape[0]
+    g = tables.host_node.shape[0]
+    shapes = {
+        "q_time": (h, cap), "q_tie": (h, cap), "q_kind": (h, cap), "q_data": (h, cap, 8),
+        "q_aux": (h, cap), "ooo": (h, s, r, 2), "sacked": (h, s, r, 2),
+        "ob_valid": (h, o), "ob_dst": (h, o), "ob_time": (h, o), "ob_tie": (h, o),
+        "ob_data": (h, o, 8), "ob_aux": (h, o), "rng_key": (h, 2), "window_end": (),
+        "min_used": (), "rejected": (1,), "host_node": (g,), "lat_ns": (n, n),
+        "rel": (n, n), "codel_table": (1025,),
+    }
+    tcp_names = {f.name for f in dataclasses.fields(ts)}
+    tensors = {
+        "q_time": q.time, "q_tie": q.tie, "q_kind": q.kind, "q_data": q.data,
+        "q_aux": q.aux, "q_count": q.count, "q_overflow": q.overflow,
+        "q_head": q.head_time,
+        **{k: getattr(net, k) for k in (
+            "tx_refill", "tx_tokens", "tx_last", "rx_refill", "rx_tokens", "rx_last",
+            "codel_first_above", "codel_drop_next", "codel_count", "codel_dropping",
+            "codel_dropped", "bytes_sent", "bytes_recv")},
+        "rx_backlog": net.rx_backlog_bytes,
+        **{k: getattr(ts, k) for k in tcp_names},
+        "bytes_down": st.model.bytes_down,
+        "ob_valid": ob.valid, "ob_dst": ob.dst, "ob_time": ob.time, "ob_tie": ob.tie,
+        "ob_data": ob.data, "ob_aux": ob.aux, "ob_fill": ob.fill,
+        "ob_overflow": ob.overflow,
+        "seq": st.seq, "rng_counter": st.rng_counter,
+        "events_handled": st.events_handled, "packets_sent": st.packets_sent,
+        "packets_dropped": st.packets_dropped,
+        "packets_unroutable": st.packets_unroutable,
+        "trk_bytes_ctrl": tr.bytes_ctrl, "trk_bytes_data": tr.bytes_data,
+        "trk_retrans": tr.retrans_segs,
+        "window_end": window_end, "min_used": st.min_used_lat, "rejected": rejected,
+        "host_id": st.host_id, "rng_key": st.rng_key, "host_node": tables.host_node,
+        "lat_ns": tables.lat_ns, "rel": tables.rel, "codel_table": codel_table,
+    }
+    args = PumpArgs()
+    dev = st.device
+    for name, kind in _FIELDS:
+        if kind is None:
+            continue
+        t = tensors[name]
+        want = shapes.get(name)
+        if want is None:
+            want = (h, s) if name in tcp_names else (h,)
+        if t.device != dev or t.dtype != kind or tuple(t.shape) != want or not t.is_contiguous():
+            raise ValueError(
+                f"pump megakernel: {name} must be a contiguous {kind} tensor of shape "
+                f"{want} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+                f"{'' if t.is_contiguous() else ' (not contiguous)'}"
+            )
+        setattr(args, name, t.data_ptr())
+    scalars = dict(
+        H=h, Q=cap, O=o, S=s, R=r, N=n, num_global_hosts=g, pump_k=cfg.pump_k,
+        bootstrap_end_ns=cfg.bootstrap_end_ns, use_netstack=int(cfg.use_netstack),
+        use_sack=int(p.use_sack), tracker=int(cfg.tracker),
+        dyn_runahead=int(cfg.use_dynamic_runahead), num_clients=model.num_clients,
+        num_servers=model.num_servers, req_bytes=model.req_bytes, mss=p.mss,
+        header_bytes=p.header_bytes, rcv_wnd=p.rcv_wnd, rto_min_ns=p.rto_min_ns,
+        rto_max_ns=p.rto_max_ns, granularity_ns=p.granularity_ns,
+        segs_per_flush=p.segs_per_flush, draws_per_event=model.DRAWS_PER_EVENT,
+        packet_emits=model.PACKET_EMITS,
+    )
+    for k, v in scalars.items():
+        setattr(args, k, int(v))
+    return args, tensors
+
+
+def megakernel_stage(st: SimState, window_end, model, tables: RoutingTables,
+                     cfg: EngineConfig):
+    """Drop-in for pump_stage: (state, any_rejected). On the card this
+    launches the kernel, which updates `st`'s tensors IN PLACE (callers
+    comparing two paths clone first); on the CPU it runs the twin."""
+    if cfg.pump_k <= 0:
+        raise ValueError("megakernel_stage requires pump_k > 0")
+    if st.device.type == "cpu":
+        return pump_stage(st, window_end, model, tables, cfg)
+    if st.device.type != "cuda":
+        raise RuntimeError(f"pump megakernel: unsupported device {st.device}")
+    we = torch.as_tensor(window_end, dtype=torch.int64, device=st.device).reshape(())
+    rejected = torch.zeros((1,), dtype=torch.int32, device=st.device)
+    args, keep = kernel_args(
+        st, we, model, tables, cfg, rejected, PUMP_KERNEL.codel_table(st.device)
+    )
+    PUMP_KERNEL.launch(args, st.device)
+    del keep
+    return st, rejected[0] != 0
+
+
+def resolve_stage_cfg(cfg: EngineConfig) -> EngineConfig:
+    """pump_k defaults to 8 microsteps per launch when unset."""
+    if cfg.pump_k > 0:
+        return cfg
+    return dataclasses.replace(cfg, pump_k=8)

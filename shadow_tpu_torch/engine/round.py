@@ -1,0 +1,582 @@
+"""The conservative-PDES round engine (port of shadow_tpu/engine/round.py,
+single-device dense path).
+
+Each round is a window [start, window_end) in which every host drains
+its own event queue; cross-host packets stage into per-host outboxes
+with delivery clamped to >= window end, and one batched exchange at the
+round boundary lands them. Inside a round every host with an eligible
+event pops its minimum-key event at once; the iteration count is the
+largest number of events any host handles in the window.
+
+The reference's jitted while_loop and scan become Python loops whose
+conditions are read from the device once per iteration (drain loop) or
+once per round (window choice); `iters_done` and `lanes_live` count
+exactly as the reference counts them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from shadow_tpu_torch import equeue, netstack, rng
+from shadow_tpu_torch.config.options import NotYetPorted
+from shadow_tpu_torch.engine.state import EngineConfig, SimState
+from shadow_tpu_torch.events import KIND_PACKET, pack_tie
+from shadow_tpu_torch.graph.routing import RoutingTables
+from shadow_tpu_torch.netstack import AUX_SHAPED_BIT, AUX_SIZE_MASK
+from shadow_tpu_torch.simtime import TIME_MAX
+
+_W = torch.where
+
+
+@dataclasses.dataclass(frozen=True)
+class Draw:
+    """Per-host counter-based draw access for one handler invocation:
+    logical draw i of this event = threefry(host_key, counter + i). tgen
+    draws nothing; models that draw add their accessors with their slice."""
+
+    key: torch.Tensor  # [H, 2]
+    counter: torch.Tensor  # [H] u32 in i64
+
+
+def _lane_seqs(valid: torch.Tensor, base: torch.Tensor):
+    """Per-lane sequence numbers: base + (# valid lanes before this one),
+    wrapping at 2**32."""
+    vi = valid.to(torch.int64)
+    ranks = torch.cumsum(vi, dim=1) - vi
+    lane = (base[:, None] + ranks) & rng.MASK32
+    nxt = (base + vi.sum(dim=1)) & rng.MASK32
+    return lane, nxt
+
+
+def _replace(obj, **kw):
+    return dataclasses.replace(obj, **kw)
+
+
+def bootstrap(st: SimState, model, cfg: EngineConfig) -> SimState:
+    """Push the model's initial events."""
+    host_ids = st.host_id
+    draw = Draw(st.rng_key, st.rng_counter)
+    lemits = model.bootstrap(draw, host_ids)
+    lseq, seq_final = _lane_seqs(lemits.valid, st.seq)
+    queue = equeue.push_self_lanes(
+        st.queue,
+        valid=lemits.valid,
+        time=lemits.time,
+        tie=pack_tie(lemits.kind, host_ids[:, None].expand_as(lemits.valid), lseq),
+        kind=lemits.kind,
+        data=lemits.data,
+    )
+    return _replace(
+        st,
+        queue=queue,
+        seq=seq_final,
+        rng_counter=(st.rng_counter + model.BOOTSTRAP_DRAWS) & rng.MASK32,
+    )
+
+
+def handle_one_iteration(
+    st: SimState, window_end, model, tables: RoutingTables, cfg: EngineConfig
+) -> SimState:
+    """Pop + handle one event per eligible host; stage emissions."""
+    host_ids = st.host_id
+    h = host_ids.shape[0]
+    dev = host_ids.device
+    i64, i32 = torch.int64, torch.int32
+
+    want = equeue.next_time(st.queue) < window_end
+    ev, q = equeue.pop_min(st.queue, want)
+    st = _replace(st, queue=q)
+
+    net = st.net
+    defer = torch.zeros_like(ev.valid)
+    ready = ev.time
+    size_in = torch.zeros_like(ev.time)
+    if cfg.use_netstack:
+        # ingress: down-bw relay + CoDel at the upstream router
+        is_pkt = ev.valid & (ev.kind == KIND_PACKET)
+        size_in = (ev.aux & AUX_SIZE_MASK).to(i64)
+        shaped = (ev.aux & AUX_SHAPED_BIT) != 0
+        loopback = ev.src_host == host_ids
+        in_bootstrap = ev.time < cfg.bootstrap_end_ns
+        finish = is_pkt & shaped
+        net = _replace(net, rx_backlog_bytes=net.rx_backlog_bytes - _W(finish, size_in, 0))
+        need = is_pkt & ~shaped & ~loopback & ~in_bootstrap & (net.rx_refill > 0)
+        ready, rx_tok, rx_last = netstack.tb_depart(
+            net.rx_tokens, net.rx_last, net.rx_refill, ev.time, size_in, need
+        )
+        codel_drop, net = netstack.codel_dequeue(net, ready, ready - ev.time, need)
+        keep_in = need & ~codel_drop
+        net = _replace(
+            net,
+            rx_tokens=_W(keep_in, rx_tok, net.rx_tokens),
+            rx_last=_W(keep_in, rx_last, net.rx_last),
+            codel_dropped=net.codel_dropped + codel_drop.to(i64),
+        )
+        defer = keep_in & (ready > ev.time)
+        net = _replace(net, rx_backlog_bytes=net.rx_backlog_bytes + _W(defer, size_in, 0))
+        ev = _replace(ev, valid=ev.valid & ~(defer | codel_drop))
+        net = _replace(net, bytes_recv=net.bytes_recv + _W(ev.valid & is_pkt, size_in, 0))
+
+    draw = Draw(st.rng_key, st.rng_counter)
+    model_before = st.model
+    mstate, lemits, pemits = model.handle(st.model, ev, draw, cfg, host_ids)
+
+    lvalid = lemits.valid & ev.valid[:, None]
+    pvalid = pemits.valid & ev.valid[:, None]
+    ep = pvalid.shape[1]
+
+    # --- packet path: routing lookup, loss draw, delivery clamp ---
+    src_node = tables.host_node[host_ids.to(i64)].to(i64)
+    dst_clamped = torch.clamp(pemits.dst, 0, tables.num_global_hosts - 1)
+    dst_node = tables.host_node[dst_clamped.to(i64)].to(i64)
+    lat = tables.lat_ns[src_node[:, None], dst_node]
+    rel = tables.rel[src_node[:, None], dst_node]
+
+    unroutable = pvalid & (lat >= TIME_MAX)
+    ctrs = (
+        draw.counter[:, None]
+        + model.DRAWS_PER_EVENT
+        + torch.arange(ep, dtype=i64, device=dev)[None, :]
+    ) & rng.MASK32
+    loss_u = rng.uniform_f32_grid(draw.key, ctrs)
+    passed = loss_u < rel
+    kept = pvalid & ~unroutable & passed
+    dropped = pvalid & ~unroutable & ~passed
+
+    if cfg.use_netstack:
+        # egress: up-bw relay charged in lane order at emit time
+        sizes = pemits.size.to(i64)
+        in_bootstrap_tx = ev.time < cfg.bootstrap_end_ns
+        tx_tok, tx_last = net.tx_tokens, net.tx_last
+        deps = []
+        for lane in range(ep):
+            loopb = dst_clamped[:, lane] == host_ids
+            charge = (pvalid[:, lane] & ~unroutable[:, lane]) & ~loopb & ~in_bootstrap_tx
+            dep_p, tx_tok, tx_last = netstack.tb_depart(
+                tx_tok, tx_last, net.tx_refill, ev.time, sizes[:, lane], charge
+            )
+            deps.append(dep_p)
+        dep = torch.stack(deps, dim=1)
+        net = _replace(
+            net,
+            tx_tokens=tx_tok,
+            tx_last=tx_last,
+            bytes_sent=net.bytes_sent + _W(kept, sizes, 0).sum(dim=1),
+        )
+        deliver = torch.maximum(dep + lat, window_end)
+    else:
+        deliver = torch.maximum(ev.time[:, None] + lat, window_end)
+
+    # --- sequence numbers: local lanes first, then surviving packets ---
+    lseq, seq_after_locals = _lane_seqs(lvalid, st.seq)
+    pseq, seq_final = _lane_seqs(kept, seq_after_locals)
+
+    # --- push local events (the relay defer rides as lane 0) ---
+    el = lvalid.shape[1]
+    lane_tie = pack_tie(lemits.kind, host_ids[:, None].expand_as(lvalid), lseq)
+    if cfg.use_netstack:
+        p_valid = torch.cat([defer[:, None], lvalid], dim=1)
+        p_time = torch.cat([ready[:, None], lemits.time], dim=1)
+        p_tie = torch.cat([ev.tie[:, None], lane_tie], dim=1)
+        p_kind = torch.cat([ev.kind[:, None], lemits.kind], dim=1)
+        p_data = torch.cat([ev.data[:, None, :], lemits.data], dim=1)
+        p_aux = torch.cat(
+            [
+                (size_in.to(i32) | AUX_SHAPED_BIT)[:, None],
+                torch.zeros((h, el), dtype=i32, device=dev),
+            ],
+            dim=1,
+        )
+    else:
+        p_valid, p_time, p_tie = lvalid, lemits.time, lane_tie
+        p_kind, p_data = lemits.kind, lemits.data
+        p_aux = torch.zeros((h, el), dtype=i32, device=dev)
+    queue = equeue.push_self_lanes(
+        st.queue, valid=p_valid, time=p_time, tie=p_tie, kind=p_kind,
+        data=p_data, aux=p_aux,
+    )
+
+    # --- stage surviving packets into own outbox rows ---
+    ob = st.outbox
+    o_cap = ob.valid.shape[1]
+    lane_idx = torch.arange(o_cap, device=dev)[None, :]
+    fill, overflow = ob.fill, ob.overflow
+    obv, obd, obt, obtie, obdata, obaux = ob.valid, ob.dst, ob.time, ob.tie, ob.data, ob.aux
+    pkt_kind = torch.full((h,), KIND_PACKET, dtype=i32, device=dev)
+    for lane in range(ep):
+        has_room = fill < o_cap
+        write = kept[:, lane] & has_room
+        at = (lane_idx == fill[:, None]) & write[:, None]
+        tie = pack_tie(pkt_kind, host_ids, pseq[:, lane])
+        obv = obv | at
+        obd = _W(at, dst_clamped[:, lane][:, None], obd)
+        obt = _W(at, deliver[:, lane][:, None], obt)
+        obtie = _W(at, tie[:, None], obtie)
+        obdata = _W(at[:, :, None], pemits.data[:, lane, None, :], obdata)
+        obaux = _W(at, (pemits.size[:, lane] & AUX_SIZE_MASK)[:, None], obaux)
+        fill = fill + write.to(i32)
+        overflow = overflow + (kept[:, lane] & ~has_room).to(i32)
+    ob = _replace(
+        ob, valid=obv, dst=obd, time=obt, tie=obtie, data=obdata, aux=obaux,
+        fill=fill, overflow=overflow,
+    )
+
+    min_used = st.min_used_lat
+    if cfg.use_dynamic_runahead:
+        cross = dst_clamped != host_ids[:, None]
+        used = _W(kept & cross & (lat < TIME_MAX), lat, TIME_MAX)
+        min_used = torch.minimum(min_used, used.amin())
+
+    # --- tracker plane ---
+    tracker = st.tracker
+    if cfg.tracker:
+        tcp_range = getattr(model, "TCP_KIND_RANGE", None)
+        if tcp_range is not None:
+            lo, hi = (int(x) for x in tcp_range)
+            is_tcp_ev = ev.valid & (ev.kind >= lo) & (ev.kind < hi)
+        else:
+            is_tcp_ev = torch.zeros_like(ev.valid)
+        is_local_ev = ev.valid & (ev.kind != KIND_PACKET) & ~is_tcp_ev
+        hdr = int(getattr(model, "WIRE_HEADER_BYTES", 0))
+        sizes64 = pemits.size.to(i64)
+        is_ctrl = kept & (pemits.size <= hdr)
+        spec = getattr(model, "pump_spec", None)
+        if spec is not None:
+            rtx_delta = (
+                spec.get_tcp(mstate).retransmits - spec.get_tcp(model_before).retransmits
+            ).sum(dim=1)
+        else:
+            rtx_delta = torch.zeros_like(tracker.retrans_segs)
+        tracker = _replace(
+            tracker,
+            ev_local=tracker.ev_local + is_local_ev.to(i64),
+            ev_tcp=tracker.ev_tcp + is_tcp_ev.to(i64),
+            bytes_ctrl=tracker.bytes_ctrl + _W(is_ctrl, sizes64, 0).sum(dim=1),
+            bytes_data=tracker.bytes_data + _W(kept & ~is_ctrl, sizes64, 0).sum(dim=1),
+            retrans_segs=tracker.retrans_segs + rtx_delta,
+        )
+
+    stride = model.DRAWS_PER_EVENT + ep
+    return _replace(
+        st,
+        queue=queue,
+        min_used_lat=min_used,
+        outbox=ob,
+        net=net,
+        model=mstate,
+        seq=seq_final,
+        rng_counter=(st.rng_counter + stride * ev.valid.to(i64)) & rng.MASK32,
+        events_handled=st.events_handled + ev.valid.to(i64),
+        packets_sent=st.packets_sent + kept.sum(dim=1),
+        packets_dropped=st.packets_dropped + dropped.sum(dim=1),
+        packets_unroutable=st.packets_unroutable + unroutable.sum(dim=1),
+        tracker=tracker,
+    )
+
+
+def model_pump_capable(model) -> bool:
+    """Whether the pump/megakernel fast paths can honor this model."""
+    return (
+        getattr(model, "pump_spec", None) is not None
+        and getattr(model, "LOSS_COUNTER_LANE", None) is None
+        and not hasattr(model, "on_packet_outcomes")
+        and not hasattr(model, "on_codel_drop")
+    )
+
+
+def flush_outbox(st: SimState, cfg: "EngineConfig | None" = None) -> SimState:
+    """Round-boundary exchange: deliver staged packets into destination
+    queues (empty rounds skip the exchange entirely)."""
+    if not bool(st.outbox.valid.any()):
+        return st
+    return _flush_outbox_traffic(st, cfg)
+
+
+def _flush_outbox_traffic(st: SimState, cfg: "EngineConfig | None" = None) -> SimState:
+    if cfg is not None and cfg.exchange == "segment":
+        raise NotYetPorted("exchange: segment")
+    ob = st.outbox
+    h, o_cap = ob.valid.shape
+    m = h * o_cap
+
+    def flat(x):
+        return x.reshape((m,) + tuple(x.shape[2:]))
+
+    valid, dst = flat(ob.valid), flat(ob.dst)
+    mine = valid & (dst >= 0) & (dst < h)
+    lanes = cfg.deliver_lanes if cfg is not None else 0
+    queue = equeue.push_many_sorted(
+        st.queue,
+        dst=dst,
+        valid=mine,
+        time=flat(ob.time),
+        tie=flat(ob.tie),
+        kind=torch.full((m,), KIND_PACKET, dtype=torch.int32, device=dst.device),
+        data=flat(ob.data),
+        aux=flat(ob.aux),
+        deliver_lanes=lanes if lanes > 0 else st.queue.capacity,
+    )
+    fresh = _replace(
+        ob,
+        valid=torch.zeros_like(ob.valid),
+        time=torch.full_like(ob.time, TIME_MAX),
+        fill=torch.zeros_like(ob.fill),
+    )
+    return _replace(st, queue=queue, outbox=fresh)
+
+
+def effective_engine(cfg: EngineConfig, device) -> str:
+    """The engine an "auto" config runs: the megakernel when the state
+    lives on the card, else the pump when pump_k > 0, else plain. An
+    explicit engine name always wins."""
+    if cfg.engine != "auto":
+        return cfg.engine
+    if torch.device(device).type == "cuda":
+        return "megakernel"
+    return "pump" if cfg.pump_k > 0 else "plain"
+
+
+def run_round(st: SimState, window_end, model, tables: RoutingTables,
+              cfg: EngineConfig, counters=None) -> SimState:
+    """Drain all events < window_end on every host, then exchange packets.
+    `counters` (a dict) gains "iters" and "stage_calls" when given."""
+    if cfg.active_lanes > 0:
+        raise NotYetPorted("active_lanes > 0 (active-set compaction)")
+    max_iters = cfg.max_iters_per_round
+    eng = effective_engine(cfg, st.device)
+    stage, stage_cfg = None, cfg
+    if model_pump_capable(model):
+        if eng == "megakernel":
+            from shadow_tpu_torch.engine.megakernel import (
+                megakernel_stage,
+                resolve_stage_cfg,
+            )
+
+            stage, stage_cfg = megakernel_stage, resolve_stage_cfg(cfg)
+        elif eng == "pump" and cfg.pump_k > 0:
+            from shadow_tpu_torch.engine.pump import pump_stage
+
+            stage = pump_stage
+
+    iters = 0
+    while iters < max_iters:
+        elig = equeue.next_time(st.queue) < window_end
+        if not bool(elig.any()):
+            break
+        st = _replace(st, lanes_live=st.lanes_live + elig.to(torch.int64))
+        if stage is not None:
+            st, rej = stage(st, window_end, model, tables, stage_cfg)
+            if bool(rej):
+                st = handle_one_iteration(st, window_end, model, tables, cfg)
+        else:
+            st = handle_one_iteration(st, window_end, model, tables, cfg)
+        iters += 1
+    if counters is not None:
+        counters["iters"] = counters.get("iters", 0) + iters
+    if cfg.tracker:
+        tr = st.tracker
+        exch = tr.exch_hwm.clone()
+        exch[0] = torch.maximum(exch[0], st.outbox.fill.sum().to(torch.int32))
+        st = _replace(
+            st,
+            tracker=_replace(
+                tr,
+                outbox_hwm=torch.maximum(tr.outbox_hwm, st.outbox.fill),
+                queue_hwm=torch.maximum(tr.queue_hwm, st.queue.count),
+                exch_hwm=exch,
+            ),
+        )
+    st = flush_outbox(st, cfg)
+    if cfg.tracker:
+        st = _replace(
+            st,
+            tracker=_replace(
+                st.tracker, queue_hwm=torch.maximum(st.tracker.queue_hwm, st.queue.count)
+            ),
+        )
+    iters_done = st.iters_done.clone()
+    iters_done[0] += iters
+    return _replace(st, now=torch.maximum(st.now, window_end), iters_done=iters_done)
+
+
+def _next_window_end(st: SimState, end_time: int, cfg: EngineConfig, start,
+                     tables: "RoutingTables | None" = None):
+    """The round's window end (an i64 scalar tensor): start + runahead,
+    widened adaptively to min over hosts of (next event + node
+    lookahead), capped at end_time."""
+    start = torch.clamp(start, max=end_time)
+    runahead = cfg.runahead_ns
+    if cfg.use_dynamic_runahead:
+        raise NotYetPorted("use_dynamic_runahead")
+    floor = torch.clamp(start + runahead, max=end_time)
+    adaptive = (
+        cfg.adaptive_window
+        and tables is not None
+        and tables.lookahead_ns is not None
+        and tables.host_node is not None
+    )
+    if not adaptive:
+        return floor
+    nt = equeue.next_time(st.queue)
+    la = tables.lookahead_ns[tables.host_node[st.host_id.to(torch.int64)].to(torch.int64)]
+    bound = nt + torch.minimum(la, TIME_MAX - nt)
+    w = bound.amin()
+    return torch.maximum(floor, torch.clamp(w, max=end_time))
+
+
+def validate_runahead(cfg: EngineConfig, tables: RoutingTables) -> None:
+    min_lat = tables.min_path_latency_ns()
+    if cfg.runahead_ns > min_lat:
+        raise ValueError(
+            f"runahead_ns={cfg.runahead_ns} exceeds the minimum path latency "
+            f"{min_lat}ns; use runahead_ns <= graph.min_latency_ns()"
+        )
+
+
+PROBE_FIELDS = (
+    "next_time", "overflow", "now", "events_handled", "packets_sent",
+    "queue_overflow", "outbox_overflow",
+)
+
+
+def state_probe(st: SimState) -> torch.Tensor:
+    """[7] i64 summary the chunk loop reads (one fetch per chunk): min
+    pending time, total/queue/outbox overflow, now, events, packets."""
+    qov = st.queue.overflow.sum().to(torch.int64)
+    oov = st.outbox.overflow.sum().to(torch.int64)
+    return torch.stack(
+        [
+            equeue.next_time(st.queue).amin(),
+            qov + oov,
+            st.now,
+            st.events_handled.sum(),
+            st.packets_sent.sum(),
+            qov,
+            oov,
+        ]
+    )
+
+
+class CapacityError(RuntimeError):
+    """Fixed-slot capacity exhausted — user-remediable via config."""
+
+    queue_overflow: int = 0
+    outbox_overflow: int = 0
+
+
+def _capacity_error(queue_ov: int, outbox_ov: int) -> CapacityError:
+    sat = [n for n, v in (("queue", queue_ov), ("outbox/exchange", outbox_ov)) if v]
+    err = CapacityError(
+        f"event capacity exhausted: {queue_ov + outbox_ov} events/packets dropped "
+        f"(saturated: {' + '.join(sat)} [queue.overflow={queue_ov}, "
+        f"outbox.overflow={outbox_ov}]); increase queue_capacity/outbox_capacity"
+    )
+    err.queue_overflow, err.outbox_overflow = queue_ov, outbox_ov
+    return err
+
+
+def check_capacity(st: SimState) -> None:
+    """Fail loudly if fixed-slot capacity was exhausted."""
+    qov = int(st.queue.overflow.sum())
+    oov = int(st.outbox.overflow.sum())
+    if qov or oov:
+        raise _capacity_error(qov, oov)
+
+
+def host_stats(st: SimState) -> dict:
+    """ONE bulk fetch of every per-host stat/tracker tensor, as numpy."""
+    t = st.tracker
+    fields = {
+        "host_id": st.host_id,
+        "events_handled": st.events_handled,
+        "packets_sent": st.packets_sent,
+        "packets_dropped": st.packets_dropped,
+        "packets_unroutable": st.packets_unroutable,
+        "codel_dropped": st.net.codel_dropped,
+        "bytes_sent": st.net.bytes_sent,
+        "bytes_recv": st.net.bytes_recv,
+        "ev_local": t.ev_local,
+        "ev_tcp": t.ev_tcp,
+        "bytes_ctrl": t.bytes_ctrl,
+        "bytes_data": t.bytes_data,
+        "retrans_segs": t.retrans_segs,
+        "queue_hwm": t.queue_hwm,
+        "outbox_hwm": t.outbox_hwm,
+        "rounds_live": t.rounds_live,
+        "rounds_idle": t.rounds_idle,
+        "exch_hwm": t.exch_hwm,
+        "iters_done": st.iters_done,
+        "lanes_live": st.lanes_live,
+        "win_ns_sum": st.win_ns_sum,
+    }
+    return {k: np.asarray(v.detach().cpu().numpy()) for k, v in fields.items()}
+
+
+def run_until(
+    st: SimState,
+    end_time: int,
+    model,
+    tables: RoutingTables,
+    cfg: EngineConfig,
+    rounds_per_chunk: int = 64,
+    max_chunks: int = 10_000,
+    on_chunk=None,
+    counters=None,
+) -> SimState:
+    """Host-side driver: chunks of `rounds_per_chunk` rounds until no work
+    remains before end_time. The caller's state is never modified (the
+    run works on a private copy). Rounds are grouped into chunks exactly
+    as in the reference, whose probe is read once per chunk, because a
+    chunk's trailing idle rounds are visible in `now` and the tracker's
+    round counters. `on_chunk(probe: dict)` sees each chunk's probe;
+    `counters` (a dict) accumulates "iters"."""
+    if cfg.exchange == "segment":
+        raise NotYetPorted("exchange: segment")
+    validate_runahead(cfg, tables)
+    if int(equeue.next_time(st.queue).amin()) >= end_time:
+        check_capacity(st)
+        return st
+    st = st.clone()
+    end_t = torch.tensor(end_time, dtype=torch.int64, device=st.device)
+    for _chunk in range(max_chunks):
+        for r in range(rounds_per_chunk):
+            start = equeue.next_time(st.queue).amin()
+            has_traffic = st.outbox.valid.any()
+            window_end = _next_window_end(st, end_time, cfg, start, tables)
+            live = bool(((start < end_t) | has_traffic).item())
+            if not live:
+                # quiescent: this and every later round of the chunk take
+                # the idle branch with the same window end
+                idle = rounds_per_chunk - r
+                st = _replace(st, now=torch.maximum(st.now, window_end))
+                if cfg.tracker:
+                    st = _replace(
+                        st,
+                        tracker=_replace(
+                            st.tracker, rounds_idle=st.tracker.rounds_idle + idle
+                        ),
+                    )
+                break
+            width = window_end - torch.minimum(start, window_end)
+            st = _replace(st, win_ns_sum=st.win_ns_sum + width)
+            st = run_round(st, window_end, model, tables, cfg, counters)
+            if cfg.tracker:
+                st = _replace(
+                    st,
+                    tracker=_replace(st.tracker, rounds_live=st.tracker.rounds_live + 1),
+                )
+        probe = dict(zip(PROBE_FIELDS, state_probe(st).tolist()))
+        if probe["overflow"]:
+            raise _capacity_error(probe["queue_overflow"], probe["outbox_overflow"])
+        if on_chunk is not None:
+            on_chunk(probe)
+        if probe["next_time"] >= end_time:
+            return st
+    raise RuntimeError(
+        f"simulation did not reach end_time={end_time} within "
+        f"{max_chunks}x{rounds_per_chunk} rounds; raise max_chunks/rounds_per_chunk"
+    )

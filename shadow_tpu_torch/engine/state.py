@@ -1,0 +1,350 @@
+"""Simulation state: hosts as rows of device-resident tensors (port of
+shadow_tpu/engine/state.py).
+
+The state is a dataclass of tensors whose field paths mirror the
+reference's flax pytree, so `state_to_numpy` / `state_from_numpy` map a
+port state to and from a dict of numpy arrays keyed exactly like
+`jax.tree_util.keystr` keys the reference's SimState leaves. u32 leaves
+(seq, rng_counter, the threefry key words) cross as uint32 and live here
+as int64 tensors holding values in [0, 2**32).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from shadow_tpu_torch import equeue, netstack, rng
+from shadow_tpu_torch.device import resolve_device
+from shadow_tpu_torch.equeue import PAYLOAD_LANES, EventQueue
+from shadow_tpu_torch.events import MAX_HOSTS
+from shadow_tpu_torch.netstack import NetDevState
+from shadow_tpu_torch.simtime import TIME_MAX
+from shadow_tpu_torch.utils.tree import tree_leaves_with_path, tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Static engine parameters: the reference's EngineConfig field for
+    field (shadow_tpu/engine/state.py documents each), so one config maps
+    onto both packages. The port reads all of them except the ones whose
+    planes it does not carry yet: exchange="segment", active_lanes > 0 and
+    use_dynamic_runahead raise NotYetPorted, a2a_capacity/pool_capacity/
+    megakernel_tile/ensemble are multi-device or TPU-tiling knobs with no
+    effect here. engine: "auto" (the megakernel on the card, else pump
+    when pump_k > 0, else plain), "plain", "pump" or "megakernel" (the
+    CUDA kernel on the card, its twin on the CPU) — all bit-identical."""
+
+    num_hosts: int
+    queue_capacity: int = 64
+    outbox_capacity: int = 16
+    runahead_ns: int = 1_000_000
+    seed: int = 1
+    max_iters_per_round: int = 1_000_000
+    use_netstack: bool = False
+    bootstrap_end_ns: int = 0
+    use_dynamic_runahead: bool = False
+    adaptive_window: bool = True
+    exchange: str = "all_to_all"
+    a2a_capacity: int = -1
+    pool_capacity: int = 0
+    deliver_lanes: int = 0
+    active_lanes: int = 0
+    pump_k: int = 0
+    engine: str = "auto"
+    megakernel_tile: int = 0
+    tracker: bool = False
+    ensemble: bool = False
+
+    def __post_init__(self):
+        if not 0 < self.num_hosts <= MAX_HOSTS:
+            raise ValueError(f"num_hosts must be in (0, {MAX_HOSTS}]")
+        if self.runahead_ns <= 0:
+            raise ValueError("runahead must be > 0")
+        if self.engine not in ("auto", "plain", "pump", "megakernel"):
+            raise ValueError(
+                f"unknown engine {self.engine!r} "
+                "(expected 'auto', 'plain', 'pump', or 'megakernel')"
+            )
+        if self.exchange not in ("all_to_all", "all_gather", "dense", "segment"):
+            raise ValueError(
+                f"unknown exchange {self.exchange!r} (expected 'all_to_all', "
+                "'all_gather', 'dense', or 'segment')"
+            )
+        if self.pool_capacity < 0:
+            raise ValueError("pool_capacity must be >= 0 (0 = whole outbox)")
+        if self.engine == "pump" and self.pump_k <= 0:
+            raise ValueError("engine='pump' requires pump_k > 0")
+        if self.megakernel_tile < 0 or (
+            self.megakernel_tile > 0 and self.num_hosts % self.megakernel_tile
+        ):
+            raise ValueError("megakernel_tile must be 0 or divide num_hosts")
+        if (
+            0 < self.active_lanes
+            and self.megakernel_tile > 0
+            and self.active_lanes % self.megakernel_tile
+        ):
+            # compacted iterations hand the megakernel an active_lanes-row
+            # sub-state; an explicit tile must divide that too
+            raise ValueError(
+                "megakernel_tile must divide active_lanes when both are set"
+            )
+
+
+@dataclasses.dataclass
+class Outbox:
+    """Per-host staging area for packets emitted during a round; rows are
+    owned by the emitting host, and the round-boundary flush lands them."""
+
+    valid: torch.Tensor  # [H, O] bool
+    dst: torch.Tensor  # [H, O] i32
+    time: torch.Tensor  # [H, O] i64 delivery time
+    tie: torch.Tensor  # [H, O] i64
+    data: torch.Tensor  # [H, O, PAYLOAD_LANES] i32
+    aux: torch.Tensor  # [H, O] i32 (packet size in bytes)
+    fill: torch.Tensor  # [H] i32 next free lane
+    overflow: torch.Tensor  # [H] i32 emissions dropped for lack of lanes
+
+
+def _empty_outbox(h: int, o: int, device) -> Outbox:
+    return Outbox(
+        valid=torch.zeros((h, o), dtype=torch.bool, device=device),
+        dst=torch.zeros((h, o), dtype=torch.int32, device=device),
+        time=torch.full((h, o), TIME_MAX, dtype=torch.int64, device=device),
+        tie=torch.zeros((h, o), dtype=torch.int64, device=device),
+        data=torch.zeros((h, o, PAYLOAD_LANES), dtype=torch.int32, device=device),
+        aux=torch.zeros((h, o), dtype=torch.int32, device=device),
+        fill=torch.zeros((h,), dtype=torch.int32, device=device),
+        overflow=torch.zeros((h,), dtype=torch.int32, device=device),
+    )
+
+
+@dataclasses.dataclass
+class TrackerState:
+    """Device-side observability counters (the tracker plane); written by
+    the engines when EngineConfig.tracker is set, never read back by the
+    simulation."""
+
+    ev_local: torch.Tensor  # [H] i64
+    ev_tcp: torch.Tensor  # [H] i64
+    bytes_ctrl: torch.Tensor  # [H] i64
+    bytes_data: torch.Tensor  # [H] i64
+    retrans_segs: torch.Tensor  # [H] i64
+    queue_hwm: torch.Tensor  # [H] i32
+    outbox_hwm: torch.Tensor  # [H] i32
+    rounds_live: torch.Tensor  # scalar i64
+    rounds_idle: torch.Tensor  # scalar i64
+    exch_hwm: torch.Tensor  # [H] i32 (row 0 carries the value)
+
+
+def _empty_tracker(h: int, device) -> TrackerState:
+    def z(dt):
+        return torch.zeros((h,), dtype=dt, device=device)
+
+    scalar = torch.zeros((), dtype=torch.int64, device=device)
+    return TrackerState(
+        ev_local=z(torch.int64),
+        ev_tcp=z(torch.int64),
+        bytes_ctrl=z(torch.int64),
+        bytes_data=z(torch.int64),
+        retrans_segs=z(torch.int64),
+        queue_hwm=z(torch.int32),
+        outbox_hwm=z(torch.int32),
+        rounds_live=scalar.clone(),
+        rounds_idle=scalar.clone(),
+        exch_hwm=z(torch.int32),
+    )
+
+
+@dataclasses.dataclass
+class SimState:
+    now: torch.Tensor  # scalar i64: start of the current window
+    min_used_lat: torch.Tensor  # scalar i64
+    queue: EventQueue
+    outbox: Outbox
+    seq: torch.Tensor  # [H] u32 (held in i64)
+    rng_key: torch.Tensor  # [H, 2] u32 key words (held in i64)
+    rng_counter: torch.Tensor  # [H] u32 (held in i64)
+    host_id: torch.Tensor  # [H] i32
+    net: NetDevState
+    model: Any
+    events_handled: torch.Tensor  # [H] i64
+    packets_sent: torch.Tensor  # [H] i64
+    packets_dropped: torch.Tensor  # [H] i64
+    packets_unroutable: torch.Tensor  # [H] i64
+    iters_done: torch.Tensor  # [H] i32 (row 0 carries the count)
+    lanes_live: torch.Tensor  # [H] i64
+    win_ns_sum: torch.Tensor  # scalar i64
+    tracker: TrackerState
+
+    @property
+    def num_hosts(self) -> int:
+        return self.seq.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.seq.device
+
+    def clone(self) -> "SimState":
+        """A private deep copy (callers that compare two paths clone
+        first: the megakernel updates its state in place)."""
+        return tree_map(torch.clone, self)
+
+
+@dataclasses.dataclass
+class LocalEmits:
+    """Up to EL local (task/timer) events per host from one handler call."""
+
+    valid: torch.Tensor  # [H, EL] bool
+    time: torch.Tensor  # [H, EL] i64
+    kind: torch.Tensor  # [H, EL] i32
+    data: torch.Tensor  # [H, EL, PAYLOAD_LANES] i32
+
+
+@dataclasses.dataclass
+class PacketEmits:
+    """Up to EP packets per host from one handler call."""
+
+    valid: torch.Tensor  # [H, EP] bool
+    dst: torch.Tensor  # [H, EP] i32
+    data: torch.Tensor  # [H, EP, PAYLOAD_LANES] i32
+    size: torch.Tensor  # [H, EP] i32
+
+
+def init_state(
+    cfg: EngineConfig,
+    model_state,
+    tx_bytes_per_interval=None,
+    rx_bytes_per_interval=None,
+    device="cuda",
+) -> SimState:
+    """Build the initial state on `device` (the card unless asked for the
+    CPU). `model_state` must already live there (model.init(device))."""
+    dev = resolve_device(device)
+    h = cfg.num_hosts
+
+    def z(dt):
+        return torch.zeros((h,), dtype=dt, device=dev)
+
+    return SimState(
+        now=torch.zeros((), dtype=torch.int64, device=dev),
+        min_used_lat=torch.full((), TIME_MAX, dtype=torch.int64, device=dev),
+        queue=equeue.create(h, cfg.queue_capacity, dev),
+        outbox=_empty_outbox(h, cfg.outbox_capacity, dev),
+        seq=z(torch.int64),
+        rng_key=rng.host_keys(cfg.seed, h, dev),
+        rng_counter=z(torch.int64),
+        host_id=torch.arange(h, dtype=torch.int32, device=dev),
+        net=netstack.create(h, tx_bytes_per_interval, rx_bytes_per_interval, dev),
+        model=model_state,
+        events_handled=z(torch.int64),
+        packets_sent=z(torch.int64),
+        packets_dropped=z(torch.int64),
+        packets_unroutable=z(torch.int64),
+        iters_done=z(torch.int32),
+        lanes_live=z(torch.int64),
+        win_ns_sum=torch.zeros((), dtype=torch.int64, device=dev),
+        tracker=_empty_tracker(h, dev),
+    )
+
+
+# leaves that the reference keeps as uint32 (the port holds them in i64)
+_U32_LEAVES = (".seq", ".rng_counter", ".rng_key")
+
+
+def state_to_numpy(st) -> "dict[str, np.ndarray]":
+    """{reference leaf path: numpy array} with the reference's dtypes:
+    the port's form of the weights carried across (rng_key crosses as
+    jax.random.key_data, u32 [H, 2])."""
+    out = {}
+    for path, leaf in tree_leaves_with_path(st):
+        a = leaf.detach().cpu().numpy()
+        if path in _U32_LEAVES:
+            a = a.astype(np.uint32)
+        out[path] = a
+    return out
+
+
+def _model_template(leaves: dict, device):
+    """The model-state dataclass a leaf dict describes (tgen only)."""
+    from shadow_tpu_torch.models.tgen import TgenState
+    from shadow_tpu_torch.transport.tcp import TcpState
+
+    tcp = TcpState(
+        **{f.name: None for f in dataclasses.fields(TcpState)}
+    )
+    rest = {
+        f.name: None for f in dataclasses.fields(TgenState) if f.name != "tcp"
+    }
+    if not all(f".model.{k}" in leaves for k in rest):
+        from shadow_tpu_torch.config.options import NotYetPorted
+
+        raise NotYetPorted("a model state other than tgen's")
+    return TgenState(tcp=tcp, **rest)
+
+
+def _skeleton(device):
+    """A SimState of None leaves, for state_from_numpy to fill."""
+
+    def empty(cls, **sub):
+        return cls(
+            **{f.name: sub.get(f.name) for f in dataclasses.fields(cls)}
+        )
+
+    return empty(
+        SimState,
+        queue=empty(EventQueue),
+        outbox=empty(Outbox),
+        net=empty(NetDevState),
+        tracker=empty(TrackerState),
+    )
+
+
+def state_from_numpy(leaves: dict, device="cpu") -> SimState:
+    """Inverse of state_to_numpy for a tgen world: build a port SimState
+    on `device` from {reference leaf path: array}."""
+    dev = torch.device(device)
+    like = _skeleton(dev)
+    like.model = _model_template(leaves, dev)
+    paths = [p for p, _ in _paths_of(like)]
+    missing = sorted(set(paths) - set(leaves))
+    if missing:
+        raise ValueError(f"state_from_numpy: missing leaves {missing}")
+
+    def build(node, prefix):
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            return dataclasses.replace(
+                node,
+                **{
+                    f.name: build(getattr(node, f.name), f"{prefix}.{f.name}")
+                    for f in dataclasses.fields(node)
+                },
+            )
+        a = np.asarray(leaves[prefix])
+        if prefix in _U32_LEAVES:
+            a = a.astype(np.int64)
+        return torch.as_tensor(np.array(a, order="C"), device=dev)
+
+    return build(like, "")
+
+
+def _paths_of(tree, prefix=""):
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        out = []
+        for f in dataclasses.fields(tree):
+            out += _paths_of(getattr(tree, f.name), f"{prefix}.{f.name}")
+        return out
+    return [(prefix, tree)]
+
+
+def leaf_nbytes(leaf) -> int:
+    """Device bytes of one tensor leaf (shape x element size)."""
+    return int(leaf.numel()) * leaf.element_size()
+
+
+def tree_nbytes(tree) -> int:
+    """Sum of leaf_nbytes over a state (or any sub-tree of one)."""
+    return sum(leaf_nbytes(leaf) for _, leaf in tree_leaves_with_path(tree))

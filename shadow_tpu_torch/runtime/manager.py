@@ -1,0 +1,325 @@
+"""Manager: build the simulated world from config and run it (port of
+shadow_tpu/runtime/manager.py, reduced to scripted single-device runs).
+
+Resolve the graph, expand host specs, assign IPs, map hosts to graph
+nodes, build the model, run the device engine with heartbeats, and write
+`sim-stats.json`, the processed config and the hosts file into the data
+directory. Features of the reference that the port does not carry yet
+raise NotYetPorted while the world is validated, before anything runs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import time
+
+import numpy as np
+
+from shadow_tpu_torch.config import ConfigOptions
+from shadow_tpu_torch.config.options import NotYetPorted
+from shadow_tpu_torch.device import resolve_device
+from shadow_tpu_torch.engine.state import EngineConfig, tree_nbytes
+from shadow_tpu_torch.graph import IpAssignment, NetworkGraph, compute_routing
+from shadow_tpu_torch.graph.network_graph import ONE_GBIT_SWITCH_GML
+from shadow_tpu_torch.models.registry import _NOT_YET_PORTED, _REGISTRY, build_model
+from shadow_tpu_torch.netstack import bw_bits_per_sec_to_refill
+from shadow_tpu_torch.runtime.scheduler import TpuScheduler
+from shadow_tpu_torch.simtime import NS_PER_SEC, fmt_time_ns
+from shadow_tpu_torch.utils.shadow_log import slog
+
+
+@dataclasses.dataclass
+class HostInstance:
+    """One expanded simulated host."""
+
+    index: int
+    name: str
+    node_index: int
+    ip: int
+    model_name: str
+    bw_up_bits: int = -1
+    bw_down_bits: int = -1
+    spec: object = None
+
+
+@dataclasses.dataclass
+class ScriptedWorld:
+    model: object
+    tables: object
+    ecfg: EngineConfig
+    tx_refill: "object | None"
+    rx_refill: "object | None"
+    host_node: "list[int]"
+    runahead_ns: int
+
+
+@dataclasses.dataclass
+class SimResults:
+    hosts: "list[HostInstance]"
+    events_handled: int
+    packets_sent: int
+    packets_dropped: int
+    packets_unroutable: int
+    wall_seconds: float
+    sim_seconds: float
+    scheduler: str
+    unexpected_final_states: "list[str]" = dataclasses.field(default_factory=list)
+    extra_stats: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def sim_sec_per_wall_sec(self) -> float:
+        return self.sim_seconds / self.wall_seconds if self.wall_seconds > 0 else float("inf")
+
+
+def _reject_unported(config: ConfigOptions) -> None:
+    """Config-time refusal of everything outside the port's first slice."""
+    g, e = config.general, config.experimental
+    checks = [
+        (g.replicas > 1, "general.replicas > 1 (the ensemble plane)"),
+        (bool(g.mesh), "general.mesh (the 2-D mesh plane)"),
+        (g.parallelism > 1, "general.parallelism > 1 (multi-device sharding)"),
+        (bool(g.checkpoint_dir) or g.resume, "checkpoint/resume"),
+        (e.autotune, "experimental.autotune"),
+        (e.scheduler != "tpu", f"scheduler {e.scheduler!r}"),
+        (e.use_dynamic_runahead, "experimental.use_dynamic_runahead"),
+        (e.active_lanes > 0, "experimental.active_lanes > 0"),
+        (g.tracker or bool(g.trace_file), "the host-side tracker plane (general.tracker)"),
+        (bool(g.metrics_file or g.metrics_prom), "the metrics plane"),
+        (bool(e.xprof_dir), "profiler capture (experimental.xprof_dir)"),
+        (e.chunk_watchdog_s > 0, "the chunk watchdog"),
+    ]
+    for bad, what in checks:
+        if bad:
+            raise NotYetPorted(what)
+
+
+class Manager:
+    def __init__(self, config: ConfigOptions, device="cuda"):
+        self.config = config
+        _reject_unported(config)
+        self.device = resolve_device(device)
+        self.graph = self._load_graph()
+        self.hosts = self._expand_hosts()
+        self._validate_process_specs()
+        self.ip = IpAssignment()
+        for h in self.hosts:
+            if h.ip >= 0:
+                self.ip.assign_explicit(h.index, h.ip)
+        for h in self.hosts:
+            if h.ip < 0:
+                h.ip = self.ip.assign_auto(h.index)
+
+    def _validate_process_specs(self) -> None:
+        for h in self.hosts:
+            for p in h.spec.processes:
+                if p.path in _NOT_YET_PORTED:
+                    raise NotYetPorted(f"model {p.path!r}")
+                if p.path not in _REGISTRY:
+                    raise NotYetPorted(
+                        f"hosts.{h.name}: process {p.path!r} (managed processes)"
+                    )
+            if len(h.spec.processes) != 1:
+                raise ValueError(
+                    f"hosts.{h.name}: scripted-model hosts take exactly one process"
+                )
+            if not isinstance(h.spec.processes[0].args, dict):
+                raise ValueError(
+                    f"hosts.{h.name}: scripted model {h.model_name!r} takes args "
+                    f"as a mapping, not a string or list"
+                )
+
+    def _load_graph(self) -> NetworkGraph:
+        g = self.config.network.graph
+        if g.kind == "1_gbit_switch":
+            return NetworkGraph.from_gml(ONE_GBIT_SWITCH_GML)
+        if g.inline is not None:
+            return NetworkGraph.from_gml(g.inline)
+        return NetworkGraph.from_file(g.path)
+
+    def _expand_hosts(self) -> "list[HostInstance]":
+        import ipaddress
+
+        out = []
+        for spec in self.config.hosts:
+            if spec.network_node_id not in self.graph.id_to_index:
+                raise ValueError(
+                    f"hosts.{spec.name}: network_node_id {spec.network_node_id} not in graph"
+                )
+            if not spec.processes:
+                raise ValueError(f"hosts.{spec.name}: at least one process is required")
+            for i in range(spec.quantity):
+                name = spec.name if spec.quantity == 1 else f"{spec.name}{i + 1}"
+                ip = -1
+                if spec.ip_addr is not None:
+                    if spec.quantity != 1:
+                        raise ValueError(f"hosts.{spec.name}: ip_addr with quantity > 1")
+                    ip = int(ipaddress.IPv4Address(spec.ip_addr))
+                node_index = self.graph.id_to_index[spec.network_node_id]
+                bw_up = spec.bandwidth_up_bits
+                if bw_up is None:
+                    bw_up = int(self.graph.bw_up_bits[node_index])
+                bw_down = spec.bandwidth_down_bits
+                if bw_down is None:
+                    bw_down = int(self.graph.bw_down_bits[node_index])
+                out.append(
+                    HostInstance(
+                        index=len(out), name=name, node_index=node_index, ip=ip,
+                        model_name=spec.processes[0].path, bw_up_bits=bw_up,
+                        bw_down_bits=bw_down, spec=spec,
+                    )
+                )
+        return out
+
+    def build_world(self) -> ScriptedWorld:
+        """Validate the model specs, compute routing, resolve the runahead
+        window and shaping refills, and assemble the EngineConfig."""
+        cfgo = self.config
+        num_hosts = len(self.hosts)
+        model_names = {h.model_name for h in self.hosts}
+        if len(model_names) != 1:
+            raise ValueError(
+                f"all hosts must run the same model currently, got {sorted(model_names)}"
+            )
+        arg_sets = {json.dumps(spec.processes[0].args, sort_keys=True) for spec in cfgo.hosts}
+        if len(arg_sets) != 1:
+            raise ValueError(
+                "all hosts must run the model with identical args currently, got "
+                f"{sorted(arg_sets)}"
+            )
+        model = build_model(model_names.pop(), num_hosts, cfgo.hosts[0].processes[0].args)
+        host_node = [h.node_index for h in self.hosts]
+        tables = compute_routing(
+            self.graph, use_shortest_path=cfgo.network.use_shortest_path, device=self.device
+        ).with_hosts(host_node)
+        runahead = cfgo.experimental.runahead_ns
+        if runahead is None:
+            runahead = min(self.graph.min_latency_ns(), tables.min_path_latency_ns())
+
+        bw_up = np.array([max(h.bw_up_bits, 0) for h in self.hosts], dtype=np.int64)
+        bw_down = np.array([max(h.bw_down_bits, 0) for h in self.hosts], dtype=np.int64)
+        use_netstack = bool((bw_up > 0).any() or (bw_down > 0).any())
+        tx_refill = bw_bits_per_sec_to_refill(bw_up) if use_netstack else None
+        rx_refill = bw_bits_per_sec_to_refill(bw_down) if use_netstack else None
+
+        ecfg = EngineConfig(
+            num_hosts=num_hosts,
+            queue_capacity=cfgo.experimental.queue_capacity,
+            outbox_capacity=cfgo.experimental.outbox_capacity,
+            runahead_ns=runahead,
+            seed=cfgo.general.seed,
+            max_iters_per_round=cfgo.experimental.max_iters_per_round,
+            use_netstack=use_netstack,
+            bootstrap_end_ns=cfgo.general.bootstrap_end_time_ns,
+            use_dynamic_runahead=cfgo.experimental.use_dynamic_runahead,
+            adaptive_window=cfgo.experimental.adaptive_window,
+            active_lanes=cfgo.experimental.active_lanes,
+            engine=cfgo.experimental.engine,
+            pump_k=cfgo.experimental.pump_k,
+            tracker=cfgo.general.tracker,
+        )
+        return ScriptedWorld(
+            model=model, tables=tables, ecfg=ecfg, tx_refill=tx_refill,
+            rx_refill=rx_refill, host_node=host_node, runahead_ns=runahead,
+        )
+
+    def run(self) -> SimResults:
+        from shadow_tpu_torch.engine.megakernel import PUMP_KERNEL
+        from shadow_tpu_torch.utils.progress import ProgressLine
+
+        cfgo = self.config
+        world = self.build_world()
+        sched = TpuScheduler(
+            world.model, world.tables, world.ecfg,
+            rounds_per_chunk=cfgo.experimental.rounds_per_chunk,
+            tx_bytes_per_interval=world.tx_refill,
+            rx_bytes_per_interval=world.rx_refill,
+            device=self.device,
+        )
+        end = cfgo.general.stop_time_ns
+        hb_ns = cfgo.general.heartbeat_interval_ns
+        progress = ProgressLine(cfgo.general.progress)
+        last_hb = [0]
+
+        def on_chunk(probe):
+            progress.update(probe["now"], end, events=probe["events_handled"])
+            if hb_ns > 0 and probe["now"] - last_hb[0] >= hb_ns:
+                last_hb[0] = probe["now"]
+                progress.clear()
+                slog(
+                    "info", probe["now"], "manager",
+                    f"heartbeat: {probe['events_handled']} events, "
+                    f"{probe['packets_sent']} packets, sim time "
+                    f"{fmt_time_ns(probe['now'])}",
+                )
+
+        slog("info", 0, "manager",
+             f"starting: {len(self.hosts)} hosts, scheduler={sched.name}, "
+             f"engine={sched.engine}, device={self.device}, "
+             f"runahead={world.runahead_ns}ns, stop={fmt_time_ns(end)}")
+        launches0 = PUMP_KERNEL.launches
+        t0 = time.perf_counter()
+        final = sched.run(end, on_chunk=on_chunk)
+        if self.device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - t0
+        progress.finish(end)
+
+        results = SimResults(
+            hosts=self.hosts,
+            events_handled=int(final.events_handled.sum()),
+            packets_sent=int(final.packets_sent.sum()),
+            packets_dropped=int(final.packets_dropped.sum()),
+            packets_unroutable=int(final.packets_unroutable.sum()),
+            wall_seconds=wall,
+            sim_seconds=end / NS_PER_SEC,
+            scheduler=sched.name,
+        )
+        total = tree_nbytes(final)
+        results.extra_stats["memory"] = {
+            "num_hosts": len(self.hosts),
+            "replicas": 1,
+            "total_bytes": total,
+            "bytes_per_host": total / max(len(self.hosts), 1),
+        }
+        # how the trajectory was executed (like `memory`, not the trajectory)
+        results.extra_stats["execution"] = {
+            "package": "shadow_tpu_torch",
+            "device": str(self.device),
+            "engine": sched.engine,
+            "kernel_launches": {"pump_megakernel": PUMP_KERNEL.launches - launches0},
+        }
+        slog("info", end, "manager",
+             f"finished: {results.events_handled} events in {wall:.2f}s wall "
+             f"({results.sim_sec_per_wall_sec:.2f} sim-s/wall-s)")
+        self._write_outputs(results)
+        return results
+
+    def _write_outputs(self, results: SimResults) -> None:
+        data_dir = self.config.general.data_directory
+        os.makedirs(data_dir, exist_ok=True)
+        with open(os.path.join(data_dir, "sim-stats.json"), "w") as f:
+            json.dump(
+                {
+                    "events_handled": results.events_handled,
+                    "packets_sent": results.packets_sent,
+                    "packets_dropped": results.packets_dropped,
+                    "packets_unroutable": results.packets_unroutable,
+                    "wall_seconds": results.wall_seconds,
+                    "sim_seconds": results.sim_seconds,
+                    "scheduler": results.scheduler,
+                    "num_hosts": len(results.hosts),
+                    "unexpected_final_states": results.unexpected_final_states,
+                    **results.extra_stats,
+                },
+                f,
+                indent=2,
+            )
+        with open(os.path.join(data_dir, "processed-config.json"), "w") as f:
+            json.dump(self.config.to_dict(), f, indent=2, default=str)
+        with open(os.path.join(data_dir, "hosts"), "w") as f:
+            for h in self.hosts:
+                f.write(f"{self.ip.ip_str(h.index)} {h.name}\n")
