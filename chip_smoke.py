@@ -9,8 +9,15 @@ Phases, each printing one line; any failure exits non-zero:
      32-node lossy graph, 100 Mbit shaped hosts, tgen 100 KB streams over
      TCP, tracker on) advanced on the card into the burst, then one kernel
      stage and one twin stage on clones of the same state, every leaf equal;
-     then the same on a 4,096-host world whose streams cross lossy links
-     (shaped and unshaped), plus whole runs of both engines there;
+     the kernel timed alone at four launches of that world (the burst at
+     pump_k 8 and 16, mid-run at 20 ms, and at 30 ms, where every live row
+     rejects its head), each also held against the twin; kernel vs twin on
+     states that reach the kernel's edge cases: a queue of 8 slots whose
+     rows start full, a queue of 1,100 slots whose rows hold more slots
+     below the window end than the kernel stages, and a host count that is
+     not a multiple of the rows a warp owns; then the same on a 4,096-host
+     world whose streams cross lossy links (shaped and unshaped), plus
+     whole runs of both engines there;
   4. the main path: run_until to 0.5 s sim with engine "auto", which must
      resolve to the kernel; bench counters equal the pinned oracle values;
   5. plain vs megakernel engines agree on host_stats at 0.1 s sim;
@@ -27,6 +34,7 @@ import dataclasses
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import tempfile
@@ -63,6 +71,18 @@ TGEN_EXAMPLE_STATS = {
 # sim time at which the bench world is in its burst: the first pump
 # stage of the next round takes P1, P2 and P3 events and rejects others
 BURST_NS = 14_000_000
+# later launches of the bench world: mid-run, and one where every live
+# row rejects its head event (most launches of a run are this small)
+MID_NS = 20_000_000
+REJECTS_NS = 30_000_000
+# the edge-case states of phase 3: a small queue, a queue above the
+# kernel's staging area (with this many events added just below the
+# window end on half of the rows), and a host count this many rows short
+# of a multiple of the rows a warp owns
+SMALL_QUEUE = 8
+LARGE_QUEUE = 1100
+LARGE_QUEUE_EXTRA = 48
+RAGGED_SHORT = 5
 # the lossy world of phase 3b: hosts, and the sim times at which its
 # next pump stage takes P1 (shaped only), P2 and P3 events, rejects
 # others and drops packets to loss draws
@@ -174,6 +194,74 @@ def lossy_world(num_hosts: int, device, shaped: bool = True, loss: float = 0.05,
     st = init_state(cfg, model.init(device), tx_bytes_per_interval=bw,
                     rx_bytes_per_interval=bw, device=device)
     return cfg, model, tables, bootstrap(st, model, cfg)
+
+
+def rebuilt_queue(st, capacity: int, we: int, extra: int = 0, seed: int = 0):
+    """A copy of `st` whose event queue has `capacity` slots. Each row keeps
+    its earliest `capacity` events by (time, tie); on a seeded half of the
+    rows it also gains up to `extra` timer events just below the window
+    end `we` (the pump rejects a non-packet event, so the row's earlier
+    events keep their outcome). Events sit at seeded random columns. A row
+    whose kept events fill `capacity` starts full."""
+    from shadow_tpu_torch.events import KIND_INVALID, KIND_MODEL_BASE, pack_tie
+    from shadow_tpu_torch.simtime import TIME_MAX
+
+    q = st.queue
+    dev = q.time.device
+    h, cap0 = q.time.shape
+    g = np.random.default_rng(seed)
+    # each row's events in (time, tie) order: stable sorts, tie then time
+    o = torch.sort(q.tie, dim=1, stable=True).indices
+    o = torch.gather(o, 1, torch.sort(torch.gather(q.time, 1, o), dim=1, stable=True).indices)
+    keep = torch.clamp(q.count.to(torch.int64), max=capacity)
+    sel = torch.from_numpy(g.random(h) < 0.5).to(dev)
+    ext = torch.where(sel, torch.clamp(capacity - keep, max=extra), 0)
+    j = torch.arange(capacity, device=dev)[None, :].expand(h, capacity)
+    real = j < keep[:, None]
+    inj = ~real & (j < (keep + ext)[:, None])
+    src = torch.gather(o, 1, torch.clamp(j, max=cap0 - 1))
+    k_inj = j - keep[:, None]
+    host = st.host_id.to(torch.int64)[:, None].expand(h, capacity)
+    timer = torch.full_like(k_inj, KIND_MODEL_BASE)
+    time = torch.where(real, torch.gather(q.time, 1, src),
+                       torch.where(inj, int(we) - 1 - k_inj, TIME_MAX))
+    tie = torch.where(real, torch.gather(q.tie, 1, src),
+                      torch.where(inj, pack_tie(timer, host, (1 << 31) + k_inj), (1 << 63) - 1))
+    kind = torch.where(real, torch.gather(q.kind, 1, src),
+                       torch.where(inj, KIND_MODEL_BASE, KIND_INVALID)).to(torch.int32)
+    data = torch.where(real[:, :, None], torch.gather(
+        q.data, 1, src[:, :, None].expand(h, capacity, q.data.shape[2])), 0)
+    aux = torch.where(real, torch.gather(q.aux, 1, src), 0).to(torch.int32)
+    # list position i -> column col[h, i]
+    col = torch.from_numpy(np.argsort(g.random((h, capacity)), axis=1)).to(dev)
+    return dataclasses.replace(st.clone(), queue=dataclasses.replace(
+        q,
+        time=torch.empty_like(time).scatter_(1, col, time),
+        tie=torch.empty_like(tie).scatter_(1, col, tie),
+        kind=torch.empty_like(kind).scatter_(1, col, kind),
+        data=torch.empty_like(data).scatter_(1, col[:, :, None].expand_as(data), data),
+        aux=torch.empty_like(aux).scatter_(1, col, aux),
+        count=(keep + ext).to(torch.int32),
+        head_time=time.amin(dim=1),
+    ))
+
+
+def ptxas_resources(log: str) -> dict:
+    """Registers and stack frame per thread and static shared memory per
+    block of the pump kernel, from nvcc's -Xptxas -v log."""
+    out = dict(regs=None, stack_bytes=None, smem_bytes=None)
+    inside = False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            inside = "15pump_megakernelE" in ln
+            continue
+        for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("regs", r"Used (\d+) registers"),
+                         ("smem_bytes", r"(\d+) bytes smem")):
+            m = re.search(pat, ln)
+            if inside and m:
+                out[key] = int(m.group(1))
+    return out
 
 
 def leaves_equal(a, b):
@@ -384,10 +472,11 @@ def main(argv=None) -> int:
         # 2. build
         t0 = time.perf_counter()
         mk.PUMP_KERNEL.library()
+        resources = ptxas_resources(mk.PUMP_KERNEL.build_log)
         ptxas = [ln.strip() for ln in mk.PUMP_KERNEL.build_log.splitlines()
                  if "registers" in ln or "spill" in ln or "stack frame" in ln]
         line("build", seconds=round(time.perf_counter() - t0, 3),
-             nvcc_seconds=mk.PUMP_KERNEL.build_seconds, ptxas=ptxas)
+             nvcc_seconds=mk.PUMP_KERNEL.build_seconds, ptxas=ptxas, **resources)
 
     def sync():
         if dev.type == "cuda":
@@ -396,39 +485,124 @@ def main(argv=None) -> int:
     # 3. kernel vs twin at full width, in the burst
     cfg, model, tables, st0 = bench_world(args.hosts, dev)
     stage_cfg = mk.resolve_stage_cfg(cfg)
+    plain = dataclasses.replace(cfg, engine="plain")
     t0 = time.perf_counter()
-    st_b = run_until(st0, BURST_NS, model, tables, dataclasses.replace(cfg, engine="plain"))
+    st_b = run_until(st0, BURST_NS, model, tables, plain)
     sync()
     advance_s = time.perf_counter() - t0
-    start = equeue.next_time(st_b.queue).amin()
-    we = _next_window_end(st_b, args.end_ns, cfg, start, tables)
-    elig = equeue.next_time(st_b.queue) < we
-    tallies = {"steps": [], "live_rows": int(elig.sum())}
-    twin, rej_t = pump_stage(st_b.clone(), we, model, tables, stage_cfg,
-                             debug_out=tallies["steps"])
+
+    def window(st):
+        return _next_window_end(st, args.end_ns, cfg, equeue.next_time(st.queue).amin(), tables)
+
+    def compare(st, we, scfg, m=model, t=tables):
+        """One twin stage (with its class tallies) and one kernel stage on
+        clones of `st`: (ok, facts for the phase line, twin result)."""
+        steps = []
+        twin, rej_t = pump_stage(st.clone(), we, m, t, scfg, debug_out=steps)
+        kern, rej_k = mk.megakernel_stage(st.clone(), we, m, t, scfg)
+        sync()
+        bad, err = leaves_equal(twin, kern)
+        classes = {k: sum(d[k] for d in steps) for k in ("p1", "p2", "p3", "rejected")}
+        live = int((equeue.next_time(st.queue) < we).sum())
+        facts = dict(mismatched_leaves=bad, max_abs_err=err, rejected=[bool(rej_t), bool(rej_k)],
+                     classes=classes, live_rows=live, pump_k=scfg.pump_k)
+        return not bad and bool(rej_t) == bool(rej_k), facts, (twin, steps)
+
+    we = window(st_b)
     launches0 = mk.PUMP_KERNEL.launches
-    kern, rej_k = mk.megakernel_stage(st_b.clone(), we, model, tables, stage_cfg)
-    sync()
-    bad, max_abs_err = leaves_equal(twin, kern)
-    classes = {k: sum(d[k] for d in tallies["steps"]) for k in ("p1", "p2", "p3", "rejected")}
-    ok3 = not bad and bool(rej_t) == bool(rej_k) and all(classes[k] > 0 for k in ("p1", "p2", "p3"))
-    line("kernel_vs_twin", ok=ok3, mismatched_leaves=bad, max_abs_err=max_abs_err,
-         rejected=[bool(rej_t), bool(rej_k)],
-         classes=classes, live_rows=tallies["live_rows"], advance_s=round(advance_s, 3))
+    ok3, facts, (twin, steps) = compare(st_b, we, stage_cfg)
+    tallies = {"steps": steps, "live_rows": facts["live_rows"]}
+    ok3 = ok3 and all(facts["classes"][k] > 0 for k in ("p1", "p2", "p3"))
+    max_abs_err = facts["max_abs_err"]
+    line("kernel_vs_twin", ok=ok3, **facts, advance_s=round(advance_s, 3))
     if not ok3:
         return 1
+
+    # the kernel alone at four launches of the bench world, each also held
+    # against the twin; then kernel vs twin where the kernel meets its
+    # edges. Each runs in a function, so that its states are freed when it
+    # returns and the main path's memory peak (phase 4) is its own.
     reps = 20
-    if dev.type == "cuda":
-        ms_k = kernel_device_ms(st_b, we, model, tables, stage_cfg, reps)
-    else:
-        ms_k = timed_ms(lambda s: mk.megakernel_stage(s, we, model, tables, stage_cfg), reps,
-                        st_b.clone, dev)
+
+    def timed_launches():
+        """(ok, the kernel's time at each launch, largest error)."""
+        st_m = run_until(st_b, MID_NS, model, tables, plain)
+        st_r = run_until(st_m, REJECTS_NS, model, tables, plain)
+        timed = {
+            "burst_k8": (st_b, we, stage_cfg),
+            "burst_k16": (st_b, we, dataclasses.replace(stage_cfg, pump_k=16)),
+            "mid_20ms_k8": (st_m, window(st_m), stage_cfg),
+            "rejects_30ms_k8": (st_r, window(st_r), stage_cfg),
+        }
+        launch_ms, err = {}, 0.0
+        for name, (st_l, we_l, scfg) in timed.items():
+            if name != "burst_k8":
+                ok_l, facts_l, _ = compare(st_l, we_l, scfg)
+                err = max(err, facts_l["max_abs_err"])
+                line("kernel_vs_twin", ok=ok_l, launch=name, **facts_l)
+                if not ok_l:
+                    return False, launch_ms, err
+            if dev.type == "cuda":
+                launch_ms[name] = kernel_device_ms(st_l, we_l, model, tables, scfg, reps)
+            else:
+                launch_ms[name] = timed_ms(
+                    lambda s, w=we_l, c=scfg: mk.megakernel_stage(s, w, model, tables, c),
+                    reps, st_l.clone, dev)
+        return True, launch_ms, err
+
+    def edge_cases():
+        """Kernel vs twin on rows that start full, rows with more slots
+        below the window end than the kernel stages, and a last warp that
+        owns fewer rows than the others: (ok, largest error)."""
+        edge = {
+            "queue_8_full": (rebuilt_queue(st_b, SMALL_QUEUE, int(we)), we, model, tables),
+            "queue_1100_over_stage": (
+                rebuilt_queue(st_b, LARGE_QUEUE, int(we), extra=LARGE_QUEUE_EXTRA, seed=3),
+                we, model, tables),
+        }
+        rcfg, rmodel, rtables, r0 = bench_world(args.hosts - RAGGED_SHORT, dev)
+        st_rg = run_until(r0, BURST_NS, rmodel, rtables,
+                          dataclasses.replace(rcfg, engine="plain"))
+        edge["ragged_hosts"] = (st_rg, _next_window_end(
+            st_rg, args.end_ns, rcfg, equeue.next_time(st_rg.queue).amin(), rtables),
+            rmodel, rtables)
+        err = 0.0
+        for name, (st_e, we_e, m_e, t_e) in edge.items():
+            q = st_e.queue
+            below = (q.time < we_e).sum(dim=1)
+            reached = dict(
+                hosts=int(q.time.shape[0]), queue_capacity=int(q.time.shape[1]),
+                full_rows=int((q.count == q.time.shape[1]).sum()),
+                rows_over_stage=int((below > mk.STAGE).sum()),
+                rows_in_last_warp=int(q.time.shape[0] % mk.ROWS_PER_WARP),
+            )
+            ok_e, facts_e, _ = compare(st_e, we_e, stage_cfg, m_e, t_e)
+            err = max(err, facts_e["max_abs_err"])
+            hit = {"queue_8_full": reached["full_rows"] > 0,
+                   "queue_1100_over_stage": reached["rows_over_stage"] > 0,
+                   "ragged_hosts": reached["rows_in_last_warp"] > 0}[name]
+            line("kernel_vs_twin_edge", ok=ok_e and hit, case=name, **reached, **facts_e)
+            if not (ok_e and hit):
+                return False, err
+        return True, err
+
+    ok_t, launch_ms, err = timed_launches()
+    max_abs_err = max(max_abs_err, err)
+    if not ok_t:
+        return 1
+    ms_k = launch_ms["burst_k8"]
     ms_t = timed_ms(lambda s: pump_stage(s, we, model, tables, stage_cfg), 5, st_b.clone, dev)
-    mk.PUMP_KERNEL.launches = launches0  # comparison launches do not count
     bound_ms, bound_by, reck = pump_bound(st_b, we, model, tables, stage_cfg, tallies, twin)
     line("kernel_time", kernel_ms=ms_k, twin_ms=ms_t, bound_ms=bound_ms, bound_by=bound_by,
-         share_of_bound=bound_ms / ms_k, reckoning=reck, reps=reps)
-    del twin, kern, st_b
+         share_of_bound=bound_ms / ms_k, reckoning=reck, reps=reps, launch_ms=launch_ms,
+         rows_per_warp=mk.ROWS_PER_WARP, stage=mk.STAGE)
+    del twin
+    ok_e, err = edge_cases()
+    max_abs_err = max(max_abs_err, err)
+    if not ok_e:
+        return 1
+    mk.PUMP_KERNEL.launches = launches0  # comparison launches do not count
+    del st_b
 
     # 3b. kernel vs twin where loss draws drop packets (the bench world's
     # pairs share a node and never lose one), shaped and unshaped
@@ -468,12 +642,15 @@ def main(argv=None) -> int:
         del twin, kern, lst, l0
 
     # 4. the main path at full width (the earlier phases' states are
-    # freed before the peak is reset, so the peak is the main path's)
+    # freed before the peak is reset, so the peak is the main path's; the
+    # line also gives what was still allocated when it started: the
+    # initial state and the tables)
     eng = effective_engine(dataclasses.replace(cfg, engine="auto"), dev)
     counters = {}
     sync()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    allocated_at_start = torch.cuda.memory_allocated() if dev.type == "cuda" else None
     mk.PUMP_KERNEL.launches = 0
     t0 = time.perf_counter()
     final = run_until(st0, args.end_ns, model, tables, cfg, rounds_per_chunk=16,
@@ -492,6 +669,7 @@ def main(argv=None) -> int:
     line("main_path", ok=ok4, engine=eng, counters=got, pinned=want if full else None,
          wall_s=round(wall, 3), sim_s_per_wall_s=args.end_ns / 1e9 / wall,
          kernel_launches=main_launches, iters=counters.get("iters"),
+         allocated_at_start=allocated_at_start,
          max_memory_allocated=torch.cuda.max_memory_allocated() if dev.type == "cuda" else None)
     if not ok4:
         return 1
@@ -560,6 +738,7 @@ def main(argv=None) -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
+        **resources,
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,36 +5,56 @@
 // package's one pl.pallas_call), whose body is
 // shadow_tpu/engine/pump.py::pump_microstep. The plain PyTorch twin of
 // this file is shadow_tpu_torch/engine/pump.py::pump_stage; every
-// statement below has its counterpart there, and the two are held
-// leaf-equal on the card (chip_smoke.py) and on the CPU through the JAX
-// reference (tests/test_torch_megakernel.py).
-//
-// Design. One thread owns one host row and runs the microsteps as
-// scalar code: pick the true next event (queue head by (time, tie)
-// argmin, first slot wins a tie, vs the defer-FIFO head), then P1
-// (ingress token bucket + CoDel: defer or drop), P2 (receiver data,
-// in-order or out-of-order, SACK-carrying ACK) or P3 (sender cumulative
-// ACK, Reno step, RTT/RTO, SACK scoreboard, send-engine lanes with
-// threefry loss draws); anything else marks the row rejected and stops
-// it. A row whose event is not taken stops early: every write of a
-// later microstep is masked by `alive`, so stopping is bit-exact. The
-// defer FIFO lives in registers/local memory; at the end its leftovers
-// land in the row's own queue slots (push_self_lanes semantics). All
-// state is updated in place in global memory. The [H, Q] queue stays in
-// global memory: a microstep reads a row's time/tie only when the row
-// has an event to select, and rescans `time` only after it consumes a
-// queue slot (the head_time cache is kept exactly).
+// statement of the microstep has its counterpart there, and the two are
+// held leaf-equal on the card (chip_smoke.py) and on the CPU through the
+// JAX reference (tests/test_torch_megakernel.py).
 //
 // What bounds it: memory. A microstep does a few hundred integer
-// operations per live host against several KB of row state, so the
-// least time is the bytes the live rows must move over the card's
-// memory rate (3.35 TB/s on an H100 SXM). Each live host reads its
-// queue keys (Q x 16 B) plus the gathered slot, its [S] flow-table row
-// (~1.6 KB with the [S, R, 2] range sets) and counters, and writes back
-// what it changes; streaming the whole 26.7 KB/host carry in and out is
-// the upper reckoning (~547 MB at H = 10,240). The design keeps each
-// row's working set in one thread so that nothing is re-read from
-// device memory between microsteps except the queue keys.
+// operations per live host against a few KB of row state, so the least
+// time is the bytes the live rows must move over the card's memory rate
+// (3.35 TB/s on an H100 SXM). The largest part is the [H, Q] queue's
+// `time` row of each live row (Q x 8 B), then the selected slots and the
+// [S] flow-table row. In practice the kernel is bound by latency: chains
+// of dependent loads and integer work per event, one row per lane. The
+// design reads the queue once, coalesced, batches the gathers of a warp's
+// rows, and keeps a microstep's working set out of local memory.
+//
+// Design. A block is one warp and owns ROWS_PER_WARP consecutive host
+// rows; lane l < ROWS_PER_WARP runs row l's microsteps, and the whole
+// warp does the row's queue work.
+// A. Selection, once per launch per live row (count > 0, head < window
+//    end). Within a launch the kernel only pops a row's queue (pushes wait
+//    for the landing, C), and each pop takes the minimum by (time, tie)
+//    with the lowest slot winning a tie (equeue.peek_min). So the queue
+//    events a launch can take are the row's first pump_k entries in
+//    (time, tie, slot) order. The warp streams each live row's `time` row
+//    through shared memory in pieces (cp.async, several pieces in flight,
+//    32 lanes x 8 B per copy; a lane then reads two slots at a time) and,
+//    in that one pass, stages the slots
+//    below the window end (STAGE of them, in slot order), the least time
+//    at or past it, and the row's first free columns. Then, for all rows
+//    at once, it gathers the staged slots' ties and ranks the staged
+//    entries by (time, tie, slot), a lane per entry across the rows:
+//    ranks below pump_k form the row's list,
+//    and the time after the list is the head once the list is popped. A
+//    row with more slots below the window end than STAGE takes its list
+//    from pump_k + 1 rounds of a warp-wide minimum over its device-memory
+//    row instead, so no queue capacity is out of reach.
+// B. The microsteps, per lane, statement for statement the reference's
+//    microstep; the queue candidate is list entry `qi`, whose payload
+//    (kind, aux, data) is staged in shared memory. Only the head's payload
+//    is staged before the first microstep: a row that rejects its head
+//    stops there, and the warp stages the rest of the lists only for rows
+//    that took their head. A pop writes the two key slots; count and head
+//    are written once at the end. The defer FIFO, and the socket-matching
+//    fields of each row's S sockets (kept up to date), live in shared
+//    memory; the per-event range sets and segment lanes are register
+//    arrays, sized at compile time for TCP's one shape (NR, NSEG) and
+//    indexed only by unrolled loops.
+// C. The landing, per lane: leftover defers go to the row's free columns
+//    after the pops in column order (the free columns found in A merged
+//    with the popped slots), with overflow counted as push_self_lanes
+//    counts it.
 //
 // Integer semantics follow jax under x64: i64 floor division (fdiv),
 // wrapping u32 counters held in i64, arithmetic shifts on i32 lanes,
@@ -43,6 +63,7 @@
 // f32 path reliability; no multiply-add is formed.
 
 #include <cstdint>
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -61,7 +82,24 @@ constexpr int CODEL_TABLE_LEN = 1024;
 constexpr int FLAG_FIN = 0x01, FLAG_SYN = 0x02, FLAG_RST = 0x04, FLAG_ACK = 0x10;
 constexpr int ST_CLOSED = 0, ST_LISTEN = 1, ST_ESTABLISHED = 4, ST_FINWAIT1 = 5;
 constexpr int LANES = 8;  // PAYLOAD_LANES
-constexpr int MAX_S = 8, MAX_R = 8, MAX_K = 16, MAX_SEG = 8;
+constexpr int MAX_S = 8, MAX_K = 16;
+// TCP's shape, the one shape the kernel is built for: out-of-order ranges
+// and segments per flush (TGEN_TCP); the wrapper refuses any other
+constexpr int NR = 4, NSEG = 4;
+constexpr int WARP = 32;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+// Host rows per warp (a block is one warp); 8 beat 16 at mid-run, all-rejected and main-path launches (H100, PERF.md).
+constexpr int ROWS_PER_WARP = 8;
+// Queue slots below the window end that a row stages in shared memory
+// (one per lane); a row with more takes its list from device memory.
+constexpr int STAGE = 32;
+// `time` slots per piece of a streamed queue row, and pieces in flight.
+constexpr int PIECE = 512;
+constexpr int PIECES_IN_FLIGHT = 3;
+
+static_assert(ROWS_PER_WARP <= WARP && STAGE == WARP && STAGE > MAX_K && PIECE % (2 * WARP) == 0,
+              "layout");
 
 }  // namespace
 
@@ -114,6 +152,12 @@ __device__ __forceinline__ int64_t fdiv(int64_t a, int64_t b) {
   int64_t q = a / b;
   if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
   return q;
+}
+// fdiv for a divisor known only at run time: 32-bit division where both
+// operands fit (the common case: bytes and byte rates), exact either way
+__device__ __forceinline__ int64_t fdiv_rt(int64_t a, int64_t b) {
+  if (((a | b) >> 31) == 0) return int64_t(uint32_t(a) / uint32_t(b));
+  return fdiv(a, b);
 }
 __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
 __device__ __forceinline__ int64_t imax(int64_t a, int64_t b) { return a > b ? a : b; }
@@ -173,82 +217,341 @@ __device__ void tb_depart(int64_t tokens, int64_t last, int64_t refill, int64_t 
   const int64_t cur = imin(cap, tokens + intervals * safe);
   const int64_t cur_last = last + intervals * REFILL_INTERVAL_NS;
   const int64_t deficit = imax(size - cur, 0);
-  const int64_t k = fdiv(deficit + safe - 1, safe);
+  const int64_t k = fdiv_rt(deficit + safe - 1, safe);
   const int64_t wait_end = cur_last + k * REFILL_INTERVAL_NS;
   depart = limited ? (deficit > 0 ? wait_end : now) : now;
   tokens_out = limited ? cur + k * safe - size : tokens;
   last_out = limited ? (deficit > 0 ? wait_end : cur_last) : last;
 }
 
-// [R, 2] range-set helpers (transport/tcp.py _ooo_absorb / _ooo_insert)
-__device__ void ooo_absorb(int64_t &rcv, int64_t (*ooo)[2], int R, bool m) {
-  for (int it = 0; it < R; ++it) {
+// [NR, 2] range-set helpers (transport/tcp.py _ooo_absorb / _ooo_insert).
+// The sets are register arrays of NR ranges, indexed by unrolled loops
+// only.
+__device__ __forceinline__ void ooo_absorb(int64_t &rcv, int64_t (&ooo)[NR][2], bool m) {
+#pragma unroll
+  for (int it = 0; it < NR; ++it) {
     int64_t reach = -1;
-    bool hit[MAX_R];
-    for (int r = 0; r < R; ++r) {
-      hit[r] = m && ooo[r][0] >= 0 && ooo[r][0] <= rcv;
-      if (hit[r]) reach = imax(reach, ooo[r][1]);
-    }
+    unsigned hit = 0;
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+      if (m && ooo[r][0] >= 0 && ooo[r][0] <= rcv) {
+        hit |= 1u << r;
+        reach = imax(reach, ooo[r][1]);
+      }
     rcv = imax(rcv, reach);
-    for (int r = 0; r < R; ++r)
-      if (hit[r]) ooo[r][0] = ooo[r][1] = -1;
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+      if ((hit >> r) & 1u) ooo[r][0] = ooo[r][1] = -1;
   }
 }
-__device__ void ooo_insert(int64_t (*ooo)[2], int R, bool m, int64_t s, int64_t e) {
+__device__ __forceinline__ void ooo_insert(int64_t (&ooo)[NR][2], bool m, int64_t s, int64_t e) {
   int64_t ms = int64_t(1) << 60, me = -1;
-  bool overlap[MAX_R], avail[MAX_R];
+  unsigned overlap = 0;
   int ins = -1;
-  for (int r = 0; r < R; ++r) {
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
     const bool empty = ooo[r][0] < 0;
-    overlap[r] = m && !empty && s <= ooo[r][1] && e >= ooo[r][0];
-    if (overlap[r]) {
+    const bool ov = m && !empty && s <= ooo[r][1] && e >= ooo[r][0];
+    if (ov) {
+      overlap |= 1u << r;
       ms = imin(ms, ooo[r][0]);
       me = imax(me, ooo[r][1]);
     }
-    avail[r] = overlap[r] || (empty && m);
-    if (avail[r] && ins < 0) ins = r;
+    if ((ov || (empty && m)) && ins < 0) ins = r;
   }
   ms = imin(s, ms);
   me = imax(e, me);
-  for (int r = 0; r < R; ++r)
-    if (overlap[r]) ooo[r][0] = ooo[r][1] = -1;
-  if (m && ins >= 0) {
-    ooo[ins][0] = ms;
-    ooo[ins][1] = me;
+  // the overlapped ranges are cleared, then the merged range lands in the
+  // first available one
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    if ((overlap >> r) & 1u) ooo[r][0] = ooo[r][1] = -1;
+    if (m && r == ins) {
+      ooo[r][0] = ms;
+      ooo[r][1] = me;
+    }
   }
 }
 
-struct Fifo {
-  int64_t time[MAX_K], tie[MAX_K];
-  int32_t kind[MAX_K], aux[MAX_K], data[MAX_K][LANES];
-  int head, cnt;
+// ---- warp primitives ----
+__device__ __forceinline__ unsigned lanes_below(int lane) { return (1u << lane) - 1u; }
+
+// i64 warp minimum from two 32-bit redux.sync steps (signed high word,
+// then unsigned low word among the lanes that hold the minimum high word)
+__device__ __forceinline__ int64_t warp_min_i64(int64_t v) {
+  const int hi = int(v >> 32);
+  const int m_hi = __reduce_min_sync(FULL, hi);
+  const unsigned m_lo = __reduce_min_sync(FULL, hi == m_hi ? unsigned(v) : 0xFFFFFFFFu);
+  return int64_t((uint64_t(uint32_t(m_hi)) << 32) | m_lo);
+}
+
+// A queue entry's order key: (time, tie, slot), compared in that order.
+struct Key {
+  int64_t time, tie;
+  int slot;
 };
+__device__ __forceinline__ bool key_less(const Key &x, const Key &y) {
+  return x.time < y.time || (x.time == y.time && (x.tie < y.tie || (x.tie == y.tie && x.slot < y.slot)));
+}
+__device__ __forceinline__ Key warp_min_key(Key k) {
+#pragma unroll
+  for (int d = WARP / 2; d > 0; d /= 2) {
+    Key o;
+    o.time = __shfl_xor_sync(FULL, k.time, d);
+    o.tie = __shfl_xor_sync(FULL, k.tie, d);
+    o.slot = __shfl_xor_sync(FULL, k.slot, d);
+    if (key_less(o, k)) k = o;
+  }
+  return k;
+}
+
+// The nth (from 0) set bit of m.
+__device__ __forceinline__ int nth_bit(unsigned m, int n) {
+  for (int i = 0; i < n; ++i) m &= m - 1;
+  return __ffs(m) - 1;
+}
+
+// One warp's working set in shared memory. Per-row arrays whose rows a
+// lane reads for itself are row-minor ([..][ROWS_PER_WARP]) or padded, so
+// that the lanes of a warp fall into different banks.
+struct WarpSmem {
+  alignas(16) int64_t piece[PIECES_IN_FLIGHT][PIECE];  // streamed pieces of `time` rows
+  // a row's staged slots below the window end, in slot order
+  int64_t st_time[ROWS_PER_WARP][STAGE + 1];
+  int64_t st_tie[ROWS_PER_WARP][STAGE + 1];
+  int32_t st_slot[ROWS_PER_WARP][STAGE + 1];
+  int32_t n_below[ROWS_PER_WARP];         // slots below the window end
+  int64_t rest[ROWS_PER_WARP];            // least time at or past it
+  int64_t after[ROWS_PER_WARP];           // head time once the list is popped
+  int32_t n_free[ROWS_PER_WARP];
+  int32_t free_col[ROWS_PER_WARP][MAX_K];  // first free columns, ascending
+  int8_t list[MAX_K][ROWS_PER_WARP];       // list entry i: its staged index
+  // payloads of the list entries
+  int32_t p_kind[MAX_K][ROWS_PER_WARP];
+  int32_t p_aux[MAX_K][ROWS_PER_WARP];
+  alignas(16) int32_t p_data[ROWS_PER_WARP][MAX_K * LANES + 4];
+  // the defer FIFO; f_src: the list entry whose payload an entry carries
+  int64_t f_time[MAX_K][ROWS_PER_WARP];
+  int64_t f_tie[MAX_K][ROWS_PER_WARP];
+  int32_t f_aux[MAX_K][ROWS_PER_WARP];
+  int8_t f_src[MAX_K][ROWS_PER_WARP];
+  // socket-matching fields of the rows' sockets, [row * S + s]
+  int32_t sk_st[ROWS_PER_WARP * MAX_S];
+  int32_t sk_lport[ROWS_PER_WARP * MAX_S];
+  int32_t sk_rport[ROWS_PER_WARP * MAX_S];
+  int32_t sk_rhost[ROWS_PER_WARP * MAX_S];
+};
+
+// Stage list entry i of row r (lane-independent: any lane may call it):
+// kind, aux and data of the entry's queue slot, copied asynchronously.
+__device__ __forceinline__ void stage_payload(WarpSmem &w, const int32_t *kind,
+                                              const int32_t *aux, const int32_t *data,
+                                              int64_t row, int64_t Q, int r, int i) {
+  const int64_t at = row * Q + w.st_slot[r][w.list[i][r]];
+  __pipeline_memcpy_async(&w.p_kind[i][r], kind + at, 4);
+  __pipeline_memcpy_async(&w.p_aux[i][r], aux + at, 4);
+  __pipeline_memcpy_async(&w.p_data[r][i * LANES], data + at * LANES, 16);
+  __pipeline_memcpy_async(&w.p_data[r][i * LANES + 4], data + at * LANES + 4, 16);
+}
 
 #define P(type, name) (reinterpret_cast<type *>(a.name))
 
-__global__ void pump_megakernel(const PumpArgs a) {
-  const int64_t h = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (h >= a.H) return;
-  const int S = int(a.S), R = int(a.R), Q = int(a.Q), O = int(a.O);
-  const int nseg = int(a.segs_per_flush);
+__global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
+  __shared__ WarpSmem w;
+  const int lane = int(threadIdx.x);
+  const int64_t row0 = int64_t(blockIdx.x) * ROWS_PER_WARP;  // the warp's first row
+  const int64_t h = row0 + lane;  // this lane's row (lanes below ROWS_PER_WARP)
+  const int S = int(a.S), O = int(a.O);
+  const int64_t Q = a.Q;
+  const int K = int(a.pump_k);
   const int64_t we = *reinterpret_cast<const int64_t *>(a.window_end);
+  const int64_t lim = imin(we, TIME_MAX);  // a listed entry's time is below both
   const int64_t mss = a.mss;
 
-  // queue row
-  int64_t *qt = P(int64_t, q_time) + h * Q;
-  int64_t *qtie = P(int64_t, q_tie) + h * Q;
-  int32_t *qkind = P(int32_t, q_kind) + h * Q;
-  int32_t *qdata = P(int32_t, q_data) + h * Q * LANES;
-  int32_t *qaux = P(int32_t, q_aux) + h * Q;
-  int32_t &qcount = P(int32_t, q_count)[h];
-  int64_t &qhead = P(int64_t, q_head)[h];
+  int64_t *q_time = P(int64_t, q_time);
+  int64_t *q_tie = P(int64_t, q_tie);
+  const bool mine = lane < ROWS_PER_WARP && h < a.H;
+  int32_t qcount = mine ? P(int32_t, q_count)[h] : 0;
+  int64_t qhead = mine ? P(int64_t, q_head)[h] : TIME_MAX;
+  // a row takes an event only if its first microstep finds one in the
+  // queue (the defer FIFO starts empty); other rows are left untouched
+  const bool live = mine && qcount > 0 && qhead < we;
+  const unsigned live_rows = __ballot_sync(FULL, live);
+  if (live_rows == 0) return;
 
+  // ---- the rows' socket-matching fields, one coalesced pass each ----
+  {
+    const int64_t first = row0 * S, end = imin(a.H * S, first + ROWS_PER_WARP * S);
+    for (int64_t g = first + lane; g < end; g += WARP) {
+      w.sk_st[g - first] = P(int32_t, st)[g];
+      w.sk_lport[g - first] = P(int32_t, lport)[g];
+      w.sk_rport[g - first] = P(int32_t, rport)[g];
+      w.sk_rhost[g - first] = P(int32_t, rhost)[g];
+    }
+  }
+
+  // ---- A. stream each live row's `time` row once ----
+  {
+    const int per_row = int((Q + PIECE - 1) / PIECE);
+    const int n_pieces = __popc(live_rows) * per_row;
+    auto fetch = [&](int p) {  // piece p: live row p / per_row, its chunk p % per_row
+      if (p < n_pieces) {
+        const int r = nth_bit(live_rows, p / per_row);
+        const int64_t base = int64_t(p % per_row) * PIECE;
+        const int n = int(imin(PIECE, Q - base));
+        const int64_t *src = q_time + (row0 + r) * Q + base;
+        int64_t *dst = w.piece[p % PIECES_IN_FLIGHT];
+        for (int j = lane; j < n; j += WARP) __pipeline_memcpy_async(dst + j, src + j, 8);
+      }
+      __pipeline_commit();
+    };
+    for (int p = 0; p < PIECES_IN_FLIGHT - 1; ++p) fetch(p);
+    int n_below = 0, n_free = 0;
+    int64_t rest = TIME_MAX;  // this lane's part of the row's least time at or past lim
+    for (int p = 0; p < n_pieces; ++p) {
+      fetch(p + PIECES_IN_FLIGHT - 1);
+      __pipeline_wait_prior(PIECES_IN_FLIGHT - 1);
+      __syncwarp();  // piece p has landed, every lane's part of it
+      const int r = nth_bit(live_rows, p / per_row);
+      const int64_t base = int64_t(p % per_row) * PIECE;
+      const int n = int(imin(PIECE, Q - base));
+      const int64_t *t = w.piece[p % PIECES_IN_FLIGHT];
+      // lane l holds slots j, j + 1 (one 16-byte load); in slot order,
+      // lane l's come after those of the lanes below it
+      for (int j0 = 0; j0 < n; j0 += 2 * WARP) {
+        const int j = j0 + 2 * lane;
+        const longlong2 v = *reinterpret_cast<const longlong2 *>(t + j);
+        const int64_t t0 = v.x, t1 = v.y;
+        const bool in0 = j < n, in1 = j + 1 < n;
+        // 64 free slots add nothing once MAX_K free columns are recorded
+        if (n_free >= MAX_K && !__any_sync(FULL, (in0 && t0 != TIME_MAX) || (in1 && t1 != TIME_MAX)))
+          continue;
+        const bool b0 = in0 && t0 < lim, b1 = in1 && t1 < lim;
+        if (in0 && !b0) rest = imin(rest, t0);
+        if (in1 && !b1) rest = imin(rest, t1);
+        const unsigned below = lanes_below(lane);
+        const unsigned m0 = __ballot_sync(FULL, b0), m1 = __ballot_sync(FULL, b1);
+        const int at = n_below + __popc(m0 & below) + __popc(m1 & below);
+        if (b0 && at < STAGE) {
+          w.st_time[r][at] = t0;
+          w.st_slot[r][at] = int(base + j);
+        }
+        if (b1 && at + b0 < STAGE) {
+          w.st_time[r][at + b0] = t1;
+          w.st_slot[r][at + b0] = int(base + j + 1);
+        }
+        n_below += __popc(m0) + __popc(m1);
+        const bool f0 = in0 && t0 == TIME_MAX, f1 = in1 && t1 == TIME_MAX;
+        const unsigned g0 = __ballot_sync(FULL, f0), g1 = __ballot_sync(FULL, f1);
+        const int fat = n_free + __popc(g0 & below) + __popc(g1 & below);
+        if (f0 && fat < MAX_K) w.free_col[r][fat] = int(base + j);
+        if (f1 && fat + f0 < MAX_K) w.free_col[r][fat + f0] = int(base + j + 1);
+        n_free += __popc(g0) + __popc(g1);
+      }
+      if (p % per_row == per_row - 1) {  // the row's last piece
+        const int64_t m = warp_min_i64(rest);
+        if (lane == 0) {
+          w.n_below[r] = n_below;
+          w.n_free[r] = n_free;
+          w.rest[r] = m;
+        }
+        n_below = n_free = 0;
+        rest = TIME_MAX;
+      }
+      __syncwarp();  // done with the piece's buffer before it is refilled
+    }
+  }
+
+  // ---- A. the staged slots' ties, gathered for all rows at once ----
+  {
+    int64_t tie[ROWS_PER_WARP];
+#pragma unroll
+    for (int r = 0; r < ROWS_PER_WARP; ++r) {
+      const bool m = ((live_rows >> r) & 1u) && lane < w.n_below[r];
+      tie[r] = m ? q_tie[(row0 + r) * Q + w.st_slot[r][lane]] : 0;
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS_PER_WARP; ++r)
+      if (((live_rows >> r) & 1u) && lane < w.n_below[r]) w.st_tie[r][lane] = tie[r];
+  }
+  __syncwarp();
+
+  // ---- A. each live row's list: its first pump_k entries by (time, tie, slot) ----
+  // The staged entries of all rows that fit the stage, ranked 32 at a time
+  // (lane: one entry, its rank among its row's entries): ranks below K
+  // form the row's list, rank K is the head once the list is popped.
+  {
+    int total = 0;
+    for (int r = 0; r < ROWS_PER_WARP; ++r)
+      total += ((live_rows >> r) & 1u) && w.n_below[r] <= STAGE ? w.n_below[r] : 0;
+    for (int g0 = 0; g0 < total; g0 += WARP) {
+      const int g = g0 + lane;
+      int r = -1, e = 0;
+      for (int rr = 0, off = 0; rr < ROWS_PER_WARP && r < 0; ++rr) {
+        const int nr = ((live_rows >> rr) & 1u) && w.n_below[rr] <= STAGE ? w.n_below[rr] : 0;
+        if (g < off + nr) {
+          r = rr;
+          e = g - off;
+        }
+        off += nr;
+      }
+      if (r < 0) continue;
+      const int n = w.n_below[r];
+      const Key ke = {w.st_time[r][e], w.st_tie[r][e], w.st_slot[r][e]};
+      int rank = 0;
+#pragma unroll 4
+      for (int j = 0; j < n; ++j) {
+        const Key kj = {w.st_time[r][j], w.st_tie[r][j], w.st_slot[r][j]};
+        rank += key_less(kj, ke) ? 1 : 0;
+      }
+      if (rank < K) w.list[rank][r] = int8_t(e);
+      if (rank == K) w.after[r] = ke.time;
+    }
+    if (live && w.n_below[lane] <= K) w.after[lane] = w.rest[lane];
+  }
+  // rows with more slots below the window end than the stage holds: the
+  // list by K + 1 rounds of a warp minimum over the row in device memory
+  for (unsigned todo = live_rows; todo; todo &= todo - 1) {
+    const int r = __ffs(todo) - 1;
+    if (w.n_below[r] > STAGE) {
+      const int64_t *tr = q_time + (row0 + r) * Q;
+      const int64_t *tier = q_tie + (row0 + r) * Q;
+      Key prev = {-1, 0, 0};
+      for (int i = 0; i <= K; ++i) {
+        Key best = {TIME_MAX, I64_MAX, 0x7FFFFFFF};
+        for (int64_t s = lane; s < Q; s += WARP) {
+          const int64_t ts = tr[s];
+          if (ts >= lim) continue;
+          const Key ks = {ts, tier[s], int(s)};
+          if (key_less(prev, ks) && key_less(ks, best)) best = ks;
+        }
+        best = warp_min_key(best);
+        if (lane == 0) {
+          if (i < K) {
+            w.st_time[r][i] = best.time;
+            w.st_tie[r][i] = best.tie;
+            w.st_slot[r][i] = best.slot;
+            w.list[i][r] = int8_t(i);
+          } else {
+            w.after[r] = best.time;  // n > STAGE > K: the (K+1)-th entry exists
+          }
+        }
+        prev = best;
+      }
+    }
+  }
+  __syncwarp();
+
+  // ---- A. the head's payload (list entry 0), for every live row ----
+  if (live) stage_payload(w, P(int32_t, q_kind), P(int32_t, q_aux), P(int32_t, q_data), h, Q, lane, 0);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncwarp();
+
+  // ---- B. the microsteps, one lane per row ----
   // flow-table row base
   const int64_t hs = h * S;
   int32_t *ts_st = P(int32_t, st) + hs;
-  int32_t *ts_lport = P(int32_t, lport) + hs;
-  int32_t *ts_rport = P(int32_t, rport) + hs;
-  int32_t *ts_rhost = P(int32_t, rhost) + hs;
   int64_t *ts_una = P(int64_t, snd_una) + hs;
   int64_t *ts_nxt = P(int64_t, snd_nxt) + hs;
   int64_t *ts_max = P(int64_t, snd_max) + hs;
@@ -259,8 +562,8 @@ __global__ void pump_megakernel(const PumpArgs a) {
   int64_t *ts_rcv = P(int64_t, rcv_nxt) + hs;
   int64_t *ts_rfin = P(int64_t, rcv_fin) + hs;
   int64_t *ts_dlv = P(int64_t, delivered) + hs;
-  int64_t *ts_ooo = P(int64_t, ooo) + hs * R * 2;
-  int64_t *ts_sack = P(int64_t, sacked) + hs * R * 2;
+  int64_t *ts_ooo = P(int64_t, ooo) + hs * NR * 2;
+  int64_t *ts_sack = P(int64_t, sacked) + hs * NR * 2;
   int64_t *ts_cwnd = P(int64_t, cwnd) + hs;
   int64_t *ts_ssth = P(int64_t, ssthresh) + hs;
   int32_t *ts_dup = P(int32_t, dupacks) + hs;
@@ -277,6 +580,8 @@ __global__ void pump_megakernel(const PumpArgs a) {
   int64_t *ts_rtx = P(int64_t, retransmits) + hs;
   int64_t *ts_sin = P(int64_t, segs_in) + hs;
   int64_t *ts_sout = P(int64_t, segs_out) + hs;
+  // this row's socket-matching fields in shared memory
+  const int sk = lane * S;
 
   // outbox row
   uint8_t *obv = P(uint8_t, ob_valid) + h * O;
@@ -287,11 +592,11 @@ __global__ void pump_megakernel(const PumpArgs a) {
   int32_t *obaux = P(int32_t, ob_aux) + h * O;
 
   // per-row context
-  const int32_t host_id = P(int32_t, host_id)[h];
-  const uint32_t key0 = uint32_t(P(int64_t, rng_key)[2 * h]);
-  const uint32_t key1 = uint32_t(P(int64_t, rng_key)[2 * h + 1]);
+  const int32_t host_id = live ? P(int32_t, host_id)[h] : 0;
+  const uint32_t key0 = live ? uint32_t(P(int64_t, rng_key)[2 * h]) : 0;
+  const uint32_t key1 = live ? uint32_t(P(int64_t, rng_key)[2 * h + 1]) : 0;
   const int32_t *host_node = P(int32_t, host_node);
-  const int64_t src_node = host_node[host_id];
+  const int64_t src_node = live ? host_node[host_id] : 0;
   const int64_t *lat_ns = P(int64_t, lat_ns);
   const float *relt = P(float, rel);
   const int64_t *codel_tab = P(int64_t, codel_table);
@@ -299,74 +604,93 @@ __global__ void pump_megakernel(const PumpArgs a) {
   const bool is_server = host_id >= a.num_clients && host_id < a.num_clients + a.num_servers;
 
   // per-row mutable scalars, written back at the end
-  int64_t seq = P(int64_t, seq)[h];
-  int64_t rng_counter = P(int64_t, rng_counter)[h];
-  int64_t events = P(int64_t, events_handled)[h];
-  int64_t pk_sent = P(int64_t, packets_sent)[h];
-  int64_t pk_drop = P(int64_t, packets_dropped)[h];
-  int64_t pk_unr = P(int64_t, packets_unroutable)[h];
-  int32_t obfill = P(int32_t, ob_fill)[h];
-  int32_t obover = P(int32_t, ob_overflow)[h];
-  int64_t tx_refill = P(int64_t, tx_refill)[h];
-  int64_t tx_tokens = P(int64_t, tx_tokens)[h];
-  int64_t tx_last = P(int64_t, tx_last)[h];
-  int64_t rx_refill = P(int64_t, rx_refill)[h];
-  int64_t rx_tokens = P(int64_t, rx_tokens)[h];
-  int64_t rx_last = P(int64_t, rx_last)[h];
-  int64_t cd_first = P(int64_t, codel_first_above)[h];
-  int64_t cd_next = P(int64_t, codel_drop_next)[h];
-  int32_t cd_count = P(int32_t, codel_count)[h];
-  bool cd_dropping = P(uint8_t, codel_dropping)[h] != 0;
-  int64_t rx_backlog = P(int64_t, rx_backlog)[h];
-  int64_t cd_dropped = P(int64_t, codel_dropped)[h];
-  int64_t bytes_sent = P(int64_t, bytes_sent)[h];
-  int64_t bytes_recv = P(int64_t, bytes_recv)[h];
-  int64_t bytes_down = P(int64_t, bytes_down)[h];
+#define LOAD(type, name) (live ? P(type, name)[h] : type(0))
+  int64_t seq = LOAD(int64_t, seq);
+  int64_t rng_counter = LOAD(int64_t, rng_counter);
+  int64_t events = LOAD(int64_t, events_handled);
+  int64_t pk_sent = LOAD(int64_t, packets_sent);
+  int64_t pk_drop = LOAD(int64_t, packets_dropped);
+  int64_t pk_unr = LOAD(int64_t, packets_unroutable);
+  int32_t obfill = LOAD(int32_t, ob_fill);
+  int32_t obover = LOAD(int32_t, ob_overflow);
+  int64_t tx_refill = LOAD(int64_t, tx_refill);
+  int64_t tx_tokens = LOAD(int64_t, tx_tokens);
+  int64_t tx_last = LOAD(int64_t, tx_last);
+  int64_t rx_refill = LOAD(int64_t, rx_refill);
+  int64_t rx_tokens = LOAD(int64_t, rx_tokens);
+  int64_t rx_last = LOAD(int64_t, rx_last);
+  int64_t cd_first = LOAD(int64_t, codel_first_above);
+  int64_t cd_next = LOAD(int64_t, codel_drop_next);
+  int32_t cd_count = LOAD(int32_t, codel_count);
+  bool cd_dropping = LOAD(uint8_t, codel_dropping) != 0;
+  int64_t rx_backlog = LOAD(int64_t, rx_backlog);
+  int64_t cd_dropped = LOAD(int64_t, codel_dropped);
+  int64_t bytes_sent = LOAD(int64_t, bytes_sent);
+  int64_t bytes_recv = LOAD(int64_t, bytes_recv);
+  int64_t bytes_down = LOAD(int64_t, bytes_down);
   int64_t trk_ctrl = 0, trk_data = 0, trk_rtx = 0;
   if (a.tracker) {
-    trk_ctrl = P(int64_t, trk_bytes_ctrl)[h];
-    trk_data = P(int64_t, trk_bytes_data)[h];
-    trk_rtx = P(int64_t, trk_retrans)[h];
+    trk_ctrl = LOAD(int64_t, trk_bytes_ctrl);
+    trk_data = LOAD(int64_t, trk_bytes_data);
+    trk_rtx = LOAD(int64_t, trk_retrans);
   }
+#undef LOAD
   int64_t min_used_local = TIME_MAX;
   bool rejected = false;
+  const int n_listed = live ? int(imin(w.n_below[lane], K)) : 0;
+  int qi = 0;  // queue entries popped: the candidate is list entry qi
+  int f_head = 0, f_cnt = 0;  // this row's defer FIFO (w.f_*)
+  bool active = live;
 
-  Fifo f;
-  f.head = 0;
-  f.cnt = 0;
+  for (int step = 0; step < K; ++step) {
+    const unsigned going = __ballot_sync(FULL, active);
+    if (going == 0) break;
+    if (step == 1) {
+      // the rest of the lists, for the rows that took their head
+      const int pairs = ROWS_PER_WARP * (MAX_K - 1);
+      for (int p = lane; p < pairs; p += WARP) {
+        const int r = p / (MAX_K - 1), i = 1 + p % (MAX_K - 1);
+        if (((going >> r) & 1u) && i < int(imin(w.n_below[r], K)))
+          stage_payload(w, P(int32_t, q_kind), P(int32_t, q_aux), P(int32_t, q_data), row0 + r, Q, r, i);
+      }
+      __pipeline_commit();
+      __pipeline_wait_prior(0);
+      __syncwarp();
+    }
+    if (!active) continue;
 
-  for (int step = 0; step < int(a.pump_k); ++step) {
     // ---- select the true next event: queue head vs defer-FIFO head ----
     const bool q_valid = qcount > 0;
     const int64_t q_time_v = qhead;
-    const bool fh_has = a.use_netstack && f.head < f.cnt;
-    if (!(q_valid && q_time_v < we) && !fh_has) break;  // no event: row ends
-    int q_slot = 0;
-    int64_t q_tie_v = I64_MAX;
-    {
-      int64_t best = I64_MAX;
-      for (int j = 0; j < Q; ++j) {
-        const int64_t v = (qt[j] == q_time_v) ? qtie[j] : I64_MAX;
-        if (v < best) {
-          best = v;
-          q_slot = j;
-        }
-      }
-      q_tie_v = qtie[q_slot];
+    const bool fh_has = a.use_netstack && f_head < f_cnt;
+    if (!(q_valid && q_time_v < we) && !fh_has) {  // no event: the row ends
+      active = false;
+      continue;
     }
-    const int64_t fh_t = fh_has ? f.time[f.head] : TIME_MAX;
-    const int64_t fh_tie = fh_has ? f.tie[f.head] : I64_MAX;
+    // the queue's candidate is the row's next list entry; past the list
+    // the head is at or past the window end and its tie is never compared
+    const bool q_listed = qi < n_listed;
+    const int q_e = q_listed ? w.list[qi][lane] : 0;
+    const int q_slot = q_listed ? w.st_slot[lane][q_e] : 0;
+    const int64_t q_tie_v = q_listed ? w.st_tie[lane][q_e] : I64_MAX;
+    const int64_t fh_t = fh_has ? w.f_time[f_head][lane] : TIME_MAX;
+    const int64_t fh_tie = fh_has ? w.f_tie[f_head][lane] : I64_MAX;
     const bool use_f = fh_has && (!q_valid || fh_t < q_time_v ||
                                   (fh_t == q_time_v && fh_tie < q_tie_v));
     const int64_t ev_time = use_f ? fh_t : q_time_v;
     const bool ev_valid = (use_f || q_valid) && ev_time < we;
-    if (!ev_valid) break;  // nothing taken: the row ends (alive = false)
+    if (!ev_valid) {  // nothing taken: the row ends (alive = false)
+      active = false;
+      continue;
+    }
+    // the payload: the list entry's, or for a FIFO entry that of the
+    // entry it deferred
+    const int src = use_f ? w.f_src[f_head][lane] : qi;
     const int64_t ev_tie = use_f ? fh_tie : q_tie_v;
-    const int32_t ev_kind = use_f ? f.kind[f.head] : qkind[q_slot];
-    const int32_t ev_aux = use_f ? f.aux[f.head] : qaux[q_slot];
+    const int32_t ev_kind = w.p_kind[src][lane];
+    const int32_t ev_aux = use_f ? w.f_aux[f_head][lane] : w.p_aux[src][lane];
     int32_t ev_data[LANES];
-    for (int l = 0; l < LANES; ++l)
-      ev_data[l] = use_f ? f.data[f.head][l] : qdata[q_slot * LANES + l];
+    for (int l = 0; l < LANES; ++l) ev_data[l] = w.p_data[lane][src * LANES + l];
     const int32_t ev_src = int32_t((ev_tie >> 32) & ((1 << 30) - 1));
     const int64_t now = ev_time;
 
@@ -418,28 +742,29 @@ __global__ void pump_megakernel(const PumpArgs a) {
     // ---- TCP classification: the matching slot(s) ----
     const int32_t sport = (ev_data[0] >> 16) & 0xFFFF;
     const int32_t dport = ev_data[0] & 0xFFFF;
-    bool oh[MAX_S];
-    bool rx_exact = false;
+    unsigned oh = 0;  // the matching slots, a bit each
     for (int s = 0; s < S; ++s) {
-      const bool ex = ts_st[s] != ST_CLOSED && ts_st[s] != ST_LISTEN &&
-                      ts_lport[s] == dport && ts_rhost[s] == ev_src && ts_rport[s] == sport;
-      oh[s] = ex && arrived;
-      rx_exact = rx_exact || oh[s];
+      const int32_t st_s = w.sk_st[sk + s];
+      const bool ex = st_s != ST_CLOSED && st_s != ST_LISTEN && w.sk_lport[sk + s] == dport &&
+                      w.sk_rhost[sk + s] == ev_src && w.sk_rport[sk + s] == sport;
+      if (ex && arrived) oh |= 1u << s;
     }
+    const bool rx_exact = oh != 0;
     // the one-hot reads (sums over matching slots; a row has at most one)
     int64_t v_st = 0, v_lport = 0, v_rport = 0, v_rhost = 0, v_una = 0, v_nxt = 0;
     int64_t v_max = 0, v_end = 0, v_rcv = 0, v_rfin = 0, v_cwnd = 0, v_ssth = 0;
     int64_t v_dup = 0, v_srtt = 0, v_rttvar = 0, v_rto = 0, v_rtts = 0, v_rttt = 0;
     int64_t v_exp = 0, v_tev = 0, v_dlv = 0, v_pwnd = 0;
     bool v_finp = false, v_fins = false, v_inrec = false, v_rttp = false;
-    int64_t v_ooo[MAX_R][2], v_sack[MAX_R][2];
-    for (int r = 0; r < R; ++r) v_ooo[r][0] = v_ooo[r][1] = v_sack[r][0] = v_sack[r][1] = 0;
-    for (int s = 0; s < S; ++s) {
-      if (!oh[s]) continue;
-      v_st += ts_st[s];
-      v_lport += ts_lport[s];
-      v_rport += ts_rport[s];
-      v_rhost += ts_rhost[s];
+    int64_t v_ooo[NR][2], v_sack[NR][2];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) v_ooo[r][0] = v_ooo[r][1] = v_sack[r][0] = v_sack[r][1] = 0;
+    for (unsigned m = oh; m; m &= m - 1) {
+      const int s = __ffs(m) - 1;
+      v_st += w.sk_st[sk + s];
+      v_lport += w.sk_lport[sk + s];
+      v_rport += w.sk_rport[sk + s];
+      v_rhost += w.sk_rhost[sk + s];
       v_una += ts_una[s];
       v_nxt += ts_nxt[s];
       v_max += ts_max[s];
@@ -462,10 +787,11 @@ __global__ void pump_megakernel(const PumpArgs a) {
       v_tev += ts_tev[s];
       v_dlv += ts_dlv[s];
       v_pwnd += ts_pwnd[s];
-      for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
         for (int c = 0; c < 2; ++c) {
-          v_ooo[r][c] += ts_ooo[(s * R + r) * 2 + c];
-          v_sack[r][c] += ts_sack[(s * R + r) * 2 + c];
+          v_ooo[r][c] += ts_ooo[(s * NR + r) * 2 + c];
+          v_sack[r][c] += ts_sack[(s * NR + r) * 2 + c];
         }
     }
     // int32 fields wrap back to int32, as the reference's .astype(int32)
@@ -484,7 +810,8 @@ __global__ void pump_megakernel(const PumpArgs a) {
     const int64_t abs_ack = unwrap32(v_una, ev_data[2]);
     const bool sack_present = ev_data[6] != ev_data[7];
     bool sacked_empty = true;
-    for (int r = 0; r < R; ++r) sacked_empty = sacked_empty && v_sack[r][0] < 0;
+#pragma unroll
+    for (int r = 0; r < NR; ++r) sacked_empty = sacked_empty && v_sack[r][0] < 0;
     const bool quiet = rx_exact && v_st == ST_ESTABLISHED && clean_flags && v_rfin < 0 &&
                        !v_fins && v_exp >= v_tev;
 
@@ -497,10 +824,11 @@ __global__ void pump_megakernel(const PumpArgs a) {
     const bool in_order = acceptable && seg_s <= v_rcv;
     const bool ooo_seg = acceptable && !in_order;
     int64_t rcv1 = in_order ? seg_e : v_rcv;
-    int64_t ooo1[MAX_R][2];
-    for (int r = 0; r < R; ++r) ooo1[r][0] = v_ooo[r][0], ooo1[r][1] = v_ooo[r][1];
-    ooo_absorb(rcv1, ooo1, R, in_order);
-    ooo_insert(ooo1, R, ooo_seg, seg_s, seg_e);
+    int64_t ooo1[NR][2];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) ooo1[r][0] = v_ooo[r][0], ooo1[r][1] = v_ooo[r][1];
+    ooo_absorb(rcv1, ooo1, in_order);
+    ooo_insert(ooo1, ooo_seg, seg_s, seg_e);
     const int64_t dlv_delta = p2 ? rcv1 - v_rcv : 0;
 
     // P3: pure cumulative ACK advancing snd_una, outside recovery
@@ -518,7 +846,7 @@ __global__ void pump_megakernel(const PumpArgs a) {
     const bool ca = p3 && !ss;
     const int64_t acked = p3 ? abs_ack - v_una : 0;
     int64_t cwnd1 = ss ? v_cwnd + imin(acked, mss) : v_cwnd;
-    if (ca) cwnd1 = cwnd1 + imax(fdiv(mss * mss, imax(cwnd1, 1)), 1);
+    if (ca) cwnd1 = cwnd1 + imax(fdiv_rt(mss * mss, imax(cwnd1, 1)), 1);
     const int64_t una1 = p3 ? abs_ack : v_una;
     const int64_t nxt1 = p3 ? imax(v_nxt, abs_ack) : v_nxt;
     const bool outstanding = una1 < v_max;
@@ -535,12 +863,14 @@ __global__ void pump_megakernel(const PumpArgs a) {
     const int64_t n_rto = m_rtt ? rto1 : v_rto;
     const bool n_rttp = m_rtt ? false : v_rttp;
 
-    int64_t sack2[MAX_R][2];
-    for (int r = 0; r < R; ++r) sack2[r][0] = v_sack[r][0], sack2[r][1] = v_sack[r][1];
+    int64_t sack2[NR][2];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) sack2[r][0] = v_sack[r][0], sack2[r][1] = v_sack[r][1];
     if (a.use_sack) {
       const bool has_sack = p3 && sack_present;
-      ooo_insert(sack2, R, has_sack, unwrap32(una1, ev_data[6]), unwrap32(una1, ev_data[7]));
-      for (int r = 0; r < R; ++r)
+      ooo_insert(sack2, has_sack, unwrap32(una1, ev_data[6]), unwrap32(una1, ev_data[7]));
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
         if (p3 && sack2[r][0] >= 0 && sack2[r][1] <= una1) sack2[r][0] = sack2[r][1] = -1;
     }
 
@@ -554,10 +884,13 @@ __global__ void pump_megakernel(const PumpArgs a) {
     int64_t rs = v_rtts, rt = v_rttt;
     bool sent_any = false, fin_goes = false;
     int64_t rtx_count = 0;
-    bool lane_valid[MAX_SEG], lane_fin[MAX_SEG];
-    int64_t lane_seq[MAX_SEG];
-    int32_t lane_len[MAX_SEG];
-    for (int i = 0; i < nseg; ++i) {
+    bool lane_valid[NSEG], lane_fin[NSEG];
+    int64_t lane_seq[NSEG];
+    int32_t lane_len[NSEG];
+#pragma unroll
+    for (int i = 0; i < NSEG; ++i) {
+      lane_valid[i] = lane_fin[i] = false;
+      lane_seq[i] = lane_len[i] = 0;
       const int64_t room = imin(imin(v_end, wnd_lim), cursor + mss);
       const int64_t dlen = imax(room - cursor, 0);
       const bool send_data = can_send && dlen > 0;
@@ -591,19 +924,19 @@ __global__ void pump_megakernel(const PumpArgs a) {
     const bool take = p1_take || take_tcp;
     if (!take) {  // the full handler takes this event; the row ends
       rejected = true;
-      break;
+      active = false;
+      continue;
     }
 
     // ---- consume the event from its source ----
     if (use_f) {
-      f.head += 1;
+      f_head += 1;
     } else {
-      qt[q_slot] = TIME_MAX;
-      qtie[q_slot] = I64_MAX;
+      q_time[h * Q + q_slot] = TIME_MAX;
+      q_tie[h * Q + q_slot] = I64_MAX;
       qcount -= 1;
-      int64_t m = TIME_MAX;
-      for (int j = 0; j < Q; ++j) m = imin(m, qt[j]);
-      qhead = m;
+      qi += 1;
+      qhead = qi < n_listed ? w.st_time[lane][w.list[qi][lane]] : w.after[lane];
     }
 
     // ---- commit netstack state ----
@@ -623,24 +956,24 @@ __global__ void pump_megakernel(const PumpArgs a) {
       rx_backlog += (defer ? size_in : 0) - ((take_tcp && shaped) ? size_in : 0);
       if (take_tcp) bytes_recv += size_in;
       if (defer) {  // deferred re-enqueue -> FIFO (ready is monotone per row)
-        const int k = f.cnt;
-        f.time[k] = ready;
-        f.tie[k] = ev_tie;
-        f.kind[k] = ev_kind;
-        for (int l = 0; l < LANES; ++l) f.data[k][l] = ev_data[l];
-        f.aux[k] = int32_t(size_in) | AUX_SHAPED_BIT;
-        f.cnt += 1;
+        w.f_time[f_cnt][lane] = ready;
+        w.f_tie[f_cnt][lane] = ev_tie;
+        w.f_src[f_cnt][lane] = int8_t(src);  // kind and data: list entry src's
+        w.f_aux[f_cnt][lane] = int32_t(size_in) | AUX_SHAPED_BIT;
+        f_cnt += 1;
       }
     }
 
     // ---- commit TCP state on the matching slot(s) ----
     int64_t lane_sum = 0;
-    for (int i = 0; i < nseg; ++i) lane_sum += lane_valid[i] ? 1 : 0;
+#pragma unroll
+    for (int i = 0; i < NSEG; ++i) lane_sum += lane_valid[i] ? 1 : 0;
     const bool fin3 = p3 && fin_goes;
-    for (int s = 0; s < S; ++s) {
-      if (!oh[s]) continue;
+    for (unsigned m = oh; m; m &= m - 1) {
+      const int s = __ffs(m) - 1;
       if (fin3) {
         ts_st[s] = ST_FINWAIT1;
+        w.sk_st[sk + s] = ST_FINWAIT1;
         ts_fins[s] = 1;
       }
       if (p3) {
@@ -659,13 +992,15 @@ __global__ void pump_megakernel(const PumpArgs a) {
         ts_rttt[s] = rt;
         ts_rtx[s] += rtx_count;
         ts_sout[s] += lane_sum;
-        for (int r = 0; r < R; ++r)
-          for (int c = 0; c < 2; ++c) ts_sack[(s * R + r) * 2 + c] = sack2[r][c];
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
+          for (int c = 0; c < 2; ++c) ts_sack[(s * NR + r) * 2 + c] = sack2[r][c];
       }
       if (p2) {
         ts_rcv[s] = rcv1;
-        for (int r = 0; r < R; ++r)
-          for (int c = 0; c < 2; ++c) ts_ooo[(s * R + r) * 2 + c] = ooo1[r][c];
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
+          for (int c = 0; c < 2; ++c) ts_ooo[(s * NR + r) * 2 + c] = ooo1[r][c];
         ts_dlv[s] += dlv_delta;
       }
       if (take_tcp) {
@@ -687,23 +1022,28 @@ __global__ void pump_megakernel(const PumpArgs a) {
       if (a.use_sack) {  // lowest buffered out-of-order range
         int64_t min_start = int64_t(1) << 62;
         bool has_blk = false;
-        for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
           if (ooo1[r][0] >= 0) {
             has_blk = true;
             min_start = imin(min_start, ooo1[r][0]);
           }
         int64_t blk_e = -1;
-        for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
           if (ooo1[r][0] >= 0 && ooo1[r][0] == min_start) blk_e = imax(blk_e, ooo1[r][1]);
         if (has_blk) {
           sack_s = min_start;
           sack_e = blk_e;
         }
       }
-      bool lv[MAX_SEG], kept[MAX_SEG], unr[MAX_SEG];
-      int64_t lsz[MAX_SEG];
-      int32_t ldata[MAX_SEG][LANES];
-      for (int l = 0; l < nseg; ++l) {
+      bool lv[NSEG], kept[NSEG], unr[NSEG];
+      int64_t lsz[NSEG];
+      int32_t ldata[NSEG][LANES];
+#pragma unroll
+      for (int l = 0; l < NSEG; ++l) {
+        lv[l] = kept[l] = unr[l] = false;
+        lsz[l] = 0;
         const bool use_ack = p2 && l == 0;
         lv[l] = (lane_valid[l] && p3) || use_ack;
         const int32_t lflags = lane_fin[l] ? (FLAG_FIN | FLAG_ACK) : FLAG_ACK;
@@ -718,16 +1058,17 @@ __global__ void pump_megakernel(const PumpArgs a) {
         ldata[l][7] = to_wire32(use_ack ? sack_e : 0);
         lsz[l] = int64_t(len) + a.header_bytes;
         unr[l] = lv[l] && lat >= TIME_MAX;
-        // loss draw at the handler's lane index (P2's ACK: the control lane)
-        const int64_t draw_lane = p2 ? nseg : l;
+        // loss draw at the handler's lane index (P2's ACK: the control
+        // lane), made only for a lane that emits (no other lane reads it)
+        // on a lossy path (a uniform in [0, 1) is below a reliability >= 1)
+        const int64_t draw_lane = p2 ? NSEG : l;
         const uint32_t ctr = uint32_t((rng_counter + a.draws_per_event + draw_lane) & MASK32);
-        const float u = uniform_draw(key0, key1, ctr);
-        const bool pass = u < rel;
+        const bool pass = lv[l] && (rel >= 1.0f || uniform_draw(key0, key1, ctr) < rel);
         kept[l] = lv[l] && !unr[l] && pass;
         if (lv[l] && !unr[l] && !pass) ++pk_drop;
         if (unr[l]) ++pk_unr;
       }
-      int64_t deliver[MAX_SEG];
+      int64_t deliver[NSEG];
       if (a.use_netstack) {
         // closed-form multi-lane token bucket (netstack.tb_depart_lanes)
         const int64_t safe = imax(tx_refill, 1);
@@ -737,12 +1078,14 @@ __global__ void pump_megakernel(const PumpArgs a) {
         const int64_t cur_last = tx_last + intervals * REFILL_INTERVAL_NS;
         int64_t pref = 0, k_prev = 0, k_last = 0, p_last = 0;
         bool any_charged = false;
-        for (int l = 0; l < nseg; ++l) {
+#pragma unroll
+        for (int l = 0; l < NSEG; ++l) {
+          deliver[l] = 0;
           const bool limited =
               lv[l] && !unr[l] && !loopb && !in_btx && tx_refill > 0;
           pref += limited ? lsz[l] : 0;
           const int64_t deficit = imax(pref - cur, 0);
-          const int64_t k = fdiv(deficit + (safe - 1), safe);
+          const int64_t k = fdiv_rt(deficit + (safe - 1), safe);
           const int64_t seq_deficit = pref - cur - k_prev * safe;
           const int64_t dep =
               (limited && seq_deficit > 0) ? cur_last + k * REFILL_INTERVAL_NS : now;
@@ -758,13 +1101,16 @@ __global__ void pump_megakernel(const PumpArgs a) {
           tx_tokens = cur + k_last * safe - p_last;
           tx_last = k_last > 0 ? cur_last + k_last * REFILL_INTERVAL_NS : cur_last;
         }
-        for (int l = 0; l < nseg; ++l)
+#pragma unroll
+        for (int l = 0; l < NSEG; ++l)
           if (kept[l]) bytes_sent += lsz[l];
       } else {
-        for (int l = 0; l < nseg; ++l) deliver[l] = imax(now + lat, we);
+#pragma unroll
+        for (int l = 0; l < NSEG; ++l) deliver[l] = imax(now + lat, we);
       }
       // outbox append in lane order
-      for (int l = 0; l < nseg; ++l) {
+#pragma unroll
+      for (int l = 0; l < NSEG; ++l) {
         if (!kept[l]) continue;
         if (obfill < O) {
           const int at = obfill;
@@ -792,37 +1138,55 @@ __global__ void pump_megakernel(const PumpArgs a) {
       rng_counter = (rng_counter + a.draws_per_event + a.packet_emits) & MASK32;
     }
   }
+  if (!live) return;
 
-  // ---- carry landing: leftover FIFO defers into free queue slots ----
-  if (f.head < f.cnt) {
-    const int room = Q - qcount;
-    int written = 0, rank = 0, col = 0;
-    int64_t head_new = TIME_MAX;
+  // ---- C. leftover defers land in the row's free columns, in column
+  // order (push_self_lanes: the l-th valid entry goes to the l-th free
+  // slot); the free columns after the pops are those found in A and the
+  // popped slots ----
+  if (f_head < f_cnt) {
+    const int room = int(Q - qcount);
+    const int nf = imin(w.n_free[lane], MAX_K);
+    int rank = 0, prev = -1;
     int32_t over = 0;
-    for (int k = f.head; k < f.cnt; ++k) {
-      if (f.time[k] >= TIME_MAX) {  // the free-slot marker is never pushed
+    int64_t head_new = TIME_MAX;
+    for (int k = f_head; k < f_cnt; ++k) {
+      const int64_t tk = w.f_time[k][lane];
+      if (tk >= TIME_MAX || rank >= room) {  // the free-slot marker is never pushed
         ++over;
         continue;
       }
-      if (rank++ >= room) {
+      int col = int(Q);  // the next free column after `prev`
+      for (int i = 0; i < nf; ++i) {
+        const int c = w.free_col[lane][i];
+        if (c > prev && c < col) col = c;
+      }
+      for (int i = 0; i < qi; ++i) {
+        const int c = w.st_slot[lane][w.list[i][lane]];
+        if (c > prev && c < col) col = c;
+      }
+      if (col == int(Q)) {  // none: the count disagrees with the slots
         ++over;
         continue;
       }
-      while (qt[col] != TIME_MAX) ++col;
-      qt[col] = f.time[k];
-      qtie[col] = f.tie[k];
-      qkind[col] = f.kind[k];
-      for (int l = 0; l < LANES; ++l) qdata[col * LANES + l] = f.data[k][l];
-      qaux[col] = f.aux[k];
-      head_new = imin(head_new, f.time[k]);
-      ++written;
-      ++col;
+      ++rank;
+      prev = col;
+      const int src = w.f_src[k][lane];
+      const int64_t at = h * Q + col;
+      q_time[at] = tk;
+      q_tie[at] = w.f_tie[k][lane];
+      P(int32_t, q_kind)[at] = w.p_kind[src][lane];
+      for (int l = 0; l < LANES; ++l) P(int32_t, q_data)[at * LANES + l] = w.p_data[lane][src * LANES + l];
+      P(int32_t, q_aux)[at] = w.f_aux[k][lane];
+      head_new = imin(head_new, tk);
     }
-    qcount += written;
-    P(int32_t, q_overflow)[h] += over;
+    qcount += rank;
+    if (over) P(int32_t, q_overflow)[h] += over;
     qhead = imin(qhead, head_new);
   }
 
+  P(int32_t, q_count)[h] = qcount;
+  P(int64_t, q_head)[h] = qhead;
   P(int64_t, seq)[h] = seq;
   P(int64_t, rng_counter)[h] = rng_counter;
   P(int64_t, events_handled)[h] = events;
@@ -862,9 +1226,8 @@ extern "C" {
 
 // Launch on `stream` (PyTorch's current stream); returns cudaGetLastError().
 int pump_megakernel_launch(const PumpArgs *args, void *stream) {
-  const int threads = 128;
-  const int blocks = int((args->H + threads - 1) / threads);
-  pump_megakernel<<<blocks, threads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(*args);
+  const int64_t blocks = (args->H + ROWS_PER_WARP - 1) / ROWS_PER_WARP;
+  pump_megakernel<<<blocks, WARP, 0, reinterpret_cast<cudaStream_t>(stream)>>>(*args);
   return int(cudaGetLastError());
 }
 

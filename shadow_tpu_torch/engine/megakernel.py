@@ -3,9 +3,11 @@ CUDA launch (port of shadow_tpu/engine/megakernel.py).
 
 The TPU kernel (shadow_tpu/engine/megakernel.py::_launch, a Pallas
 pallas_call over VMEM-resident host tiles) becomes a CUDA C++ kernel for
-sm_90a, csrc/pump_megakernel.cu: one thread per host row, the queue kept
-in device memory, the row's working set in registers, and the state
-updated in place. Its plain twin is engine/pump.py::pump_stage.
+sm_90a, csrc/pump_megakernel.cu: a warp per group of host rows, which
+reads each live row's queue once per launch, coalesced, and orders the
+events the launch can take in shared memory; then one lane per row runs
+the microsteps, updating the state in place. Its plain twin is
+engine/pump.py::pump_stage.
 
 `megakernel_stage` dispatches on where the state lives: on the card it
 launches the kernel (or raises — there is no fallback), on the CPU it
@@ -78,6 +80,15 @@ _FIELDS = (
 )
 
 
+# The kernel's compile-time layout, as csrc/pump_megakernel.cu declares
+# it: host rows per warp, queue slots a row stages in shared memory, and
+# the one TCP shape (out-of-order ranges, segments per flush) it is built
+# for. tests/test_torch_megakernel.py holds these in step with the source.
+ROWS_PER_WARP = 8
+STAGE = 32
+TCP_SHAPE = (4, 4)
+
+
 class PumpArgs(ctypes.Structure):
     _fields_ = [
         (name, ctypes.c_void_p if kind is not None else ctypes.c_int64)
@@ -103,10 +114,15 @@ class PumpMegakernel:
         return self._lib
 
     def _build(self) -> ctypes.CDLL:
+        """nvcc's output (the -Xptxas -v resource report) is kept beside
+        the library, so a later process that loads it still has it."""
         src = SOURCE.read_bytes()
         tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         out = BUILD_DIR / f"pump_megakernel_{tag}.so"
-        if not out.exists():
+        log = out.with_suffix(".log")
+        if out.exists():
+            self.build_log = log.read_text() if log.exists() else ""
+        else:
             nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
             if not os.path.exists(nvcc):
                 raise RuntimeError("nvcc not found: the pump megakernel cannot be built")
@@ -121,6 +137,7 @@ class PumpMegakernel:
             self.build_log = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed to build {SOURCE}:\n{self.build_log}")
+            log.write_text(self.build_log)
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         lib.pump_megakernel_launch.argtypes = [ctypes.POINTER(PumpArgs), ctypes.c_void_p]
@@ -169,8 +186,12 @@ def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTa
     h, cap = q.time.shape
     o = ob.valid.shape[1]
     s, r = p.num_sockets, p.ooo_ranges
-    if not (cfg.pump_k <= 16 and s <= 8 and r <= 8 and p.segs_per_flush <= 8):
-        raise ValueError("pump megakernel supports pump_k <= 16, S, R, segs <= 8")
+    if (r, p.segs_per_flush) != TCP_SHAPE:
+        raise NotYetPorted(
+            f"the pump megakernel for TCP with {r} out-of-order ranges and "
+            f"{p.segs_per_flush} segments per flush (it is built for {TCP_SHAPE})")
+    if not (cfg.pump_k <= 16 and s <= 8):
+        raise ValueError("pump megakernel supports pump_k <= 16, S <= 8")
     n = tables.lat_ns.shape[0]
     g = tables.host_node.shape[0]
     shapes = {

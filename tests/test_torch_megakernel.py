@@ -6,12 +6,15 @@ rejected flag, on a mid-run state where P1, P2 and P3 all fire. The
 mid-run state comes from the JAX megakernel engine on the world and
 config of tests/test_torch_slice.py, so the two files share that run's
 compile. The CUDA kernel itself runs only on the card (the `cuda`-marked
-test; chip_smoke.py holds it against the twin at full width). Exact
-equality throughout."""
+test; chip_smoke.py holds it against the twin at full width, also on
+states built to reach the kernel's edges). Here those states' construction
+is checked, and the twin is held against the JAX package's pump_stage on
+two of them. Exact equality throughout."""
 
 import dataclasses
 import pathlib
 import re
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -22,15 +25,18 @@ import torch
 from test_pump import _world
 
 from shadow_tpu.engine.megakernel import megakernel_stage as j_megakernel_stage
+from shadow_tpu.engine.pump import pump_stage as j_pump_stage
 from shadow_tpu.engine.round import _next_window_end as j_next_window_end
 from shadow_tpu.engine.round import run_until as j_run_until
 from shadow_tpu.simtime import NS_PER_MS
 from shadow_tpu_torch.engine import megakernel as mk
 from shadow_tpu_torch.engine.pump import pump_stage
-from shadow_tpu_torch.engine.round import effective_engine
+from shadow_tpu_torch.config.options import NotYetPorted
+from shadow_tpu_torch.engine.round import effective_engine, run_until
 from shadow_tpu_torch.engine.state import EngineConfig, state_from_numpy, state_to_numpy
 from shadow_tpu_torch.graph.routing import RoutingTables
-from shadow_tpu_torch.models.tgen import TgenModel
+from shadow_tpu_torch.models.tgen import TGEN_TCP, TgenModel
+from shadow_tpu_torch.simtime import TIME_MAX
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -44,6 +50,8 @@ def _one_torch_thread():
 
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+import chip_smoke  # noqa: E402  (the smoke's worlds and edge-case states)
 HOSTS = 16
 MID_RUN_NS = 10 * NS_PER_MS  # P1, P2 and P3 all fire in the next stage
 PUMP_K = 2
@@ -56,6 +64,17 @@ def _jax_leaves(st) -> dict:
             leaf = jax.random.key_data(leaf)
         out[jax.tree_util.keystr(path)] = np.asarray(leaf)
     return out
+
+
+def _jax_state(template, leaves: dict):
+    """`template` (a JAX SimState) with every leaf replaced by the array
+    of the same path in `leaves` (state_to_numpy's keys)."""
+    def put(path, leaf):
+        x = jnp.asarray(leaves[jax.tree_util.keystr(path)])
+        if jnp.issubdtype(leaf.dtype, jax.dtypes.prng_key):
+            return jax.random.wrap_key_data(x, impl=jax.random.key_impl(leaf))
+        return x
+    return jax.tree_util.tree_map_with_path(put, template)
 
 
 def _port_world(cfg, model, tables):
@@ -142,6 +161,12 @@ def test_kernel_args_validate_every_leaf(mid_run):
     with pytest.raises(ValueError, match="q_time"):
         mk.kernel_args(dataclasses.replace(tst, queue=strided), torch.tensor(int(we)),
                        tmodel, ttables, tcfg, rej, mk.PUMP_KERNEL.codel_table("cpu"))
+    # the kernel is built for TCP's one shape; another is refused
+    for shape in ({"ooo_ranges": 8}, {"segs_per_flush": 2}):
+        other = dataclasses.replace(tmodel, tcp_params=dataclasses.replace(TGEN_TCP, **shape))
+        with pytest.raises(NotYetPorted, match="segments per flush"):
+            mk.kernel_args(tst, torch.tensor(int(we)), other, ttables, tcfg, rej,
+                           mk.PUMP_KERNEL.codel_table("cpu"))
 
 
 def test_c_struct_matches_the_ctypes_fields():
@@ -157,6 +182,20 @@ def test_c_struct_matches_the_ctypes_fields():
     assert names == [name for name, _ in mk._FIELDS]
 
 
+def test_layout_constants_match_the_kernel_source():
+    """The wrapper's copy of the kernel's compile-time layout equals the
+    constexprs in csrc/pump_megakernel.cu, and the one TCP shape the
+    kernel is built for is tgen's."""
+    src = (REPO / "shadow_tpu_torch" / "csrc" / "pump_megakernel.cu").read_text()
+
+    def constexpr(name):
+        return int(re.search(rf"constexpr int (?:\w+ = \d+, )*{name} = (\d+)", src)[1])
+
+    assert (constexpr("ROWS_PER_WARP"), constexpr("STAGE")) == (mk.ROWS_PER_WARP, mk.STAGE)
+    assert (constexpr("NR"), constexpr("NSEG")) == mk.TCP_SHAPE
+    assert mk.TCP_SHAPE == (TGEN_TCP.ooo_ranges, TGEN_TCP.segs_per_flush)
+
+
 def test_auto_engine_resolves_to_the_kernel_on_the_card():
     cfg = EngineConfig(num_hosts=4)
     assert effective_engine(cfg, "cuda") == "megakernel"
@@ -165,9 +204,79 @@ def test_auto_engine_resolves_to_the_kernel_on_the_card():
     assert effective_engine(dataclasses.replace(cfg, engine="megakernel"), "cpu") == "megakernel"
 
 
+EDGE_HOSTS = 37  # not a multiple of the rows a warp owns
+
+
+@pytest.fixture(scope="module")
+def burst():
+    """chip_smoke's bench world at EDGE_HOSTS hosts, in its burst, and
+    the end of the window its next stage drains."""
+    from shadow_tpu_torch import equeue
+    from shadow_tpu_torch.engine.round import _next_window_end
+
+    cfg, model, tables, st0 = chip_smoke.bench_world(EDGE_HOSTS, torch.device("cpu"))
+    st = run_until(st0, chip_smoke.BURST_NS, model, tables, dataclasses.replace(cfg, engine="plain"))
+    we = _next_window_end(st, 10**9, cfg, equeue.next_time(st.queue).amin(), tables)
+    return cfg, model, tables, st, int(we)
+
+
+@pytest.mark.parametrize("capacity", [8, 384, 1100])
+def test_edge_states_reach_the_kernel_edges(burst, capacity):
+    """chip_smoke's edge-case states (chip_smoke.rebuilt_queue) are valid
+    queues that reach what the kernel must get right: rows that start
+    full at 8 slots, rows with more slots below the window end than the
+    kernel stages at 1,100, a last warp that owns fewer rows than the
+    others. Each row keeps its earliest events by (time, tie); added
+    events lie below the window end."""
+    cfg, model, tables, st, we = burst
+    assert EDGE_HOSTS % mk.ROWS_PER_WARP != 0
+    extra = chip_smoke.LARGE_QUEUE_EXTRA if capacity > 384 else 0
+    e = chip_smoke.rebuilt_queue(st, capacity, we, extra=extra, seed=3)
+    q, q0 = e.queue, st.queue
+    free = q.time == TIME_MAX
+    assert q.time.shape == (EDGE_HOSTS, capacity)
+    assert torch.equal(q.count, (~free).sum(dim=1).to(torch.int32))
+    assert torch.equal(q.head_time, q.time.amin(dim=1))
+    assert bool((q.tie[free] == (1 << 63) - 1).all())
+    if capacity == 8:
+        assert int((q.count == capacity).sum()) > 0
+    if capacity == 1100:
+        assert int(((q.time < we).sum(dim=1) > mk.STAGE).sum()) > 0
+    for h in range(EDGE_HOSTS):
+        old = sorted(zip(q0.time[h].tolist(), q0.tie[h].tolist()))[: int(q0.count[h])]
+        new = sorted(zip(q.time[h].tolist(), q.tie[h].tolist()))[: int(q.count[h])]
+        assert [k for k in new if k in set(old)] == old[:capacity]
+        assert all(t < we for t, tie in new if (t, tie) not in set(old))
+
+
+@pytest.mark.parametrize("capacity", [8, 1100])
+def test_twin_matches_jax_pump_on_rebuilt_queues(mid_run, capacity):
+    """The twin, which chip_smoke.py holds the kernel against, equals the
+    JAX package's pump_stage (jitted) on the mid-run state rebuilt as the
+    smoke's edge states are: 8-slot queues whose rows start full, and
+    1,100-slot queues with rows over the kernel's stage."""
+    cfg, model, tables, st, we = mid_run
+    tcfg, tmodel, ttables = _port_world(cfg, model, tables)
+    extra = chip_smoke.LARGE_QUEUE_EXTRA if capacity > 384 else 0
+    e = chip_smoke.rebuilt_queue(state_from_numpy(_jax_leaves(st)), capacity, int(we),
+                                 extra=extra, seed=3)
+    q = e.queue
+    if capacity == 8:
+        assert int((q.count == capacity).sum()) > 0
+    else:
+        assert int(((q.time < int(we)).sum(dim=1) > mk.STAGE).sum()) > 0
+    want, want_rej = jax.jit(lambda s, w: j_pump_stage(s, w, model, tables, cfg))(
+        _jax_state(st, state_to_numpy(e)), we)
+    got, got_rej = pump_stage(e, torch.tensor(int(we)), tmodel, ttables, tcfg)
+    assert bool(got_rej) == bool(want_rej)
+    _assert_leaves_equal(_jax_leaves(want), state_to_numpy(got))
+
+
 @pytest.mark.cuda
 def test_kernel_matches_twin_on_card(mid_run):
-    """On a machine with a card: one kernel launch equals one twin stage."""
+    """On a machine with a card: one kernel launch equals one twin stage,
+    on the mid-run state and on it rebuilt with 8 queue slots, so that
+    rows start full."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     cfg, model, tables, st, we = mid_run
@@ -176,8 +285,11 @@ def test_kernel_matches_twin_on_card(mid_run):
     tst = state_from_numpy(_jax_leaves(st), device=dev)
     ttables = ttables.to(dev)
     wt = torch.tensor(int(we), device=dev)
-    twin, rej_t = pump_stage(tst.clone(), wt, tmodel, ttables, tcfg)
-    kern, rej_k = mk.megakernel_stage(tst.clone(), wt, tmodel, ttables, tcfg)
-    torch.cuda.synchronize()
-    assert bool(rej_t) == bool(rej_k)
-    _assert_leaves_equal(state_to_numpy(twin), state_to_numpy(kern))
+    small = chip_smoke.rebuilt_queue(tst, 8, int(we))
+    assert int((small.queue.count == 8).sum()) > 0
+    for s in (tst, small):
+        twin, rej_t = pump_stage(s.clone(), wt, tmodel, ttables, tcfg)
+        kern, rej_k = mk.megakernel_stage(s.clone(), wt, tmodel, ttables, tcfg)
+        torch.cuda.synchronize()
+        assert bool(rej_t) == bool(rej_k)
+        _assert_leaves_equal(state_to_numpy(twin), state_to_numpy(kern))
