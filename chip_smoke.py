@@ -22,7 +22,18 @@ Phases, each printing one line; any failure exits non-zero:
      resolve to the kernel; bench counters equal the pinned oracle values;
   5. plain vs megakernel engines agree on host_stats at 0.1 s sim;
   6. the CLI entry point on examples/tgen/shadow.yaml, sim-stats pinned;
-  7. the kernels JSON line, the card line, and the final JSON line.
+  7. onion-10240: the onion model (4,096 clients, 6,144 relays, 17 sockets
+     per host) on the bench graph and shaping: the main path to 0.1 s sim
+     with engine "auto" (the kernel's onion instance), then the plain
+     engine on the same world, whose host and model counters must agree;
+     kernel vs twin at a burst launch (60 ms) and at the plain run's end
+     (mid-run), each timed alone with its bound;
+  8. phold, bulk-tcp, cdn and gossip (no pump kernel) on the card and on
+     the CPU in this process, leaf-equal, at small size; phold at 10,240
+     hosts on the bench graph; the CLI on examples/phold and examples/onion
+     (stop times cut), sim-stats pinned;
+  9. the kernels JSON line (one entry per model instance of the kernel),
+     the card line, and the final JSON line.
 
 Imports torch, numpy and the port only (no jax, nothing of shadow_tpu/).
 """
@@ -68,6 +79,32 @@ TGEN_EXAMPLE_STATS = {
     "num_hosts": 16,
     "unexpected_final_states": [],
 }
+# examples/phold/shadow.yaml (64 hosts) cut from 2 s to 0.5 s and
+# examples/onion/onion.yaml (11 hosts) cut from 0.6 s to 0.25 s, as
+# tests/test_torch_models_cli.py cuts them: the same, pinned from the JAX
+# package's run of the cut configs
+PHOLD_EXAMPLE_STOP = ('stop_time: "2 s"', 'stop_time: "500 ms"')
+PHOLD_EXAMPLE_STATS = {
+    "events_handled": 3_683,
+    "packets_sent": 1_843,
+    "packets_dropped": 0,
+    "packets_unroutable": 0,
+    "sim_seconds": 0.5,
+    "scheduler": "tpu",
+    "num_hosts": 64,
+    "unexpected_final_states": [],
+}
+ONION_EXAMPLE_STOP = ('stop_time: "600 ms"', 'stop_time: "250 ms"')
+ONION_EXAMPLE_STATS = {
+    "events_handled": 2_384,
+    "packets_sent": 764,
+    "packets_dropped": 0,
+    "packets_unroutable": 0,
+    "sim_seconds": 0.25,
+    "scheduler": "tpu",
+    "num_hosts": 11,
+    "unexpected_final_states": [],
+}
 # sim time at which the bench world is in its burst: the first pump
 # stage of the next round takes P1, P2 and P3 events and rejects others
 BURST_NS = 14_000_000
@@ -90,6 +127,20 @@ LOSSY_HOSTS = 4096
 LOSSY_MID_NS_SHAPED = 26_000_000
 LOSSY_MID_NS_UNSHAPED = 22_000_000
 LOSSY_END_NS = 120_000_000
+# the onion cell: 10,240 hosts, 4,096 clients (0.4) and 6,144 relays
+# (about Tor's consensus size), to ONION_END_NS (0.1 s: the plain
+# handler, which every relay event takes, holds the host ~66 ms per drain
+# iteration on an H100's host, so 0.6 s would take ~10 min a run); its
+# kernel is held against the twin and timed at a burst (ONION_BURST_NS)
+# and at the end of the plain run
+ONION_CLIENT_SHARE = 0.4
+ONION_END_NS = 100_000_000
+ONION_BURST_NS = 60_000_000
+ONION_WINDOW_CAP_NS = 1_000_000_000
+# the small worlds of phold, bulk-tcp, cdn and gossip (card vs CPU), and
+# the horizon of phold at full width
+SMALL_WORLD_END_NS = 200_000_000
+PHOLD_END_NS = 200_000_000
 # H100 SXM device-memory rate (NVIDIA data sheet) for the bound column
 HBM_BYTES_PER_S = 3.35e12
 # non-tensor-core 32-bit rate (NVIDIA data sheet, FP32), the op yardstick
@@ -100,14 +151,10 @@ def line(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def bench_world(num_hosts: int, device, seed: int = 7):
-    """bench.py's _build_world + _build, written against the port."""
-    from shadow_tpu_torch.engine.round import bootstrap
-    from shadow_tpu_torch.engine.state import EngineConfig, init_state
-    from shadow_tpu_torch.graph import NetworkGraph, compute_routing
-    from shadow_tpu_torch.models.tgen import TgenModel
-    from shadow_tpu_torch.netstack import bw_bits_per_sec_to_refill
-    from shadow_tpu_torch.simtime import NS_PER_MS
+def bench_graph(seed: int = 7):
+    """bench.py's 32-node graph (2 ms self-loops, seven seeded lossy links
+    per node at 2-11 ms, loss 0.005), written against the port."""
+    from shadow_tpu_torch.graph import NetworkGraph
 
     rng_py = random.Random(seed)
     n_nodes = 32
@@ -123,8 +170,20 @@ def bench_world(num_hosts: int, device, seed: int = 7):
                     f'  edge [ source {i} target {j} latency "{lat} ms" packet_loss 0.005 ]'
                 )
     lines.append("]")
-    graph = NetworkGraph.from_gml("\n".join(lines))
-    host_node = [i % n_nodes for i in range(num_hosts)]
+    return NetworkGraph.from_gml("\n".join(lines))
+
+
+def bench_world(num_hosts: int, device, seed: int = 7):
+    """bench.py's _build_world + _build, written against the port."""
+    from shadow_tpu_torch.engine.round import bootstrap
+    from shadow_tpu_torch.engine.state import EngineConfig, init_state
+    from shadow_tpu_torch.graph import compute_routing
+    from shadow_tpu_torch.models.tgen import TgenModel
+    from shadow_tpu_torch.netstack import bw_bits_per_sec_to_refill
+    from shadow_tpu_torch.simtime import NS_PER_MS
+
+    graph = bench_graph(seed)
+    host_node = [i % 32 for i in range(num_hosts)]
     tables = compute_routing(graph, block=64, device=device).with_hosts(host_node)
     clients = num_hosts // 2
     cfg = EngineConfig(
@@ -144,6 +203,43 @@ def bench_world(num_hosts: int, device, seed: int = 7):
         num_servers=num_hosts - clients,
         resp_bytes=100_000,
         pause_ns=500 * NS_PER_MS,
+    )
+    bw = bw_bits_per_sec_to_refill(100_000_000)
+    st = init_state(cfg, model.init(device), tx_bytes_per_interval=bw,
+                    rx_bytes_per_interval=bw, device=device)
+    return cfg, model, tables, bootstrap(st, model, cfg)
+
+
+def onion_world(num_hosts: int, device, seed: int = 7):
+    """The onion cell: the bench graph and shaping (host i on node i % 32,
+    100 Mbit up and down), ONION_CLIENT_SHARE of the hosts clients and the
+    rest relays, examples/onion/onion.yaml's onion args and capacities
+    (circuits_per_relay at its default of 8, so 17 sockets per host)."""
+    from shadow_tpu_torch.engine.round import bootstrap
+    from shadow_tpu_torch.engine.state import EngineConfig, init_state
+    from shadow_tpu_torch.graph import compute_routing
+    from shadow_tpu_torch.models.overlay.onion import OnionModel
+    from shadow_tpu_torch.netstack import bw_bits_per_sec_to_refill
+    from shadow_tpu_torch.simtime import NS_PER_MS
+
+    graph = bench_graph(seed)
+    tables = compute_routing(graph, block=64, device=device).with_hosts(
+        [i % 32 for i in range(num_hosts)])
+    clients = int(num_hosts * ONION_CLIENT_SHARE)
+    cfg = EngineConfig(
+        num_hosts=num_hosts,
+        queue_capacity=192,
+        outbox_capacity=64,
+        runahead_ns=graph.min_latency_ns(),
+        seed=seed,
+        use_netstack=True,
+        deliver_lanes=64,
+        max_iters_per_round=256,
+        tracker=True,
+    )
+    model = OnionModel(
+        num_hosts=num_hosts, num_clients=clients, num_relays=num_hosts - clients,
+        hops=3, cell_bytes=512, req_cells=2, resp_cells=20, pause_ns=100 * NS_PER_MS,
     )
     bw = bw_bits_per_sec_to_refill(100_000_000)
     st = init_state(cfg, model.init(device), tx_bytes_per_interval=bw,
@@ -248,20 +344,49 @@ def rebuilt_queue(st, capacity: int, we: int, extra: int = 0, seed: int = 0):
 
 def ptxas_resources(log: str) -> dict:
     """Registers and stack frame per thread and static shared memory per
-    block of the pump kernel, from nvcc's -Xptxas -v log."""
-    out = dict(regs=None, stack_bytes=None, smem_bytes=None)
-    inside = False
+    block of each instance of the pump kernel (by model name), from
+    nvcc's -Xptxas -v log."""
+    from shadow_tpu_torch.engine.megakernel import MODEL_IDS
+
+    names = {v: k for k, v in MODEL_IDS.items()}
+    out = {m: dict(regs=None, stack_bytes=None, smem_bytes=None) for m in MODEL_IDS}
+    inside = None
     for ln in log.splitlines():
         if "Compiling entry function" in ln or "Function properties for" in ln:
-            inside = "15pump_megakernelE" in ln
+            m = re.search(r"15pump_megakernelILi(\d+)E", ln)
+            inside = names.get(int(m.group(1))) if m else None
             continue
         for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
                          ("regs", r"Used (\d+) registers"),
                          ("smem_bytes", r"(\d+) bytes smem")):
             m = re.search(pat, ln)
             if inside and m:
-                out[key] = int(m.group(1))
+                out[inside][key] = int(m.group(1))
     return out
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def compare_stage(st, we, model, tables, scfg):
+    """One twin stage (with its class tallies) and one kernel stage on
+    clones of `st`: (ok, facts for the phase line, (twin result, tallies))."""
+    from shadow_tpu_torch import equeue
+    from shadow_tpu_torch.engine import megakernel as mk
+    from shadow_tpu_torch.engine.pump import pump_stage
+
+    steps = []
+    twin, rej_t = pump_stage(st.clone(), we, model, tables, scfg, debug_out=steps)
+    kern, rej_k = mk.megakernel_stage(st.clone(), we, model, tables, scfg)
+    sync(st.device)
+    bad, err = leaves_equal(twin, kern)
+    classes = {k: sum(d[k] for d in steps) for k in ("p1", "p2", "p3", "rejected")}
+    live = int((equeue.next_time(st.queue) < we).sum())
+    facts = dict(mismatched_leaves=bad, max_abs_err=err, rejected=[bool(rej_t), bool(rej_k)],
+                 classes=classes, live_rows=live, pump_k=scfg.pump_k)
+    return not bad and bool(rej_t) == bool(rej_k), facts, (twin, steps)
 
 
 def leaves_equal(a, b):
@@ -369,11 +494,14 @@ def pump_bound(st, we, model, tables, cfg, tallies, after) -> "tuple[float, str,
     socket_bytes = sum(row_bytes(getattr(tcp, n)[0]) for n in tcp_names)
     match_bytes = sum(row_bytes(named[n]) for n in ("st", "lport", "rport", "rhost"))
     table_names = ("host_node", "lat_ns", "rel", "codel_table")
+    # the stream counters are read by onion's veto only
+    unread = () if mk.kernel_model(model) == "onion" else ("streams_started", "streams_done")
     scalar_bytes = sum(
         row_bytes(t) for n, t in named.items()
         if n in ("q_count", "ob_fill") or (
             t.dim() >= 1 and t.shape[0] == h and n not in tcp_names
-            and n not in table_names and not n.startswith(("q_", "ob_")))
+            and n not in table_names and n not in unread
+            and not n.startswith(("q_", "ob_")))
     )
     slot_bytes = sum(row_bytes(named[n][0]) for n in ("q_tie", "q_kind", "q_aux", "q_data"))
     tables_bytes = sum(named[n].numel() * named[n].element_size() for n in table_names)
@@ -422,6 +550,248 @@ def profile_main_path(st0, model, tables, cfg, end_ns) -> None:
          pump_megakernel_ms=sum(v for k, v in dev_ms.items() if "pump_megakernel" in k),
          top_device=[[k[:60], v] for k, v in top_dev],
          top_host=[[k[:60], ms, n] for k, ms, n in top_cpu])
+
+
+def onion_phase(hosts: int, end_ns: int, dev) -> "tuple[bool, dict, float]":
+    """The onion cell: the main path with engine "auto" (the kernel's
+    onion instance), then the plain engine on the same world, whose host
+    and model counters must agree; on the plain run's way, the kernel
+    against the twin at a burst launch and at the run's end (mid-run:
+    streams are still flowing), each timed alone with its bound. Both
+    runs pause at the burst (run_until twice), so that their rounds are
+    grouped into chunks alike and the per-round counters compare. Returns
+    (ok, the instance's numbers for the kernels line, largest error)."""
+    from shadow_tpu_torch import equeue
+    from shadow_tpu_torch.engine import megakernel as mk
+    from shadow_tpu_torch.engine.pump import pump_stage
+    from shadow_tpu_torch.engine.round import (
+        _next_window_end,
+        effective_engine,
+        host_stats,
+        run_until,
+    )
+
+    cfg, model, tables, st0 = onion_world(hosts, dev)
+    scfg = mk.resolve_stage_cfg(cfg)
+    eng = effective_engine(cfg, dev)
+    reps, err, entry = 20, 0.0, {}
+
+    def counts(st):
+        m = st.model
+        return {k: int(getattr(m, k).sum()) for k in (
+            "circuits_built", "circuits_rejected", "cells_relayed", "requests_served",
+            "streams_started", "streams_done", "bytes_down")}
+
+    # the main path
+    counters = {}
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    allocated_at_start = torch.cuda.memory_allocated() if dev.type == "cuda" else None
+    mk.PUMP_KERNEL.launches_by_model["onion"] = 0
+    t0 = time.perf_counter()
+    out = run_until(st0, ONION_BURST_NS, model, tables, cfg, rounds_per_chunk=16,
+                    counters=counters)
+    out = run_until(out, end_ns, model, tables, cfg, rounds_per_chunk=16, counters=counters)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = mk.PUMP_KERNEL.launches_by_model["onion"]
+    main = dict(hs=host_stats(out), counts=counts(out), events=int(out.events_handled.sum()))
+    ok = (dev.type == "cpu" or (eng == "megakernel" and launches > 0)) and (
+        main["counts"]["streams_done"] > 0)
+    line("onion_main_path", ok=ok, engine=eng, hosts=hosts, clients=model.num_clients,
+         relays=model.num_relays, sockets=model.tcp_params.num_sockets, end_ns=end_ns,
+         wall_s=round(wall, 3), sim_s_per_wall_s=end_ns / 1e9 / wall,
+         iters=counters.get("iters"), kernel_launches=launches, events=main["events"],
+         allocated_at_start=allocated_at_start,
+         max_memory_allocated=torch.cuda.max_memory_allocated() if dev.type == "cuda" else None,
+         queue_hwm=int(out.tracker.queue_hwm.max()), outbox_hwm=int(out.tracker.outbox_hwm.max()),
+         **main["counts"])
+    del out
+    if not ok:
+        return False, entry, err
+
+    def stage(name, st, at_ns):
+        """Kernel vs twin on `st`, each timed: (ok, the stage's numbers)."""
+        # the window the next round would take, were the run to go on
+        we = _next_window_end(st, ONION_WINDOW_CAP_NS, cfg, equeue.next_time(st.queue).amin(),
+                              tables)
+        ok_s, facts, (twin, steps) = compare_stage(st, we, model, tables, scfg)
+        # the burst must take client events; any launch must have live rows
+        took = facts["classes"]["p2"] + facts["classes"]["p3"] > 0
+        ok_s = ok_s and facts["live_rows"] > 0 and (took or name != "burst")
+        if dev.type == "cuda":
+            ms_k = kernel_device_ms(st, we, model, tables, scfg, reps)
+        else:
+            ms_k = timed_ms(lambda s_: mk.megakernel_stage(s_, we, model, tables, scfg),
+                            reps, st.clone, dev)
+        ms_t = timed_ms(lambda s_: pump_stage(s_, we, model, tables, scfg), 5, st.clone, dev)
+        tallies = {"steps": steps, "live_rows": facts["live_rows"]}
+        bound_ms, bound_by, reck = pump_bound(st, we, model, tables, scfg, tallies, twin)
+        # rows whose slots below the window end overflow the kernel's stage
+        # take their list from device memory
+        over = int(((st.queue.time < we).sum(dim=1) > mk.STAGE).sum())
+        line("onion_kernel_vs_twin", ok=ok_s, launch=name, at_ns=at_ns, hosts=hosts,
+             rows_over_stage=over, **facts,
+             kernel_ms=ms_k, twin_ms=ms_t, bound_ms=bound_ms, bound_by=bound_by,
+             share_of_bound=bound_ms / ms_k, reckoning=reck)
+        return ok_s, facts["max_abs_err"], dict(ms=ms_k, plain_ms=ms_t, bound_ms=bound_ms,
+                                                bound_by=bound_by)
+
+    # the plain engine, with the burst launch on its way and the mid-run
+    # launch at its end; comparison launches do not count
+    plain = dataclasses.replace(cfg, engine="plain")
+    t0 = time.perf_counter()
+    st_b = run_until(st0, ONION_BURST_NS, model, tables, plain, rounds_per_chunk=16)
+    sync(dev)
+    wall_b = time.perf_counter() - t0
+    ok_b, err_b, entry = stage("burst", st_b, ONION_BURST_NS)
+    t0 = time.perf_counter()
+    out = run_until(st_b, end_ns, model, tables, plain, rounds_per_chunk=16)
+    sync(dev)
+    wall_p = wall_b + time.perf_counter() - t0
+    del st_b
+    ok_m, err_m, _ = stage("mid", out, end_ns)
+    hs = host_stats(out)
+    diff = [k for k in hs if k not in ("iters_done", "lanes_live")
+            and not np.array_equal(hs[k], main["hs"][k])]
+    ok_p = not diff and counts(out) == main["counts"]
+    line("onion_plain_engine", ok=ok_p, hosts=hosts, end_ns=end_ns, wall_s=round(wall_p, 3),
+         events=int(out.events_handled.sum()), differing=diff, **counts(out))
+    entry["launches"] = launches
+    return ok_b and ok_m and ok_p, entry, max(err_b, err_m)
+
+
+def small_model_worlds():
+    """(name, model, graph GML, loss) of the small worlds on which the
+    models without a pump kernel run on the card and on the CPU: the
+    reference's overlay test worlds and a lossy bulk-tcp pair world."""
+    from shadow_tpu_torch.models.bulk import BulkTcpModel
+    from shadow_tpu_torch.models.overlay import CdnModel, GossipModel
+    from shadow_tpu_torch.models.phold import PholdModel
+
+    return [
+        ("phold", PholdModel(num_hosts=16), 0.0),
+        ("bulk-tcp", BulkTcpModel(num_hosts=4, num_pairs=2, total_bytes=200_000), 0.02),
+        ("cdn", CdnModel(num_hosts=12, num_mids=1, num_leaves=2, objects=32), 0.0),
+        ("gossip", GossipModel(num_hosts=12, view_size=4, fanout=2, churn_ppm=100_000), 0.0),
+    ]
+
+
+def tri_node_gml(loss: float) -> str:
+    """tests/test_overlay.py's three-node graph (1 ms self-loops, 3, 2 and
+    5 ms between nodes, optionally lossy)."""
+    lossy = f" packet_loss {loss}" if loss else ""
+    return "\n".join([
+        "graph [", "  directed 0", "  node [ id 0 ]", "  node [ id 1 ]", "  node [ id 2 ]",
+        '  edge [ source 0 target 0 latency "1 ms" ]',
+        '  edge [ source 1 target 1 latency "1 ms" ]',
+        '  edge [ source 2 target 2 latency "1 ms" ]',
+        f'  edge [ source 0 target 1 latency "3 ms"{lossy} ]',
+        f'  edge [ source 1 target 2 latency "2 ms"{lossy} ]',
+        f'  edge [ source 0 target 2 latency "5 ms"{lossy} ]',
+        "]",
+    ])
+
+
+def small_world(model, loss: float, device, seed: int = 9):
+    """(cfg, tables, bootstrapped state) of `model` on the three-node
+    graph, hosts spread round-robin, tracker on (tests/test_overlay.py's
+    _world)."""
+    from shadow_tpu_torch.engine.round import bootstrap
+    from shadow_tpu_torch.engine.state import EngineConfig, init_state
+    from shadow_tpu_torch.graph import NetworkGraph, compute_routing
+
+    graph = NetworkGraph.from_gml(tri_node_gml(loss))
+    h = model.num_hosts
+    tables = compute_routing(graph, device=device).with_hosts([i % 3 for i in range(h)])
+    cfg = EngineConfig(num_hosts=h, queue_capacity=192, outbox_capacity=64,
+                       runahead_ns=graph.min_latency_ns(), seed=seed, tracker=True)
+    st = init_state(cfg, model.init(device), device=device)
+    return cfg, tables, bootstrap(st, model, cfg)
+
+
+def models_phase(dev, big_hosts: int) -> bool:
+    """phold, bulk-tcp, cdn and gossip (no pump kernel: the plain engine)
+    on the card and on the CPU in this process, leaf-equal; then phold at
+    `big_hosts` hosts on the bench graph."""
+    from shadow_tpu_torch.engine.round import bootstrap, run_until
+    from shadow_tpu_torch.engine.state import EngineConfig, init_state, state_to_numpy
+    from shadow_tpu_torch.graph import compute_routing
+    from shadow_tpu_torch.models.phold import PholdModel
+
+    cpu = torch.device("cpu")
+    for name, model, loss in small_model_worlds():
+        leaves, walls = {}, {}
+        for d in (dev, cpu):
+            cfg, tables, st = small_world(model, loss, d)
+            t0 = time.perf_counter()
+            out = run_until(st, SMALL_WORLD_END_NS, model, tables, cfg, rounds_per_chunk=8)
+            sync(d)
+            walls[d.type] = round(time.perf_counter() - t0, 3)
+            leaves[d.type] = state_to_numpy(out)
+        a, b = leaves[dev.type], leaves["cpu"]
+        bad = [k for k in a if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])]
+        events = int(a[".events_handled"].sum())
+        ok = not bad and sorted(a) == sorted(b) and events > 0
+        line("model_card_vs_cpu", ok=ok, model=name, hosts=model.num_hosts,
+             end_ns=SMALL_WORLD_END_NS, events=events, mismatched_leaves=bad, wall_s=walls,
+             packets_dropped=int(a[".packets_dropped"].sum()))
+        if not ok:
+            return False
+
+    graph = bench_graph()
+    model = PholdModel(num_hosts=big_hosts)
+    tables = compute_routing(graph, block=64, device=dev).with_hosts(
+        [i % 32 for i in range(big_hosts)])
+    cfg = EngineConfig(num_hosts=big_hosts, queue_capacity=64, outbox_capacity=16,
+                       runahead_ns=graph.min_latency_ns(), seed=7)
+    st = bootstrap(init_state(cfg, model.init(dev), device=dev), model, cfg)
+    counters = {}
+    sync(dev)
+    t0 = time.perf_counter()
+    out = run_until(st, PHOLD_END_NS, model, tables, cfg, rounds_per_chunk=16, counters=counters)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    events = int(out.events_handled.sum())
+    ok = events > 0 and int(out.model.recv_count.sum()) > 0
+    line("phold_main_path", ok=ok, hosts=big_hosts, end_ns=PHOLD_END_NS, events=events,
+         balls_received=int(out.model.recv_count.sum()), iters=counters.get("iters"),
+         wall_s=round(wall, 3), sim_s_per_wall_s=PHOLD_END_NS / 1e9 / wall,
+         events_per_wall_s=events / wall)
+    return ok
+
+
+def cli_phase(example: str, pinned: dict, dev, stop=None) -> "tuple[bool, dict]":
+    """`python -m shadow_tpu_torch run` on an example config (its data
+    directory moved to a temporary one; `stop`, a pair of stop_time
+    lines, shortens it): (ok, the run's execution block)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        src = open(os.path.join(HERE, "examples", example)).read()
+        if stop is not None:
+            if stop[0] not in src:
+                raise ValueError(f"{example}: no {stop[0]!r} to shorten")
+            src = src.replace(*stop)
+        data = os.path.join(tmp, "data")
+        cfg_path = os.path.join(tmp, "config.yaml")
+        with open(cfg_path, "w") as f:
+            f.write(src.replace("data_directory: shadow.data", f"data_directory: {data}"))
+        t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", "shadow_tpu_torch", "run", cfg_path]
+        if dev.type == "cpu":
+            cmd += ["--device", "cpu"]
+        proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True)
+        cli_s = time.perf_counter() - t0
+        stats = {}
+        if proc.returncode == 0:
+            with open(os.path.join(data, "sim-stats.json")) as f:
+                stats = json.load(f)
+        got = {k: stats.get(k) for k in pinned}
+        ok = proc.returncode == 0 and got == pinned
+        line("cli", ok=ok, example=example, rc=proc.returncode, stats=got,
+             execution=stats.get("execution"), wall_s=round(cli_s, 3),
+             stderr_tail=proc.stderr[-2000:] if not ok else "")
+        return ok, stats.get("execution") or {}
 
 
 def main(argv=None) -> int:
@@ -476,11 +846,7 @@ def main(argv=None) -> int:
         ptxas = [ln.strip() for ln in mk.PUMP_KERNEL.build_log.splitlines()
                  if "registers" in ln or "spill" in ln or "stack frame" in ln]
         line("build", seconds=round(time.perf_counter() - t0, 3),
-             nvcc_seconds=mk.PUMP_KERNEL.build_seconds, ptxas=ptxas, **resources)
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+             nvcc_seconds=mk.PUMP_KERNEL.build_seconds, ptxas=ptxas, instances=resources)
 
     # 3. kernel vs twin at full width, in the burst
     cfg, model, tables, st0 = bench_world(args.hosts, dev)
@@ -488,25 +854,14 @@ def main(argv=None) -> int:
     plain = dataclasses.replace(cfg, engine="plain")
     t0 = time.perf_counter()
     st_b = run_until(st0, BURST_NS, model, tables, plain)
-    sync()
+    sync(dev)
     advance_s = time.perf_counter() - t0
 
     def window(st):
         return _next_window_end(st, args.end_ns, cfg, equeue.next_time(st.queue).amin(), tables)
 
     def compare(st, we, scfg, m=model, t=tables):
-        """One twin stage (with its class tallies) and one kernel stage on
-        clones of `st`: (ok, facts for the phase line, twin result)."""
-        steps = []
-        twin, rej_t = pump_stage(st.clone(), we, m, t, scfg, debug_out=steps)
-        kern, rej_k = mk.megakernel_stage(st.clone(), we, m, t, scfg)
-        sync()
-        bad, err = leaves_equal(twin, kern)
-        classes = {k: sum(d[k] for d in steps) for k in ("p1", "p2", "p3", "rejected")}
-        live = int((equeue.next_time(st.queue) < we).sum())
-        facts = dict(mismatched_leaves=bad, max_abs_err=err, rejected=[bool(rej_t), bool(rej_k)],
-                     classes=classes, live_rows=live, pump_k=scfg.pump_k)
-        return not bad and bool(rej_t) == bool(rej_k), facts, (twin, steps)
+        return compare_stage(st, we, m, t, scfg)
 
     we = window(st_b)
     launches0 = mk.PUMP_KERNEL.launches
@@ -615,7 +970,7 @@ def main(argv=None) -> int:
         steps = []
         twin, rej_t = pump_stage(lst.clone(), lwe, lmodel, ltables, scfg, debug_out=steps)
         kern, rej_k = mk.megakernel_stage(lst.clone(), lwe, lmodel, ltables, scfg)
-        sync()
+        sync(dev)
         bad, err = leaves_equal(twin, kern)
         max_abs_err = max(max_abs_err, err)
         classes = {k: sum(d[k] for d in steps) for k in ("p1", "p2", "p3", "rejected")}
@@ -647,7 +1002,7 @@ def main(argv=None) -> int:
     # initial state and the tables)
     eng = effective_engine(dataclasses.replace(cfg, engine="auto"), dev)
     counters = {}
-    sync()
+    sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     allocated_at_start = torch.cuda.memory_allocated() if dev.type == "cuda" else None
@@ -655,7 +1010,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     final = run_until(st0, args.end_ns, model, tables, cfg, rounds_per_chunk=16,
                       counters=counters)
-    sync()
+    sync(dev)
     wall = time.perf_counter() - t0
     main_launches = mk.PUMP_KERNEL.launches
     got = dict(
@@ -679,11 +1034,11 @@ def main(argv=None) -> int:
     short = min(100_000_000, args.end_ns)
     hs, walls = {}, {}
     for eng_name in ("plain", "megakernel"):
-        sync()
+        sync(dev)
         t0 = time.perf_counter()
         out = run_until(st0, short, model, tables, dataclasses.replace(cfg, engine=eng_name),
                         rounds_per_chunk=16)
-        sync()
+        sync(dev)
         walls[eng_name] = time.perf_counter() - t0
         hs[eng_name] = host_stats(out)
         del out
@@ -698,48 +1053,48 @@ def main(argv=None) -> int:
         profile_main_path(st0, model, tables, cfg, args.end_ns)
 
     # 6. the CLI entry point on the tgen example
-    with tempfile.TemporaryDirectory() as tmp:
-        src = open(os.path.join(HERE, "examples", "tgen", "shadow.yaml")).read()
-        data = os.path.join(tmp, "data")
-        cfg_path = os.path.join(tmp, "shadow.yaml")
-        with open(cfg_path, "w") as f:
-            f.write(src.replace("data_directory: shadow.data", f"data_directory: {data}"))
-        t0 = time.perf_counter()
-        cmd = [sys.executable, "-m", "shadow_tpu_torch", "run", cfg_path]
-        if dev.type == "cpu":
-            cmd += ["--device", "cpu"]
-        proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True)
-        cli_s = time.perf_counter() - t0
-        stats = {}
-        if proc.returncode == 0:
-            with open(os.path.join(data, "sim-stats.json")) as f:
-                stats = json.load(f)
-        got6 = {k: stats.get(k) for k in TGEN_EXAMPLE_STATS}
-        ok6 = proc.returncode == 0 and got6 == TGEN_EXAMPLE_STATS
-        line("cli", ok=ok6, rc=proc.returncode, stats=got6, execution=stats.get("execution"),
-             wall_s=round(cli_s, 3), stderr_tail=proc.stderr[-2000:] if not ok6 else "")
-        if not ok6:
+    if not cli_phase("tgen/shadow.yaml", TGEN_EXAMPLE_STATS, dev)[0]:
+        return 1
+
+    # 7. the onion cell through its kernel instance, at full width
+    launches_by_model = {"tgen": main_launches}
+    ok8, onion_entry, err = onion_phase(
+        args.hosts, ONION_END_NS, dev)
+    if not ok8:
+        return 1
+    launches_by_model["onion"] = onion_entry.pop("launches")
+    max_err = {"tgen": max_abs_err, "onion": err}
+
+    # 8. the models without a pump kernel, card against CPU; phold at
+    # full width; the CLI on the phold and onion examples
+    if not models_phase(dev, args.hosts):
+        return 1
+    for example, pinned, stop in (
+            ("phold/shadow.yaml", PHOLD_EXAMPLE_STATS, PHOLD_EXAMPLE_STOP),
+            ("onion/onion.yaml", ONION_EXAMPLE_STATS, ONION_EXAMPLE_STOP)):
+        if not cli_phase(example, pinned, dev, stop)[0]:
             return 1
 
     if dev.type == "cpu":
         line("rehearsal_done", note="no result: the kernel runs only on the card")
         return 3
 
-    # 7. the kernels line, the card line, and the result
+    # 9. the kernels line (the kernel once per model instance: its launches
+    # on that model's main path, its burst launch's times and bound, its
+    # ptxas resources), the card line, and the result
+    timing = {"tgen": dict(ms=ms_k, plain_ms=ms_t, bound_ms=bound_ms, bound_by=bound_by),
+              "onion": onion_entry}
     print(json.dumps({"kernels": [{
-        "name": "pump_megakernel",
+        "name": f"pump_megakernel[{m}]",
         "route": "cuda",
         "source": "shadow_tpu_torch/csrc/pump_megakernel.cu",
         "replaces": "shadow_tpu/engine/megakernel.py:211",
-        "launches": main_launches,
-        "max_abs_err": max_abs_err,
-        "ms": ms_k,
-        "plain_ms": ms_t,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "launches": launches_by_model[m],
+        "max_abs_err": max_err[m],
+        **timing[m],
         "library_ms": None,
-        **resources,
-    }]}), flush=True)
+        **resources[m],
+    } for m in ("tgen", "onion")]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

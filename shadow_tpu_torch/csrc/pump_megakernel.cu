@@ -7,7 +7,13 @@
 // this file is shadow_tpu_torch/engine/pump.py::pump_stage; every
 // statement of the microstep has its counterpart there, and the two are
 // held leaf-equal on the card (chip_smoke.py) and on the CPU through the
-// JAX reference (tests/test_torch_megakernel.py).
+// JAX reference (tests/test_torch_megakernel.py, test_torch_onion.py).
+//
+// Models. The microstep consults its model twice: the veto
+// (pump_spec.block) and the passive bookkeeping (pump_spec.apply). The
+// kernel is a template on the model, one instance for each model with a
+// pump_spec (tgen, onion), so an instance carries only its own rules and
+// its shared memory is sized for its model's sockets per row.
 //
 // What bounds it: memory. A microstep does a few hundred integer
 // operations per live host against a few KB of row state, so the least
@@ -82,7 +88,13 @@ constexpr int CODEL_TABLE_LEN = 1024;
 constexpr int FLAG_FIN = 0x01, FLAG_SYN = 0x02, FLAG_RST = 0x04, FLAG_ACK = 0x10;
 constexpr int ST_CLOSED = 0, ST_LISTEN = 1, ST_ESTABLISHED = 4, ST_FINWAIT1 = 5;
 constexpr int LANES = 8;  // PAYLOAD_LANES
-constexpr int MAX_S = 8, MAX_K = 16;
+constexpr int MAX_K = 16;
+// The models whose pump rules the kernel carries (a template instance
+// each), and the sockets per host row each instance is built for: tgen's
+// 4 (TGEN_TCP) fit 8, as before; onion's 1 + 2 x circuits_per_relay (17
+// at the default) fit 32, the width of a row's socket-match bitmask.
+constexpr int MODEL_TGEN = 0, MODEL_ONION = 1;
+constexpr int TGEN_MAX_S = 8, ONION_MAX_S = 32;
 // TCP's shape, the one shape the kernel is built for: out-of-order ranges
 // and segments per flush (TGEN_TCP); the wrapper refuses any other
 constexpr int NR = 4, NSEG = 4;
@@ -98,7 +110,12 @@ constexpr int STAGE = 32;
 constexpr int PIECE = 512;
 constexpr int PIECES_IN_FLIGHT = 3;
 
-static_assert(ROWS_PER_WARP <= WARP && STAGE == WARP && STAGE > MAX_K && PIECE % (2 * WARP) == 0,
+template <int MODEL>
+__host__ __device__ constexpr int max_sockets() {
+  return MODEL == MODEL_ONION ? ONION_MAX_S : TGEN_MAX_S;
+}
+
+static_assert(ONION_MAX_S <= 32 && ROWS_PER_WARP <= WARP && STAGE == WARP && STAGE > MAX_K && PIECE % (2 * WARP) == 0,
               "layout");
 
 }  // namespace
@@ -121,8 +138,9 @@ struct PumpArgs {
   void *ooo, *sacked, *cwnd, *ssthresh, *dupacks, *in_rec, *srtt, *rttvar, *rto;
   void *rtt_pending, *rtt_seq, *rtt_ts, *rto_expire, *backoff, *tev_time;
   void *retransmits, *segs_in, *segs_out;
-  // tgen model state [H]
-  void *bytes_down;
+  // model state [H]: bytes_down is written; the stream counters are read
+  // by onion's veto
+  void *bytes_down, *streams_started, *streams_done;
   // outbox [H, O] (+ [H, O, 8] data), [H]
   void *ob_valid, *ob_dst, *ob_time, *ob_tie, *ob_data, *ob_aux, *ob_fill, *ob_overflow;
   // per-host counters [H]
@@ -139,7 +157,7 @@ struct PumpArgs {
   int64_t H, Q, O, S, R, N, num_global_hosts, pump_k;
   int64_t bootstrap_end_ns;
   int64_t use_netstack, use_sack, tracker, dyn_runahead;
-  int64_t num_clients, num_servers, req_bytes;
+  int64_t model, num_clients, num_servers, req_bytes, num_relays, resp_span;
   int64_t mss, header_bytes, rcv_wnd, rto_min_ns, rto_max_ns, granularity_ns;
   int64_t segs_per_flush, draws_per_event, packet_emits;
 };
@@ -313,7 +331,9 @@ __device__ __forceinline__ int nth_bit(unsigned m, int n) {
 
 // One warp's working set in shared memory. Per-row arrays whose rows a
 // lane reads for itself are row-minor ([..][ROWS_PER_WARP]) or padded, so
-// that the lanes of a warp fall into different banks.
+// that the lanes of a warp fall into different banks. MAX_S sizes the
+// socket arrays for the instance's model, so tgen's block keeps its size.
+template <int MAX_S>
 struct WarpSmem {
   alignas(16) int64_t piece[PIECES_IN_FLIGHT][PIECE];  // streamed pieces of `time` rows
   // a row's staged slots below the window end, in slot order
@@ -344,7 +364,8 @@ struct WarpSmem {
 
 // Stage list entry i of row r (lane-independent: any lane may call it):
 // kind, aux and data of the entry's queue slot, copied asynchronously.
-__device__ __forceinline__ void stage_payload(WarpSmem &w, const int32_t *kind,
+template <class Smem>
+__device__ __forceinline__ void stage_payload(Smem &w, const int32_t *kind,
                                               const int32_t *aux, const int32_t *data,
                                               int64_t row, int64_t Q, int r, int i) {
   const int64_t at = row * Q + w.st_slot[r][w.list[i][r]];
@@ -356,8 +377,9 @@ __device__ __forceinline__ void stage_payload(WarpSmem &w, const int32_t *kind,
 
 #define P(type, name) (reinterpret_cast<type *>(a.name))
 
+template <int MODEL>
 __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
-  __shared__ WarpSmem w;
+  __shared__ WarpSmem<max_sockets<MODEL>()> w;
   const int lane = int(threadIdx.x);
   const int64_t row0 = int64_t(blockIdx.x) * ROWS_PER_WARP;  // the warp's first row
   const int64_t h = row0 + lane;  // this lane's row (lanes below ROWS_PER_WARP)
@@ -601,7 +623,15 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
   const float *relt = P(float, rel);
   const int64_t *codel_tab = P(int64_t, codel_table);
   const bool is_client = host_id < a.num_clients;
-  const bool is_server = host_id >= a.num_clients && host_id < a.num_clients + a.num_servers;
+  // the second role: tgen's servers, onion's relays
+  const int64_t role2_end = a.num_clients + (MODEL == MODEL_ONION ? a.num_relays : a.num_servers);
+  const bool is_role2 = host_id >= a.num_clients && host_id < role2_end;
+  // onion's veto reads the row's stream counters (the pump never changes them)
+  int64_t streams_started = 0, streams_done = 0;
+  if (MODEL == MODEL_ONION && live) {
+    streams_started = P(int64_t, streams_started)[h];
+    streams_done = P(int64_t, streams_done)[h];
+  }
 
   // per-row mutable scalars, written back at the end
 #define LOAD(type, name) (live ? P(type, name)[h] : type(0))
@@ -834,9 +864,17 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
     // P3: pure cumulative ACK advancing snd_una, outside recovery
     bool p3 = quiet && plen == 0 && !v_inrec && abs_ack > v_una && abs_ack <= v_max;
 
-    // tgen's veto: request complete -> respond must reach the handler
-    const bool blocked = is_server && v_st == ST_ESTABLISHED &&
-                         (v_dlv + dlv_delta) >= a.req_bytes && v_end == 1;
+    // the model's veto (pump_spec.block). tgen: a request complete ->
+    // respond must reach the handler. onion: relays never pump; a client
+    // event whose delivered crossing completes a response (the next
+    // stream's trigger) must reach the handler.
+    bool blocked;
+    if (MODEL == MODEL_ONION)
+      blocked = is_role2 || (is_client && streams_done < streams_started &&
+                             (v_dlv + dlv_delta) >= streams_started * a.resp_span);
+    else
+      blocked = is_role2 && v_st == ST_ESTABLISHED && (v_dlv + dlv_delta) >= a.req_bytes &&
+                v_end == 1;
     p2 = p2 && !blocked;
     p3 = p3 && !blocked;
 
@@ -1008,6 +1046,8 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
         ts_sin[s] += 1;
       }
     }
+    // the model's passive bookkeeping (pump_spec.apply), the same for
+    // both: the client download byte counter
     if (is_client && take_tcp) bytes_down += dlv_delta;
 
     if (take_tcp) {
@@ -1224,10 +1264,18 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
 
 extern "C" {
 
-// Launch on `stream` (PyTorch's current stream); returns cudaGetLastError().
+// Launch the instance of args->model on `stream` (PyTorch's current
+// stream); returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// model or socket count no instance is built for.
 int pump_megakernel_launch(const PumpArgs *args, void *stream) {
   const int64_t blocks = (args->H + ROWS_PER_WARP - 1) / ROWS_PER_WARP;
-  pump_megakernel<<<blocks, WARP, 0, reinterpret_cast<cudaStream_t>(stream)>>>(*args);
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (args->model == MODEL_TGEN && args->S <= max_sockets<MODEL_TGEN>())
+    pump_megakernel<MODEL_TGEN><<<blocks, WARP, 0, st>>>(*args);
+  else if (args->model == MODEL_ONION && args->S <= max_sockets<MODEL_ONION>())
+    pump_megakernel<MODEL_ONION><<<blocks, WARP, 0, st>>>(*args);
+  else
+    return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());
 }
 

@@ -9,6 +9,9 @@ events the launch can take in shared memory; then one lane per row runs
 the microsteps, updating the state in place. Its plain twin is
 engine/pump.py::pump_stage.
 
+The kernel carries the pump rules (`pump_spec.block` and `apply`) of
+the models that have them, tgen and onion, as one template instance
+each; `kernel_args` names the instance and refuses any other model.
 `megakernel_stage` dispatches on where the state lives: on the card it
 launches the kernel (or raises — there is no fallback), on the CPU it
 runs the twin. The kernel is built with nvcc from the repo's own source
@@ -62,7 +65,8 @@ _FIELDS = (
     + [(n, _I64) for n in ("srtt", "rttvar", "rto")]
     + [("rtt_pending", _B), ("rtt_seq", _I64), ("rtt_ts", _I64), ("rto_expire", _I64),
        ("backoff", _I32), ("tev_time", _I64)]
-    + [(n, _I64) for n in ("retransmits", "segs_in", "segs_out", "bytes_down")]
+    + [(n, _I64) for n in ("retransmits", "segs_in", "segs_out", "bytes_down",
+                           "streams_started", "streams_done")]
     + [("ob_valid", _B), ("ob_dst", _I32), ("ob_time", _I64), ("ob_tie", _I64),
        ("ob_data", _I32), ("ob_aux", _I32), ("ob_fill", _I32), ("ob_overflow", _I32)]
     + [(n, _I64) for n in ("seq", "rng_counter", "events_handled", "packets_sent",
@@ -73,7 +77,8 @@ _FIELDS = (
        ("rel", _F32), ("codel_table", _I64)]
     + [(n, None) for n in ("H", "Q", "O", "S", "R", "N", "num_global_hosts", "pump_k",
                            "bootstrap_end_ns", "use_netstack", "use_sack", "tracker",
-                           "dyn_runahead", "num_clients", "num_servers", "req_bytes",
+                           "dyn_runahead", "model", "num_clients", "num_servers",
+                           "req_bytes", "num_relays", "resp_span",
                            "mss", "header_bytes", "rcv_wnd", "rto_min_ns",
                            "rto_max_ns", "granularity_ns", "segs_per_flush",
                            "draws_per_event", "packet_emits")]
@@ -87,6 +92,12 @@ _FIELDS = (
 ROWS_PER_WARP = 8
 STAGE = 32
 TCP_SHAPE = (4, 4)
+# The models whose pump rules the kernel carries, each a template
+# instance: its id in PumpArgs.model and the sockets per host row it is
+# built for (the source's MODEL_* and *_MAX_S).
+MODEL_IDS = {"tgen": 0, "onion": 1}
+MAX_SOCKETS = {"tgen": 8, "onion": 32}
+_MODEL_NAMES = {v: k for k, v in MODEL_IDS.items()}
 
 
 class PumpArgs(ctypes.Structure):
@@ -97,11 +108,13 @@ class PumpArgs(ctypes.Structure):
 
 
 class PumpMegakernel:
-    """The built kernel and its launch counter. `launches` counts kernel
-    launches only (the CPU twin does not count)."""
+    """The built kernel and its launch counters. `launches` counts kernel
+    launches only (the CPU twin does not count); `launches_by_model`
+    splits them by the model instance launched."""
 
     def __init__(self):
         self.launches = 0
+        self.launches_by_model = dict.fromkeys(MODEL_IDS, 0)
         self.build_seconds = None
         self.build_log = ""
         self._lib = None
@@ -162,17 +175,23 @@ class PumpMegakernel:
         if err != 0:
             raise RuntimeError(f"pump megakernel launch failed: CUDA error {err}")
         self.launches += 1
+        self.launches_by_model[_MODEL_NAMES[args.model]] += 1
 
 
 PUMP_KERNEL = PumpMegakernel()
 
 
-def _tgen_only(model):
+def kernel_model(model) -> str:
+    """The name of the kernel instance that carries `model`'s pump rules;
+    NotYetPorted for a model without one (never a silent twin run)."""
+    from shadow_tpu_torch.models.overlay.onion import OnionModel
     from shadow_tpu_torch.models.tgen import TgenModel
 
-    if not isinstance(model, TgenModel):
-        raise NotYetPorted(f"the pump megakernel for model {type(model).__name__}")
-    return model
+    if isinstance(model, TgenModel):
+        return "tgen"
+    if isinstance(model, OnionModel):
+        return "onion"
+    raise NotYetPorted(f"the pump megakernel for model {type(model).__name__}")
 
 
 def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTables,
@@ -180,7 +199,7 @@ def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTa
     """The kernel's argument struct for `st`, after checking device,
     dtype, shape and contiguity of every tensor it points at. Returns
     (args, tensors): keep `tensors` alive until the launch is enqueued."""
-    model = _tgen_only(model)
+    instance = kernel_model(model)
     p = model.tcp_params
     q, ob, net, ts, tr = st.queue, st.outbox, st.net, st.model.tcp, st.tracker
     h, cap = q.time.shape
@@ -190,8 +209,10 @@ def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTa
         raise NotYetPorted(
             f"the pump megakernel for TCP with {r} out-of-order ranges and "
             f"{p.segs_per_flush} segments per flush (it is built for {TCP_SHAPE})")
-    if not (cfg.pump_k <= 16 and s <= 8):
-        raise ValueError("pump megakernel supports pump_k <= 16, S <= 8")
+    if not (cfg.pump_k <= 16 and s <= MAX_SOCKETS[instance]):
+        raise ValueError(
+            f"pump megakernel supports pump_k <= 16 and, for {instance}, at most "
+            f"{MAX_SOCKETS[instance]} sockets per host (got pump_k {cfg.pump_k}, {s} sockets)")
     n = tables.lat_ns.shape[0]
     g = tables.host_node.shape[0]
     shapes = {
@@ -214,6 +235,8 @@ def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTa
         "rx_backlog": net.rx_backlog_bytes,
         **{k: getattr(ts, k) for k in tcp_names},
         "bytes_down": st.model.bytes_down,
+        "streams_started": st.model.streams_started,
+        "streams_done": st.model.streams_done,
         "ob_valid": ob.valid, "ob_dst": ob.dst, "ob_time": ob.time, "ob_tie": ob.tie,
         "ob_data": ob.data, "ob_aux": ob.aux, "ob_fill": ob.fill,
         "ob_overflow": ob.overflow,
@@ -247,13 +270,17 @@ def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTa
         H=h, Q=cap, O=o, S=s, R=r, N=n, num_global_hosts=g, pump_k=cfg.pump_k,
         bootstrap_end_ns=cfg.bootstrap_end_ns, use_netstack=int(cfg.use_netstack),
         use_sack=int(p.use_sack), tracker=int(cfg.tracker),
-        dyn_runahead=int(cfg.use_dynamic_runahead), num_clients=model.num_clients,
-        num_servers=model.num_servers, req_bytes=model.req_bytes, mss=p.mss,
+        dyn_runahead=int(cfg.use_dynamic_runahead), model=MODEL_IDS[instance],
+        num_clients=model.num_clients, mss=p.mss,
         header_bytes=p.header_bytes, rcv_wnd=p.rcv_wnd, rto_min_ns=p.rto_min_ns,
         rto_max_ns=p.rto_max_ns, granularity_ns=p.granularity_ns,
         segs_per_flush=p.segs_per_flush, draws_per_event=model.DRAWS_PER_EVENT,
         packet_emits=model.PACKET_EMITS,
     )
+    if instance == "tgen":
+        scalars.update(num_servers=model.num_servers, req_bytes=model.req_bytes)
+    else:
+        scalars.update(num_relays=model.num_relays, resp_span=model.resp_span)
     for k, v in scalars.items():
         setattr(args, k, int(v))
     return args, tensors

@@ -35,11 +35,18 @@ _W = torch.where
 @dataclasses.dataclass(frozen=True)
 class Draw:
     """Per-host counter-based draw access for one handler invocation:
-    logical draw i of this event = threefry(host_key, counter + i). tgen
-    draws nothing; models that draw add their accessors with their slice."""
+    logical draw i of this event = threefry(host_key, counter + i). The
+    engine advances counters by the fixed per-event stride afterwards, so
+    draws are in event-execution order per host."""
 
     key: torch.Tensor  # [H, 2]
     counter: torch.Tensor  # [H] u32 in i64
+
+    def uniform(self, i: int) -> torch.Tensor:
+        return rng.uniform_f32(self.key, (self.counter + i) & rng.MASK32)
+
+    def uniform_int(self, i: int, lo, hi) -> torch.Tensor:
+        return rng.uniform_int(self.key, (self.counter + i) & rng.MASK32, lo, hi)
 
 
 def _lane_seqs(valid: torch.Tensor, base: torch.Tensor):

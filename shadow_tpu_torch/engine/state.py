@@ -268,22 +268,35 @@ def state_to_numpy(st) -> "dict[str, np.ndarray]":
     return out
 
 
-def _model_template(leaves: dict, device):
-    """The model-state dataclass a leaf dict describes (tgen only)."""
+def _model_state_classes():
+    from shadow_tpu_torch.models.bulk import BulkState
+    from shadow_tpu_torch.models.overlay.cdn import CdnState
+    from shadow_tpu_torch.models.overlay.gossip import GossipState
+    from shadow_tpu_torch.models.overlay.onion import OnionState
+    from shadow_tpu_torch.models.phold import PholdState
     from shadow_tpu_torch.models.tgen import TgenState
+
+    return (TgenState, PholdState, BulkState, OnionState, CdnState, GossipState)
+
+
+def _model_template(leaves: dict):
+    """The model-state dataclass (of None leaves) whose leaf paths are
+    exactly the `.model.*` paths of a leaf dict."""
     from shadow_tpu_torch.transport.tcp import TcpState
 
-    tcp = TcpState(
-        **{f.name: None for f in dataclasses.fields(TcpState)}
-    )
-    rest = {
-        f.name: None for f in dataclasses.fields(TgenState) if f.name != "tcp"
-    }
-    if not all(f".model.{k}" in leaves for k in rest):
-        from shadow_tpu_torch.config.options import NotYetPorted
-
-        raise NotYetPorted("a model state other than tgen's")
-    return TgenState(tcp=tcp, **rest)
+    want = {p for p in leaves if p.startswith(".model.")}
+    tcp_paths = {f".model.tcp.{f.name}" for f in dataclasses.fields(TcpState)}
+    for cls in _model_state_classes():
+        names = [f.name for f in dataclasses.fields(cls)]
+        paths = {f".model.{n}" for n in names if n != "tcp"}
+        if "tcp" in names:
+            paths |= tcp_paths
+        if paths == want:
+            sub = {n: None for n in names}
+            if "tcp" in names:
+                sub["tcp"] = TcpState(**{f.name: None for f in dataclasses.fields(TcpState)})
+            return cls(**sub)
+    raise ValueError(f"state_from_numpy: no model state has the leaves {sorted(want)}")
 
 
 def _skeleton(device):
@@ -304,11 +317,12 @@ def _skeleton(device):
 
 
 def state_from_numpy(leaves: dict, device="cpu") -> SimState:
-    """Inverse of state_to_numpy for a tgen world: build a port SimState
-    on `device` from {reference leaf path: array}."""
+    """Inverse of state_to_numpy: build a port SimState on `device` from
+    {reference leaf path: array}, for a world of any ported model (the
+    model state is the one whose leaves the dict holds)."""
     dev = torch.device(device)
     like = _skeleton(dev)
-    like.model = _model_template(leaves, dev)
+    like.model = _model_template(leaves)
     paths = [p for p, _ in _paths_of(like)]
     missing = sorted(set(paths) - set(leaves))
     if missing:

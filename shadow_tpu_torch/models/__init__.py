@@ -1,1 +1,2 @@
-"""Scripted host models (the port carries tgen)."""
+"""Scripted host models: tgen, phold, bulk-tcp and the overlay pack
+(onion, cdn, gossip)."""

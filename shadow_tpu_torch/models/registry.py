@@ -1,6 +1,7 @@
-"""Model registry: maps a config `processes[].path` to a scripted host
-model builder (port of shadow_tpu/models/registry.py). The port carries
-tgen; the reference's other models raise NotYetPorted."""
+"""Model registry: maps a config `processes[].path` to the function that
+makes its scripted host model (port of shadow_tpu/models/registry.py).
+Each rejects unknown args with a one-line config error; an unknown model
+name lists the registered names with a closest-match hint."""
 
 from __future__ import annotations
 
@@ -8,8 +9,9 @@ from shadow_tpu_torch.config.options import NotYetPorted
 from shadow_tpu_torch.config.options import reject_unknown as _reject_unknown
 from shadow_tpu_torch.simtime import parse_time_ns
 
-# registered in the reference, not yet in the port
-_NOT_YET_PORTED = ("phold", "bulk-tcp", "onion", "cdn", "gossip")
+# registered in the reference, not yet in the port (none: every scripted
+# model of the reference is ported)
+_NOT_YET_PORTED = ()
 
 
 def _take(args: dict, time_keys=(), int_keys=()) -> "tuple[dict, dict]":
@@ -22,6 +24,43 @@ def _take(args: dict, time_keys=(), int_keys=()) -> "tuple[dict, dict]":
         if key in args:
             kwargs[attr] = int(args.pop(key))
     return args, kwargs
+
+
+def _build_bulk_tcp(num_hosts: int, args: dict):
+    from shadow_tpu_torch.models.bulk import BulkTcpModel
+    from shadow_tpu_torch.transport.tcp import TcpParams
+
+    args, kwargs = _take(
+        args,
+        time_keys=[("start", "start_ns")],
+        int_keys=[
+            ("pairs", "num_pairs"),
+            ("total_bytes", "total_bytes"),
+            ("port", "port"),
+            ("client_port", "client_port"),
+        ],
+    )
+    kwargs.setdefault("num_pairs", num_hosts // 2)
+    tcp_kwargs = {}
+    for k in ("num_sockets", "mss", "rcv_wnd", "init_cwnd_segs"):
+        if k in args:
+            tcp_kwargs[k] = int(args.pop(k))
+    if tcp_kwargs:
+        kwargs["tcp_params"] = TcpParams(**tcp_kwargs)
+    _reject_unknown("model bulk-tcp args", args)
+    return BulkTcpModel(num_hosts=num_hosts, **kwargs)
+
+
+def _build_phold(num_hosts: int, args: dict):
+    from shadow_tpu_torch.models.phold import PholdModel
+
+    args, kwargs = _take(
+        args,
+        time_keys=[("min_delay", "min_delay_ns"), ("max_delay", "max_delay_ns")],
+        int_keys=[("ball_bytes", "ball_bytes")],
+    )
+    _reject_unknown("model phold args", args)
+    return PholdModel(num_hosts=num_hosts, **kwargs)
 
 
 def _build_tgen(num_hosts: int, args: dict):
@@ -52,8 +91,82 @@ def _build_tgen(num_hosts: int, args: dict):
     )
 
 
+def _build_onion(num_hosts: int, args: dict):
+    from shadow_tpu_torch.models.overlay.onion import OnionModel
+
+    args = dict(args)
+    # relay consensus size first, clients take the rest (like tgen's split)
+    if "relays" in args:
+        relays = int(args.pop("relays"))
+        clients = int(args.pop("clients", num_hosts - relays))
+    elif "clients" in args:
+        clients = int(args.pop("clients"))
+        relays = num_hosts - clients
+    else:
+        relays = max(3, num_hosts // 4)
+        clients = num_hosts - relays
+    args, kwargs = _take(
+        args,
+        time_keys=[("pause", "pause_ns"), ("start", "start_ns"), ("tick", "tick_ns")],
+        int_keys=[
+            ("hops", "hops"),
+            ("cell", "cell_bytes"),
+            ("req_cells", "req_cells"),
+            ("resp_cells", "resp_cells"),
+            ("circuits", "circuits_per_relay"),
+            ("cells_per_service", "cells_per_service"),
+            ("inflight_cells", "inflight_cells"),
+            ("port", "port"),
+        ],
+    )
+    _reject_unknown("model onion args", args)
+    return OnionModel(num_hosts=num_hosts, num_clients=clients, num_relays=relays, **kwargs)
+
+
+def _build_cdn(num_hosts: int, args: dict):
+    from shadow_tpu_torch.models.overlay.cdn import CdnModel
+
+    args, kwargs = _take(
+        args,
+        time_keys=[("pause", "pause_ns"), ("start", "start_ns")],
+        int_keys=[
+            ("mids", "num_mids"),
+            ("leaves", "num_leaves"),
+            ("objects", "objects"),
+            ("leaf_slots", "leaf_slots"),
+            ("mid_slots", "mid_slots"),
+            ("obj_bytes", "obj_bytes"),
+            ("req_bytes", "req_bytes"),
+        ],
+    )
+    _reject_unknown("model cdn args", args)
+    return CdnModel(num_hosts=num_hosts, **kwargs)
+
+
+def _build_gossip(num_hosts: int, args: dict):
+    from shadow_tpu_torch.models.overlay.gossip import GossipModel
+
+    args, kwargs = _take(
+        args,
+        time_keys=[("interval", "interval_ns"), ("start", "start_ns")],
+        int_keys=[
+            ("view", "view_size"),
+            ("fanout", "fanout"),
+            ("churn_ppm", "churn_ppm"),
+            ("msg_bytes", "msg_bytes"),
+        ],
+    )
+    _reject_unknown("model gossip args", args)
+    return GossipModel(num_hosts=num_hosts, **kwargs)
+
+
 _REGISTRY = {
+    "phold": _build_phold,
+    "bulk-tcp": _build_bulk_tcp,
     "tgen": _build_tgen,
+    "onion": _build_onion,
+    "cdn": _build_cdn,
+    "gossip": _build_gossip,
 }
 
 

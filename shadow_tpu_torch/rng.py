@@ -92,18 +92,32 @@ def uniform_f32_grid(keys: torch.Tensor, counters: torch.Tensor) -> torch.Tensor
 
 def uniform_int(keys: torch.Tensor, counters: torch.Tensor, lo, hi) -> torch.Tensor:
     """[H] int64 in [lo, hi): jax.random.randint(fold_in(key, counter),
-    (), lo, hi, int64), one draw per host. The u64 remainder arithmetic
-    runs in numpy on the host (this helper is not on the kernel path)."""
+    (), lo, hi, int64), one draw per host. With Python int bounds whose
+    span is below 2**31 (every model's draws) the u64 remainder runs on
+    the tensors' device in int64, each product below 2**62; other bounds
+    take the same arithmetic in numpy u64 on the host."""
     ks = fold_in(keys, counters)
     z = torch.zeros_like(ks[..., 0])
     one = torch.ones_like(z)
     halves = []
     for c in (z, one):  # split(key) -> counts (0, 0) and (0, 1)
         s0, s1 = threefry2x32(ks[..., 0], ks[..., 1], z, c)
-        b0, b1 = threefry2x32(s0, s1, z, z)
-        halves.append((b0.cpu().numpy().astype(np.uint64) << np.uint64(32))
-                      | b1.cpu().numpy().astype(np.uint64))
-    higher, lower = halves
+        halves.append(threefry2x32(s0, s1, z, z))
+    if isinstance(lo, int) and isinstance(hi, int) and hi - lo < (1 << 31):
+        span = hi - lo if hi > lo else 1
+        r32 = (1 << 32) % span
+        mult = (r32 * r32) % span
+
+        def mod_u64(words):  # (hi32 * 2**32 + lo32) % span
+            w_hi, w_lo = words
+            return ((w_hi % span) * r32 + w_lo % span) % span
+
+        higher, lower = (mod_u64(w) for w in halves)
+        return lo + (higher * mult + lower) % span
+    higher, lower = (
+        (b0.cpu().numpy().astype(np.uint64) << np.uint64(32)) | b1.cpu().numpy().astype(np.uint64)
+        for b0, b1 in halves
+    )
     h = ks.shape[0]
     lo_a = np.broadcast_to(np.asarray(lo, np.int64), (h,))
     hi_a = np.broadcast_to(np.asarray(hi, np.int64), (h,))

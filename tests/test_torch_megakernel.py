@@ -35,6 +35,7 @@ from shadow_tpu_torch.config.options import NotYetPorted
 from shadow_tpu_torch.engine.round import effective_engine, run_until
 from shadow_tpu_torch.engine.state import EngineConfig, state_from_numpy, state_to_numpy
 from shadow_tpu_torch.graph.routing import RoutingTables
+from shadow_tpu_torch.models.overlay import OnionModel
 from shadow_tpu_torch.models.tgen import TGEN_TCP, TgenModel
 from shadow_tpu_torch.simtime import TIME_MAX
 
@@ -194,6 +195,13 @@ def test_layout_constants_match_the_kernel_source():
     assert (constexpr("ROWS_PER_WARP"), constexpr("STAGE")) == (mk.ROWS_PER_WARP, mk.STAGE)
     assert (constexpr("NR"), constexpr("NSEG")) == mk.TCP_SHAPE
     assert mk.TCP_SHAPE == (TGEN_TCP.ooo_ranges, TGEN_TCP.segs_per_flush)
+    # one instance per model whose pump rules the kernel carries, each
+    # built for a socket count its model fits
+    assert {m: constexpr(f"MODEL_{m.upper()}") for m in mk.MODEL_IDS} == mk.MODEL_IDS
+    assert {m: constexpr(f"{m.upper()}_MAX_S") for m in mk.MAX_SOCKETS} == mk.MAX_SOCKETS
+    assert TGEN_TCP.num_sockets <= mk.MAX_SOCKETS["tgen"]
+    onion_s = OnionModel(num_hosts=4, num_clients=1, num_relays=3).tcp_params.num_sockets
+    assert onion_s <= mk.MAX_SOCKETS["onion"] <= 32  # a row's socket bitmask is 32 bits
 
 
 def test_auto_engine_resolves_to_the_kernel_on_the_card():
