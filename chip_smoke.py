@@ -32,7 +32,19 @@ Phases, each printing one line; any failure exits non-zero:
      the CPU in this process, leaf-equal, at small size; phold at 10,240
      hosts on the bench graph; the CLI on examples/phold and examples/onion
      (stop times cut), sim-stats pinned;
-  9. the kernels JSON line (one entry per model instance of the kernel),
+  9. the ensemble plane (R seeded replicas as one batch, one kernel launch
+     over all R x H rows per drain iteration):
+     ensemble-tgen-10240x8, the lossy tgen world (6 nodes) at 10,240 hosts x 8
+     replicas (81,920 rows): the main path with engine "auto", replicas 0
+     and 7 held against single kernel runs seeded 11 and 18 (the first is
+     the R = 1 run it is compared with), launches against drain
+     iterations, and the kernel against its twin at the burst, timed with
+     its bound; ensemble-onion-10240x4, the onion cell x 4 replicas
+     (horizon cut to ENS_ONION_END_NS), replica 0 against a single onion
+     kernel run, kernel against twin at its end; ensemble-ragged, 10,235
+     hosts x 2 replicas (a warp owns rows of both), kernel against twin;
+     ensemble-cli, `run --replicas 2` on examples/phold (stop time cut);
+ 10. the kernels JSON line (one entry per model instance of the kernel),
      the card line, and the final JSON line.
 
 Imports torch, numpy and the port only (no jax, nothing of shadow_tpu/).
@@ -137,6 +149,19 @@ ONION_CLIENT_SHARE = 0.4
 ONION_END_NS = 100_000_000
 ONION_BURST_NS = 60_000_000
 ONION_WINDOW_CAP_NS = 1_000_000_000
+# the ensemble cells: replicas of the lossy tgen world on ENS_TGEN_NODES
+# nodes (main path to ENS_TGEN_END_NS, paused at LOSSY_MID_NS_SHAPED,
+# where the batch's kernel is held against its twin and timed), replicas
+# of the onion cell (its horizon cut below ONION_END_NS to fit the smoke's
+# time limit: the onion main path is host-bound), and a ragged ensemble
+# (RAGGED_SHORT hosts short of a multiple of the rows a warp owns) of
+# ENS_RAGGED_REPLICAS
+ENS_TGEN_REPLICAS = 8
+ENS_TGEN_NODES = 6
+ENS_TGEN_END_NS = 120_000_000
+ENS_ONION_REPLICAS = 4
+ENS_ONION_END_NS = 30_000_000
+ENS_RAGGED_REPLICAS = 2
 # the small worlds of phold, bulk-tcp, cdn and gossip (card vs CPU), and
 # the horizon of phold at full width
 SMALL_WORLD_END_NS = 200_000_000
@@ -247,11 +272,15 @@ def onion_world(num_hosts: int, device, seed: int = 7):
     return cfg, model, tables, bootstrap(st, model, cfg)
 
 
-def lossy_world(num_hosts: int, device, shaped: bool = True, loss: float = 0.05, seed: int = 11):
+def lossy_world(num_hosts: int, device, shaped: bool = True, loss: float = 0.05, seed: int = 11,
+                n_nodes: int = 5):
     """A tgen world in the style of tests/test_pump.py (lossy edges between
-    graph nodes, 20 Mbit hosts when shaped), written against the port. It
-    has 5 nodes so that, unlike the bench world, a client and its server
-    sit on different nodes: loss draws drop packets and recovery runs."""
+    graph nodes, 20 Mbit hosts when shaped), written against the port.
+    Host i sits on node i % n_nodes; with 5 nodes at 4,096 hosts, unlike
+    the bench world, a client and its server sit on different nodes: loss
+    draws drop packets and recovery runs. (At 10,240 hosts a client's
+    first server, num_hosts / 2 rows on, shares its node when n_nodes
+    divides 5,120; 6 nodes do not.)"""
     from shadow_tpu_torch.engine.round import bootstrap
     from shadow_tpu_torch.engine.state import EngineConfig, init_state
     from shadow_tpu_torch.graph import NetworkGraph, compute_routing
@@ -260,7 +289,6 @@ def lossy_world(num_hosts: int, device, shaped: bool = True, loss: float = 0.05,
     from shadow_tpu_torch.simtime import NS_PER_MS
 
     rng_py = random.Random(seed)
-    n_nodes = 5
     lines = ["graph [", "  directed 0"]
     for i in range(n_nodes):
         lines.append(f"  node [ id {i} ]")
@@ -372,10 +400,12 @@ def sync(dev) -> None:
 
 def compare_stage(st, we, model, tables, scfg):
     """One twin stage (with its class tallies) and one kernel stage on
-    clones of `st`: (ok, facts for the phase line, (twin result, tallies))."""
+    clones of `st` (one world, or an ensemble's rows view with [R] window
+    ends): (ok, facts for the phase line, (twin result, tallies))."""
     from shadow_tpu_torch import equeue
     from shadow_tpu_torch.engine import megakernel as mk
     from shadow_tpu_torch.engine.pump import pump_stage
+    from shadow_tpu_torch.engine.state import per_row
 
     steps = []
     twin, rej_t = pump_stage(st.clone(), we, model, tables, scfg, debug_out=steps)
@@ -383,10 +413,22 @@ def compare_stage(st, we, model, tables, scfg):
     sync(st.device)
     bad, err = leaves_equal(twin, kern)
     classes = {k: sum(d[k] for d in steps) for k in ("p1", "p2", "p3", "rejected")}
-    live = int((equeue.next_time(st.queue) < we).sum())
-    facts = dict(mismatched_leaves=bad, max_abs_err=err, rejected=[bool(rej_t), bool(rej_k)],
+    live = int((equeue.next_time(st.queue) < per_row(st, we)).sum())
+    facts = dict(mismatched_leaves=bad, max_abs_err=err,
+                 rejected=[rej_t.tolist(), rej_k.tolist()],
                  classes=classes, live_rows=live, pump_k=scfg.pump_k)
-    return not bad and bool(rej_t) == bool(rej_k), facts, (twin, steps)
+    return not bad and torch.equal(rej_t, rej_k), facts, (twin, steps)
+
+
+def world_args(st, we):
+    """The window end and a zeroed rejected flag as the kernel takes them:
+    a scalar and one flag for one world, [R] each for an ensemble's rows."""
+    from shadow_tpu_torch.engine.state import replicas_of
+
+    r = replicas_of(st)
+    w = torch.as_tensor(we, dtype=torch.int64, device=st.device).reshape(
+        () if r is None else (r,))
+    return w, torch.zeros((r or 1,), dtype=torch.int32, device=st.device)
 
 
 def leaves_equal(a, b):
@@ -436,11 +478,10 @@ def kernel_device_ms(st, we, model, tables, cfg, reps: int) -> float:
     from shadow_tpu_torch.engine import megakernel as mk
 
     dev = st.device
-    w = torch.as_tensor(we, dtype=torch.int64, device=dev).reshape(())
     codel = mk.PUMP_KERNEL.codel_table(dev)
     prepared = []
     for _ in range(reps):
-        rej = torch.zeros((1,), dtype=torch.int32, device=dev)
+        w, rej = world_args(st, we)
         prepared.append(mk.kernel_args(st.clone(), w, model, tables, cfg, rej, codel))
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(reps)]
@@ -471,8 +512,7 @@ def pump_bound(st, we, model, tables, cfg, tallies, after) -> "tuple[float, str,
     from shadow_tpu_torch.utils.tree import tree_leaves_with_path
 
     h, cap = st.queue.time.shape
-    rej = torch.zeros((1,), dtype=torch.int32, device=st.device)
-    w = torch.as_tensor(we, dtype=torch.int64, device=st.device).reshape(())
+    w, rej = world_args(st, we)
     _, named = mk.kernel_args(st, w, model, tables, cfg, rej,
                               mk.PUMP_KERNEL.codel_table(st.device))
     tcp = st.model.tcp
@@ -563,7 +603,6 @@ def onion_phase(hosts: int, end_ns: int, dev) -> "tuple[bool, dict, float]":
     (ok, the instance's numbers for the kernels line, largest error)."""
     from shadow_tpu_torch import equeue
     from shadow_tpu_torch.engine import megakernel as mk
-    from shadow_tpu_torch.engine.pump import pump_stage
     from shadow_tpu_torch.engine.round import (
         _next_window_end,
         effective_engine,
@@ -612,31 +651,13 @@ def onion_phase(hosts: int, end_ns: int, dev) -> "tuple[bool, dict, float]":
         return False, entry, err
 
     def stage(name, st, at_ns):
-        """Kernel vs twin on `st`, each timed: (ok, the stage's numbers)."""
+        """Kernel vs twin on `st`, each timed: (ok, the stage's numbers,
+        error). The burst must take client events."""
         # the window the next round would take, were the run to go on
         we = _next_window_end(st, ONION_WINDOW_CAP_NS, cfg, equeue.next_time(st.queue).amin(),
                               tables)
-        ok_s, facts, (twin, steps) = compare_stage(st, we, model, tables, scfg)
-        # the burst must take client events; any launch must have live rows
-        took = facts["classes"]["p2"] + facts["classes"]["p3"] > 0
-        ok_s = ok_s and facts["live_rows"] > 0 and (took or name != "burst")
-        if dev.type == "cuda":
-            ms_k = kernel_device_ms(st, we, model, tables, scfg, reps)
-        else:
-            ms_k = timed_ms(lambda s_: mk.megakernel_stage(s_, we, model, tables, scfg),
-                            reps, st.clone, dev)
-        ms_t = timed_ms(lambda s_: pump_stage(s_, we, model, tables, scfg), 5, st.clone, dev)
-        tallies = {"steps": steps, "live_rows": facts["live_rows"]}
-        bound_ms, bound_by, reck = pump_bound(st, we, model, tables, scfg, tallies, twin)
-        # rows whose slots below the window end overflow the kernel's stage
-        # take their list from device memory
-        over = int(((st.queue.time < we).sum(dim=1) > mk.STAGE).sum())
-        line("onion_kernel_vs_twin", ok=ok_s, launch=name, at_ns=at_ns, hosts=hosts,
-             rows_over_stage=over, **facts,
-             kernel_ms=ms_k, twin_ms=ms_t, bound_ms=bound_ms, bound_by=bound_by,
-             share_of_bound=bound_ms / ms_k, reckoning=reck)
-        return ok_s, facts["max_abs_err"], dict(ms=ms_k, plain_ms=ms_t, bound_ms=bound_ms,
-                                                bound_by=bound_by)
+        return timed_stage("onion_kernel_vs_twin", st, we, model, tables, scfg, reps, dev,
+                           must_take=name == "burst", launch=name, at_ns=at_ns, hosts=hosts)
 
     # the plain engine, with the burst launch on its way and the mid-run
     # launch at its end; comparison launches do not count
@@ -645,13 +666,13 @@ def onion_phase(hosts: int, end_ns: int, dev) -> "tuple[bool, dict, float]":
     st_b = run_until(st0, ONION_BURST_NS, model, tables, plain, rounds_per_chunk=16)
     sync(dev)
     wall_b = time.perf_counter() - t0
-    ok_b, err_b, entry = stage("burst", st_b, ONION_BURST_NS)
+    ok_b, entry, err_b = stage("burst", st_b, ONION_BURST_NS)
     t0 = time.perf_counter()
     out = run_until(st_b, end_ns, model, tables, plain, rounds_per_chunk=16)
     sync(dev)
     wall_p = wall_b + time.perf_counter() - t0
     del st_b
-    ok_m, err_m, _ = stage("mid", out, end_ns)
+    ok_m, _, err_m = stage("mid", out, end_ns)
     hs = host_stats(out)
     diff = [k for k in hs if k not in ("iters_done", "lanes_live")
             and not np.array_equal(hs[k], main["hs"][k])]
@@ -762,10 +783,10 @@ def models_phase(dev, big_hosts: int) -> bool:
     return ok
 
 
-def cli_phase(example: str, pinned: dict, dev, stop=None) -> "tuple[bool, dict]":
+def cli_phase(example: str, pinned: dict, dev, stop=None, extra=()) -> "tuple[bool, dict]":
     """`python -m shadow_tpu_torch run` on an example config (its data
     directory moved to a temporary one; `stop`, a pair of stop_time
-    lines, shortens it): (ok, the run's execution block)."""
+    lines, shortens it; `extra` adds flags): (ok, the run's sim-stats)."""
     with tempfile.TemporaryDirectory() as tmp:
         src = open(os.path.join(HERE, "examples", example)).read()
         if stop is not None:
@@ -777,7 +798,7 @@ def cli_phase(example: str, pinned: dict, dev, stop=None) -> "tuple[bool, dict]"
         with open(cfg_path, "w") as f:
             f.write(src.replace("data_directory: shadow.data", f"data_directory: {data}"))
         t0 = time.perf_counter()
-        cmd = [sys.executable, "-m", "shadow_tpu_torch", "run", cfg_path]
+        cmd = [sys.executable, "-m", "shadow_tpu_torch", "run", *extra, cfg_path]
         if dev.type == "cpu":
             cmd += ["--device", "cpu"]
         proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True)
@@ -788,10 +809,242 @@ def cli_phase(example: str, pinned: dict, dev, stop=None) -> "tuple[bool, dict]"
                 stats = json.load(f)
         got = {k: stats.get(k) for k in pinned}
         ok = proc.returncode == 0 and got == pinned
-        line("cli", ok=ok, example=example, rc=proc.returncode, stats=got,
+        line("cli", ok=ok, example=example, flags=list(extra), rc=proc.returncode, stats=got,
              execution=stats.get("execution"), wall_s=round(cli_s, 3),
              stderr_tail=proc.stderr[-2000:] if not ok else "")
-        return ok, stats.get("execution") or {}
+        return ok, stats
+
+
+def ensemble_window(rows, cfg, tables):
+    """[R] window ends the next round of an ensemble's rows would take,
+    were the run to go on."""
+    from shadow_tpu_torch import equeue
+    from shadow_tpu_torch.engine.round import _next_window_end
+    from shadow_tpu_torch.engine.state import per_replica
+
+    start = per_replica(rows, equeue.next_time(rows.queue)).amin(dim=1)
+    return _next_window_end(rows, ONION_WINDOW_CAP_NS, cfg, start, tables)
+
+
+def timed_stage(name, st, we, model, tables, scfg, reps, dev, must_take=False, **fields):
+    """Kernel vs twin on one launch (one world, or an ensemble's rows with
+    [R] window ends), the kernel timed alone, with its bound, printed as
+    line `name` with `fields`. Any launch must have live rows;
+    `must_take`: it must take P2 or P3 events. Returns (ok, the launch's
+    numbers, largest error)."""
+    from shadow_tpu_torch.engine import megakernel as mk
+    from shadow_tpu_torch.engine.pump import pump_stage
+    from shadow_tpu_torch.engine.state import per_row
+
+    ok, facts, (twin, steps) = compare_stage(st, we, model, tables, scfg)
+    took = facts["classes"]["p2"] + facts["classes"]["p3"] > 0
+    ok = ok and facts["live_rows"] > 0 and (took or not must_take)
+    if dev.type == "cuda":
+        ms_k = kernel_device_ms(st, we, model, tables, scfg, reps)
+    else:
+        ms_k = timed_ms(lambda s_: mk.megakernel_stage(s_, we, model, tables, scfg),
+                        reps, st.clone, dev)
+    ms_t = timed_ms(lambda s_: pump_stage(s_, we, model, tables, scfg), 5, st.clone, dev)
+    tallies = {"steps": steps, "live_rows": facts["live_rows"]}
+    bound_ms, bound_by, reck = pump_bound(st, we, model, tables, scfg, tallies, twin)
+    # rows whose slots below the window end overflow the kernel's stage
+    # take their list from device memory
+    below = st.queue.time < per_row(st, we)[..., None]
+    over = int((below.sum(dim=1) > mk.STAGE).sum())
+    line(name, ok=ok, **fields, rows_over_stage=over, **facts,
+         kernel_ms=ms_k, twin_ms=ms_t, bound_ms=bound_ms, bound_by=bound_by,
+         share_of_bound=bound_ms / ms_k, reckoning=reck)
+    return ok, dict(ms=ms_k, plain_ms=ms_t, bound_ms=bound_ms, bound_by=bound_by), facts[
+        "max_abs_err"]
+
+
+def ensemble_stage(cell, rows, we, model, tables, scfg, reps, dev, must_take=False):
+    """timed_stage on one launch over an ensemble's rows."""
+    h = int(rows.queue.time.shape[0])
+    return timed_stage("ensemble_kernel_vs_twin", rows, we, model, tables, scfg, reps, dev,
+                       must_take=must_take, cell=cell, rows=h,
+                       rows_per_replica=h // int(we.shape[0]), window_end=we.tolist())
+
+
+def ensemble_main_path(st0, model, tables, cfg, instance, ends, dev):
+    """The ensemble plane's main path (engine "auto": the kernel on the
+    card), run_ensemble_until to each of `ends` in turn, with the launch
+    counts set to 0 just before and read just after: (states at each end,
+    wall s, drain iterations, launches, peak device bytes)."""
+    from shadow_tpu_torch.engine import megakernel as mk
+    from shadow_tpu_torch.engine.ensemble import run_ensemble_until
+
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    counters = {}
+    mk.PUMP_KERNEL.launches_by_model[instance] = 0
+    t0 = time.perf_counter()
+    outs, st = [], st0
+    for end in ends:
+        st = run_ensemble_until(st, end, model, tables, cfg, rounds_per_chunk=16,
+                                counters=counters)
+        outs.append(st)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = mk.PUMP_KERNEL.launches_by_model[instance]
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    return outs, wall, counters.get("iters", 0), launches, peak
+
+
+def single_main_path(st0, model, tables, cfg, ends, dev):
+    """One world's main path to each of `ends` in turn: (final state,
+    wall s, drain iterations, peak device bytes)."""
+    from shadow_tpu_torch.engine.round import run_until
+
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    counters = {}
+    t0 = time.perf_counter()
+    st = st0
+    for end in ends:
+        st = run_until(st, end, model, tables, cfg, rounds_per_chunk=16, counters=counters)
+    sync(dev)
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    return st, time.perf_counter() - t0, counters.get("iters", 0), peak
+
+
+def ensemble_tgen_phase(hosts: int, end_ns: int, dev) -> "tuple[bool, dict, float]":
+    """ensemble-tgen: the lossy tgen world (loss draws make its replicas
+    diverge; the bench world's pairs share a node and never lose a
+    packet) x ENS_TGEN_REPLICAS, seed stride 1, through the kernel. The
+    main path pauses at the burst (LOSSY_MID_NS_SHAPED), as the single
+    runs do, so that their rounds group into chunks alike; replicas 0 and
+    R - 1 must equal single kernel runs with their seeds (the first is
+    the R = 1 run the batch is compared with), the replicas must differ,
+    and the kernel must have launched once per drain iteration of the
+    batch. Then kernel vs twin at the batch's burst launch, timed.
+    Returns (ok, the instance's ensemble numbers, largest error)."""
+    from shadow_tpu_torch.engine import megakernel as mk
+    from shadow_tpu_torch.engine.ensemble import init_ensemble_state, replica_slice
+    from shadow_tpu_torch.engine.round import bootstrap, effective_engine
+    from shadow_tpu_torch.engine.state import init_state, rows_view
+    from shadow_tpu_torch.netstack import bw_bits_per_sec_to_refill
+
+    r = ENS_TGEN_REPLICAS
+    phase = f"ensemble-tgen-{hosts}x{r}"
+    cfg, model, tables, _ = lossy_world(hosts, dev, n_nodes=ENS_TGEN_NODES)
+    bw = bw_bits_per_sec_to_refill(20_000_000)
+    scfg = mk.resolve_stage_cfg(cfg)
+    ends = (LOSSY_MID_NS_SHAPED, end_ns)
+    singles = {}
+    for i in (0, r - 1):
+        rcfg = dataclasses.replace(cfg, seed=cfg.seed + i)
+        s0 = bootstrap(init_state(rcfg, model.init(dev), bw, bw, device=dev), model, rcfg)
+        mk.PUMP_KERNEL.launches_by_model["tgen"] = 0
+        out, wall, iters, peak = single_main_path(s0, model, tables, rcfg, ends, dev)
+        singles[i] = dict(state=out, wall_s=round(wall, 3), iters=iters, peak=peak,
+                          launches=mk.PUMP_KERNEL.launches_by_model["tgen"])
+    ens0 = init_ensemble_state(cfg, model, r, 1, bw, bw, device=dev)
+    (st_b, out), wall, iters, launches, peak = ensemble_main_path(
+        ens0, model, tables, cfg, "tgen", ends, dev)
+    eng = effective_engine(cfg, dev)
+    bad = {i: leaves_equal(replica_slice(out, i), s["state"])[0] for i, s in singles.items()}
+    events = out.events_handled.sum(dim=1).tolist()
+    one = singles[0]
+    drops = out.packets_dropped.sum(dim=1).tolist()
+    ok = ((dev.type == "cpu" or (eng == "megakernel" and launches == iters > 0))
+          and not any(bad.values()) and len(set(events)) > 1 and min(drops) > 0)
+    line("ensemble_main_path", ok=ok, cell=phase, engine=eng, hosts=hosts, replicas=r,
+         rows=hosts * r, end_ns=end_ns, wall_s=round(wall, 3),
+         sim_s_per_wall_s=end_ns / 1e9 / wall,
+         sim_sec_per_wall_sec_per_replica=end_ns / 1e9 / (wall / r),
+         iters=iters, kernel_launches=launches, max_memory_allocated=peak,
+         events_per_replica=events,
+         packets_dropped_per_replica=drops,
+         streams_done_per_replica=out.model.streams_done.sum(dim=1).tolist(),
+         mismatched_leaves_vs_single=bad,
+         r1={k: v for k, v in one.items() if k != "state"},
+         r1_sim_s_per_wall_s=end_ns / 1e9 / one["wall_s"],
+         single_last={k: v for k, v in singles[r - 1].items() if k != "state"})
+    del out, singles, one
+    if not ok:
+        return False, {}, 0.0
+    rows = rows_view(st_b)
+    ok_s, entry, err = ensemble_stage(phase, rows, ensemble_window(rows, cfg, tables), model,
+                                      tables, scfg, 20, dev, must_take=True)
+    entry.update(phase=phase, launches=launches, iters=iters, replicas=r, rows=hosts * r)
+    return ok and ok_s, entry, err
+
+
+def ensemble_onion_phase(hosts: int, end_ns: int, dev) -> "tuple[bool, dict, float]":
+    """ensemble-onion: the onion cell x ENS_ONION_REPLICAS through the
+    kernel's onion instance to end_ns; replica 0 must equal a single
+    onion kernel run to the same horizon, the replicas' circuit counts
+    must differ, and the kernel launches once per drain iteration; then
+    kernel vs twin at the batch's next launch, timed."""
+    from shadow_tpu_torch.engine import megakernel as mk
+    from shadow_tpu_torch.engine.ensemble import init_ensemble_state, replica_slice
+    from shadow_tpu_torch.engine.round import effective_engine
+    from shadow_tpu_torch.engine.state import rows_view
+    from shadow_tpu_torch.netstack import bw_bits_per_sec_to_refill
+
+    r = ENS_ONION_REPLICAS
+    phase = f"ensemble-onion-{hosts}x{r}"
+    cfg, model, tables, st0 = onion_world(hosts, dev)
+    bw = bw_bits_per_sec_to_refill(100_000_000)
+    single, wall1, iters1, peak1 = single_main_path(st0, model, tables, cfg, (end_ns,), dev)
+    del st0
+    ens0 = init_ensemble_state(cfg, model, r, 1, bw, bw, device=dev)
+    (out,), wall, iters, launches, peak = ensemble_main_path(
+        ens0, model, tables, cfg, "onion", (end_ns,), dev)
+    del ens0
+    eng = effective_engine(cfg, dev)
+    bad = leaves_equal(replica_slice(out, 0), single)[0]
+    circuits = out.model.circuits_built.sum(dim=1).tolist()
+    ok = ((dev.type == "cpu" or (eng == "megakernel" and launches == iters > 0))
+          and not bad and len(set(circuits)) > 1)
+    line("ensemble_main_path", ok=ok, cell=phase, engine=eng, hosts=hosts, replicas=r,
+         rows=hosts * r, end_ns=end_ns, wall_s=round(wall, 3),
+         sim_s_per_wall_s=end_ns / 1e9 / wall,
+         sim_sec_per_wall_sec_per_replica=end_ns / 1e9 / (wall / r),
+         iters=iters, kernel_launches=launches, max_memory_allocated=peak,
+         events_per_replica=out.events_handled.sum(dim=1).tolist(),
+         circuits_built_per_replica=circuits,
+         cells_relayed_per_replica=out.model.cells_relayed.sum(dim=1).tolist(),
+         mismatched_leaves_vs_single=bad,
+         r1=dict(wall_s=round(wall1, 3), iters=iters1, peak=peak1,
+                 sim_s_per_wall_s=end_ns / 1e9 / wall1))
+    del single
+    if not ok:
+        return False, {}, 0.0
+    rows = rows_view(out)
+    ok_s, entry, err = ensemble_stage(phase, rows, ensemble_window(rows, cfg, tables), model,
+                                      tables, mk.resolve_stage_cfg(cfg), 20, dev)
+    entry.update(phase=phase, launches=launches, iters=iters, replicas=r, rows=hosts * r)
+    return ok and ok_s, entry, err
+
+
+def ensemble_ragged_phase(hosts: int, dev) -> "tuple[bool, float]":
+    """ensemble-ragged: the lossy tgen world at `hosts` (not a multiple of
+    the rows a warp owns, so one warp holds rows of two replicas) x
+    ENS_RAGGED_REPLICAS, advanced through the kernel to the burst; kernel
+    vs twin on the batch's next launch."""
+    from shadow_tpu_torch.engine import megakernel as mk
+    from shadow_tpu_torch.engine.ensemble import init_ensemble_state, run_ensemble_until
+    from shadow_tpu_torch.engine.state import rows_view
+    from shadow_tpu_torch.netstack import bw_bits_per_sec_to_refill
+
+    r = ENS_RAGGED_REPLICAS
+    cfg, model, tables, _ = lossy_world(hosts, dev, n_nodes=ENS_TGEN_NODES)
+    bw = bw_bits_per_sec_to_refill(20_000_000)
+    ens0 = init_ensemble_state(cfg, model, r, 1, bw, bw, device=dev)
+    rows = rows_view(run_ensemble_until(ens0, LOSSY_MID_NS_SHAPED, model, tables, cfg,
+                                        rounds_per_chunk=16))
+    straddled = hosts % mk.ROWS_PER_WARP != 0
+    # replica i's window ends i ms early, so the warp that owns rows of
+    # both replicas holds two window ends
+    we = ensemble_window(rows, cfg, tables)
+    we = we - 1_000_000 * torch.arange(r, device=we.device)
+    ok, entry, err = ensemble_stage(f"ensemble-ragged-{hosts}x{r}", rows, we, model, tables,
+                                    mk.resolve_stage_cfg(cfg), 5, dev, must_take=True)
+    return ok and straddled, err
 
 
 def main(argv=None) -> int:
@@ -1075,6 +1328,34 @@ def main(argv=None) -> int:
         if not cli_phase(example, pinned, dev, stop)[0]:
             return 1
 
+    # 9. the ensemble plane: tgen and onion replicas through the kernel,
+    # a ragged batch, the CLI's --replicas
+    ok9, ens_tgen, err = ensemble_tgen_phase(args.hosts, ENS_TGEN_END_NS, dev)
+    max_err["tgen"] = max(max_err["tgen"], err)
+    if not ok9:
+        return 1
+    ok9, err = ensemble_ragged_phase(args.hosts - RAGGED_SHORT, dev)
+    max_err["tgen"] = max(max_err["tgen"], err)
+    if not ok9:
+        return 1
+    ok9, ens_onion, err = ensemble_onion_phase(args.hosts, ENS_ONION_END_NS, dev)
+    max_err["onion"] = max(max_err["onion"], err)
+    if not ok9:
+        return 1
+    ok9, stats = cli_phase(
+        "phold/shadow.yaml", {k: PHOLD_EXAMPLE_STATS[k] for k in ("sim_seconds", "num_hosts")},
+        dev, PHOLD_EXAMPLE_STOP, extra=("--replicas", "2"))
+    # replica 0 runs the config's own seed: it is the single run pinned above
+    per = (stats.get("ensemble") or {}).get("per_replica") or [{}, {}]
+    first = {k: per[0].get(k) for k in ("events_handled", "packets_sent")}
+    ok9 = (ok9 and stats.get("scheduler") == "tpu-ensemble" and len(per) == 2
+           and first == {k: PHOLD_EXAMPLE_STATS[k] for k in first}
+           and per[0]["events_handled"] != per[1].get("events_handled")
+           and stats.get("events_handled") == sum(p["events_handled"] for p in per))
+    line("ensemble_cli", ok=ok9, per_replica=per)
+    if not ok9:
+        return 1
+
     if dev.type == "cpu":
         line("rehearsal_done", note="no result: the kernel runs only on the card")
         return 3
@@ -1084,6 +1365,11 @@ def main(argv=None) -> int:
     # ptxas resources), the card line, and the result
     timing = {"tgen": dict(ms=ms_k, plain_ms=ms_t, bound_ms=bound_ms, bound_by=bound_by),
               "onion": onion_entry}
+    # the phases that launched each instance over replica batches (R > 1),
+    # with that phase's launches on its main path and its timed launch
+    ensemble = {"tgen": [ens_tgen["phase"], f"ensemble-ragged-{args.hosts - RAGGED_SHORT}x"
+                         f"{ENS_RAGGED_REPLICAS}"], "onion": [ens_onion["phase"]]}
+    ens_launch = {"tgen": ens_tgen, "onion": ens_onion}
     print(json.dumps({"kernels": [{
         "name": f"pump_megakernel[{m}]",
         "route": "cuda",
@@ -1094,6 +1380,8 @@ def main(argv=None) -> int:
         **timing[m],
         "library_ms": None,
         **resources[m],
+        "launched_with_replicas_by": ensemble[m],
+        "ensemble": ens_launch[m],
     } for m in ("tgen", "onion")]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,13 +25,28 @@ def main(argv: "list[str] | None" = None) -> int:
         help="where the simulation state lives (default: cuda)",
     )
     run_p.add_argument("--show-config", action="store_true", help="print resolved config and exit")
+    run_p.add_argument(
+        "--replicas", type=int, metavar="N",
+        help="run N independent seeded replicas of the scenario as one batch "
+        "(scripted models, tpu scheduler); replica r is leaf-identical to a "
+        "single run seeded seed + r*stride, and sim-stats.json gains "
+        "per-replica and aggregate CI sections (general.replicas)",
+    )
+    run_p.add_argument(
+        "--replica-seed-stride", type=int, metavar="K",
+        help="spacing between consecutive replicas' derived seeds "
+        "(default 1; general.replica_seed_stride)",
+    )
     args = parser.parse_args(argv)
 
     if args.command == "run":
         from shadow_tpu_torch.runtime.cli_run import CliUserError, run_from_config
 
         try:
-            return run_from_config(args.config, device=args.device, show_config=args.show_config)
+            return run_from_config(
+                args.config, device=args.device, show_config=args.show_config,
+                replicas=args.replicas, replica_seed_stride=args.replica_seed_stride,
+            )
         except CliUserError as e:
             print(f"shadow-tpu-torch: error: {e}", file=sys.stderr)
             return 1

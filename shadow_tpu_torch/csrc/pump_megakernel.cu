@@ -62,6 +62,13 @@
 //    with the popped slots), with overflow counted as push_self_lanes
 //    counts it.
 //
+// Replicas. An ensemble of R worlds is one launch over its R x H rows
+// (rows_per_replica = H; a single world is R = 1). A row reads its own
+// replica's window end, folds into its replica's min_used and flags its
+// replica's rejection. A warp's rows may straddle two replicas, so the
+// warp-wide work of A compares each row's slots with that row's own
+// window end, kept per row in shared memory.
+//
 // Integer semantics follow jax under x64: i64 floor division (fdiv),
 // wrapping u32 counters held in i64, arithmetic shifts on i32 lanes,
 // int32 wire lanes built from u32 bit patterns. Floats: the loss
@@ -148,13 +155,15 @@ struct PumpArgs {
   void *packets_unroutable;
   // tracker lanes [H] (unused when tracker == 0)
   void *trk_bytes_ctrl, *trk_bytes_data, *trk_retrans;
-  // scalars: window_end (i64, read), min_used_lat (i64, atomicMin),
-  // rejected flag (i32, set to 1 by any row the pump could not finish)
+  // per replica [R]: window_end (i64, read), min_used_lat (i64,
+  // atomicMin), rejected flag (i32, set to 1 by any of the replica's
+  // rows that the pump could not finish)
   void *window_end, *min_used, *rejected;
   // read-only context
   void *host_id, *rng_key, *host_node, *lat_ns, *rel, *codel_table;
   // shapes and static parameters
   int64_t H, Q, O, S, R, N, num_global_hosts, pump_k;
+  int64_t rows_per_replica;  // H of one world: row h is replica h / rows_per_replica's
   int64_t bootstrap_end_ns;
   int64_t use_netstack, use_sack, tracker, dyn_runahead;
   int64_t model, num_clients, num_servers, req_bytes, num_relays, resp_span;
@@ -336,6 +345,7 @@ __device__ __forceinline__ int nth_bit(unsigned m, int n) {
 template <int MAX_S>
 struct WarpSmem {
   alignas(16) int64_t piece[PIECES_IN_FLIGHT][PIECE];  // streamed pieces of `time` rows
+  int64_t lim[ROWS_PER_WARP];  // each row's window end (its replica's), capped at TIME_MAX
   // a row's staged slots below the window end, in slot order
   int64_t st_time[ROWS_PER_WARP][STAGE + 1];
   int64_t st_tie[ROWS_PER_WARP][STAGE + 1];
@@ -386,13 +396,14 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
   const int S = int(a.S), O = int(a.O);
   const int64_t Q = a.Q;
   const int K = int(a.pump_k);
-  const int64_t we = *reinterpret_cast<const int64_t *>(a.window_end);
-  const int64_t lim = imin(we, TIME_MAX);  // a listed entry's time is below both
   const int64_t mss = a.mss;
 
   int64_t *q_time = P(int64_t, q_time);
   int64_t *q_tie = P(int64_t, q_tie);
   const bool mine = lane < ROWS_PER_WARP && h < a.H;
+  // the row's window end: its replica's
+  const int64_t we = mine ? P(int64_t, window_end)[h / a.rows_per_replica] : 0;
+  if (lane < ROWS_PER_WARP) w.lim[lane] = imin(we, TIME_MAX);  // a listed entry's time is below both
   int32_t qcount = mine ? P(int32_t, q_count)[h] : 0;
   int64_t qhead = mine ? P(int64_t, q_head)[h] : TIME_MAX;
   // a row takes an event only if its first microstep finds one in the
@@ -438,6 +449,7 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
       const int64_t base = int64_t(p % per_row) * PIECE;
       const int n = int(imin(PIECE, Q - base));
       const int64_t *t = w.piece[p % PIECES_IN_FLIGHT];
+      const int64_t lim = w.lim[r];
       // lane l holds slots j, j + 1 (one 16-byte load); in slot order,
       // lane l's come after those of the lanes below it
       for (int j0 = 0; j0 < n; j0 += 2 * WARP) {
@@ -538,6 +550,7 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
     if (w.n_below[r] > STAGE) {
       const int64_t *tr = q_time + (row0 + r) * Q;
       const int64_t *tier = q_tie + (row0 + r) * Q;
+      const int64_t lim = w.lim[r];
       Key prev = {-1, 0, 0};
       for (int i = 0; i <= K; ++i) {
         Key best = {TIME_MAX, I64_MAX, 0x7FFFFFFF};
@@ -1253,9 +1266,10 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
     P(int64_t, trk_bytes_data)[h] = trk_data;
     P(int64_t, trk_retrans)[h] = trk_rtx;
   }
+  const int64_t replica = h / a.rows_per_replica;
   if (min_used_local < TIME_MAX)
-    atomicMin(reinterpret_cast<long long *>(a.min_used), (long long)min_used_local);
-  if (rejected) *P(int32_t, rejected) = 1;
+    atomicMin(reinterpret_cast<long long *>(a.min_used) + replica, (long long)min_used_local);
+  if (rejected) P(int32_t, rejected)[replica] = 1;
 }
 
 #undef P

@@ -1,1 +1,2 @@
-"""The device engine: state, round loop, packet pump and its kernel."""
+"""The device engine: state, round loop, packet pump and its kernel,
+and the ensemble plane."""

@@ -14,9 +14,12 @@ the models that have them, tgen and onion, as one template instance
 each; `kernel_args` names the instance and refuses any other model.
 `megakernel_stage` dispatches on where the state lives: on the card it
 launches the kernel (or raises — there is no fallback), on the CPU it
-runs the twin. The kernel is built with nvcc from the repo's own source
-on first use, into build/shadow_tpu_torch/ at the repo root, as a plain
-C shared library loaded with ctypes.
+runs the twin. An ensemble's rows view (engine/state.py::rows_view) is
+one launch over all R * H rows: the window end, `min_used_lat` and the
+rejected flag are [R], and each row reads and writes its replica's. The
+kernel is built with nvcc from the repo's own source on first use, into
+build/shadow_tpu_torch/ at the repo root, as a plain C shared library
+loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch
 
 from shadow_tpu_torch.config.options import NotYetPorted
 from shadow_tpu_torch.engine.pump import pump_stage
-from shadow_tpu_torch.engine.state import EngineConfig, SimState
+from shadow_tpu_torch.engine.state import EngineConfig, SimState, replicas_of
 from shadow_tpu_torch.graph.routing import RoutingTables
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -76,8 +79,8 @@ _FIELDS = (
     + [("host_id", _I32), ("rng_key", _I64), ("host_node", _I32), ("lat_ns", _I64),
        ("rel", _F32), ("codel_table", _I64)]
     + [(n, None) for n in ("H", "Q", "O", "S", "R", "N", "num_global_hosts", "pump_k",
-                           "bootstrap_end_ns", "use_netstack", "use_sack", "tracker",
-                           "dyn_runahead", "model", "num_clients", "num_servers",
+                           "rows_per_replica", "bootstrap_end_ns", "use_netstack",
+                           "use_sack", "tracker", "dyn_runahead", "model", "num_clients", "num_servers",
                            "req_bytes", "num_relays", "resp_span",
                            "mss", "header_bytes", "rcv_wnd", "rto_min_ns",
                            "rto_max_ns", "granularity_ns", "segs_per_flush",
@@ -196,13 +199,19 @@ def kernel_model(model) -> str:
 
 def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTables,
                 cfg: EngineConfig, rejected: torch.Tensor, codel_table: torch.Tensor):
-    """The kernel's argument struct for `st`, after checking device,
-    dtype, shape and contiguity of every tensor it points at. Returns
-    (args, tensors): keep `tensors` alive until the launch is enqueued."""
+    """The kernel's argument struct for `st` (one world, or an ensemble's
+    rows view, whose window_end and min_used are [R] and rejected [R]),
+    after checking device, dtype, shape and contiguity of every tensor it
+    points at. Returns (args, tensors): keep `tensors` alive until the
+    launch is enqueued."""
     instance = kernel_model(model)
     p = model.tcp_params
     q, ob, net, ts, tr = st.queue, st.outbox, st.net, st.model.tcp, st.tracker
     h, cap = q.time.shape
+    replicas = replicas_of(st)
+    world = () if replicas is None else (replicas,)
+    if replicas is not None and h % replicas:
+        raise ValueError(f"pump megakernel: {h} rows do not split into {replicas} replicas")
     o = ob.valid.shape[1]
     s, r = p.num_sockets, p.ooo_ranges
     if (r, p.segs_per_flush) != TCP_SHAPE:
@@ -219,8 +228,8 @@ def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTa
         "q_time": (h, cap), "q_tie": (h, cap), "q_kind": (h, cap), "q_data": (h, cap, 8),
         "q_aux": (h, cap), "ooo": (h, s, r, 2), "sacked": (h, s, r, 2),
         "ob_valid": (h, o), "ob_dst": (h, o), "ob_time": (h, o), "ob_tie": (h, o),
-        "ob_data": (h, o, 8), "ob_aux": (h, o), "rng_key": (h, 2), "window_end": (),
-        "min_used": (), "rejected": (1,), "host_node": (g,), "lat_ns": (n, n),
+        "ob_data": (h, o, 8), "ob_aux": (h, o), "rng_key": (h, 2), "window_end": world,
+        "min_used": world, "rejected": (replicas or 1,), "host_node": (g,), "lat_ns": (n, n),
         "rel": (n, n), "codel_table": (1025,),
     }
     tcp_names = {f.name for f in dataclasses.fields(ts)}
@@ -268,7 +277,8 @@ def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTa
         setattr(args, name, t.data_ptr())
     scalars = dict(
         H=h, Q=cap, O=o, S=s, R=r, N=n, num_global_hosts=g, pump_k=cfg.pump_k,
-        bootstrap_end_ns=cfg.bootstrap_end_ns, use_netstack=int(cfg.use_netstack),
+        rows_per_replica=h // (replicas or 1), bootstrap_end_ns=cfg.bootstrap_end_ns,
+        use_netstack=int(cfg.use_netstack),
         use_sack=int(p.use_sack), tracker=int(cfg.tracker),
         dyn_runahead=int(cfg.use_dynamic_runahead), model=MODEL_IDS[instance],
         num_clients=model.num_clients, mss=p.mss,
@@ -288,23 +298,26 @@ def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTa
 
 def megakernel_stage(st: SimState, window_end, model, tables: RoutingTables,
                      cfg: EngineConfig):
-    """Drop-in for pump_stage: (state, any_rejected). On the card this
-    launches the kernel, which updates `st`'s tensors IN PLACE (callers
-    comparing two paths clone first); on the CPU it runs the twin."""
+    """Drop-in for pump_stage: (state, any_rejected; [R] flags on an
+    ensemble's rows view). On the card this launches the kernel once
+    over every row, updating `st`'s tensors IN PLACE (callers comparing
+    two paths clone first); on the CPU it runs the twin."""
     if cfg.pump_k <= 0:
         raise ValueError("megakernel_stage requires pump_k > 0")
     if st.device.type == "cpu":
         return pump_stage(st, window_end, model, tables, cfg)
     if st.device.type != "cuda":
         raise RuntimeError(f"pump megakernel: unsupported device {st.device}")
-    we = torch.as_tensor(window_end, dtype=torch.int64, device=st.device).reshape(())
-    rejected = torch.zeros((1,), dtype=torch.int32, device=st.device)
+    replicas = replicas_of(st)
+    we = torch.as_tensor(window_end, dtype=torch.int64, device=st.device).reshape(
+        () if replicas is None else (replicas,))
+    rejected = torch.zeros((replicas or 1,), dtype=torch.int32, device=st.device)
     args, keep = kernel_args(
         st, we, model, tables, cfg, rejected, PUMP_KERNEL.codel_table(st.device)
     )
     PUMP_KERNEL.launch(args, st.device)
     del keep
-    return st, rejected[0] != 0
+    return st, (rejected[0] != 0 if replicas is None else rejected != 0)
 
 
 def resolve_stage_cfg(cfg: EngineConfig) -> EngineConfig:

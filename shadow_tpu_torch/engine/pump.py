@@ -20,7 +20,10 @@ comparing the queue head against a small pending-defer FIFO.
 `pump_stage` is what the CPU runs for engine="megakernel"
 (engine/megakernel.py), and what chip_smoke.py holds the kernel against
 on the card. Every operation here is row-local, which is what lets the
-kernel give each host row its own thread.
+kernel give each host row its own thread. On an ensemble's rows view
+(engine/state.py::rows_view) the window end, `min_used_lat` and the
+rejected flag are per replica: each row reads and folds into its own
+replica's.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from typing import Any, Callable
 import torch
 
 from shadow_tpu_torch import equeue, netstack, rng
-from shadow_tpu_torch.engine.state import EngineConfig, SimState
+from shadow_tpu_torch.engine.state import EngineConfig, SimState, per_row, replicas_of
 from shadow_tpu_torch.events import KIND_PACKET, pack_tie, tie_src_host
 from shadow_tpu_torch.graph.routing import RoutingTables
 from shadow_tpu_torch.netstack import AUX_SHAPED_BIT, AUX_SIZE_MASK
@@ -75,7 +78,8 @@ class TcpPumpSpec:
 @dataclasses.dataclass
 class PumpCarry:
     """Everything a pump microstep reads or writes, host-axis leading
-    (min_used is the one scalar)."""
+    (min_used is the one per-world value: a scalar, or [R] on an
+    ensemble's rows)."""
 
     q: equeue.EventQueue
     net: Any
@@ -167,7 +171,8 @@ def pump_microstep(c: PumpCarry, window_end, model, tables: RoutingTables,
                    cfg: EngineConfig, debug_out: "list | None" = None) -> PumpCarry:
     """One microstep: select each live host's true next event, classify
     against P1/P2/P3, commit taken steps, mark the rest rejected.
-    `debug_out` collects per-step class tallies."""
+    `window_end` is a scalar or one entry per row; `debug_out` collects
+    per-step class tallies."""
     spec: TcpPumpSpec = model.pump_spec
     p = spec.params
     k = c.f_time.shape[1]
@@ -545,7 +550,8 @@ def pump_microstep(c: PumpCarry, window_end, model, tables: RoutingTables,
         deps, tx_tok, tx_last = netstack.tb_depart_lanes(
             net.tx_tokens, net.tx_last, net.tx_refill, now, lsz_all, charge_l
         )
-        deliver_l = torch.maximum(deps + lat[:, None], window_end)
+        we_col = window_end[:, None] if window_end.ndim else window_end
+        deliver_l = torch.maximum(deps + lat[:, None], we_col)
         net = dataclasses.replace(
             net,
             tx_tokens=tx_tok,
@@ -584,9 +590,10 @@ def pump_microstep(c: PumpCarry, window_end, model, tables: RoutingTables,
         trk_retrans = trk_retrans + _W(p3, rtx_count, 0)
     if cfg.use_dynamic_runahead:
         cross = kept_l & (dst != host_ids)[:, None] & (lat < TIME_MAX)[:, None]
-        min_used = torch.minimum(
-            min_used, _W(cross, lat[:, None], TIME_MAX).amin()
-        )
+        used = _W(cross, lat[:, None], TIME_MAX)
+        used = used.amin() if min_used.ndim == 0 else used.reshape(
+            min_used.shape[0], -1).amin(dim=1)
+        min_used = torch.minimum(min_used, used)
 
     return dataclasses.replace(
         c,
@@ -651,15 +658,20 @@ def pump_carry_finish(st: SimState, c: PumpCarry, model, cfg: EngineConfig):
                 retrans_segs=c.trk_retrans,
             ),
         )
-    return st, c.rejected.any()
+    replicas = replicas_of(st)
+    if replicas is None:
+        return st, c.rejected.any()
+    return st, c.rejected.reshape(replicas, -1).any(dim=1)
 
 
 def pump_stage(st: SimState, window_end, model, tables: RoutingTables,
                cfg: EngineConfig, debug_out: "list | None" = None):
     """Run cfg.pump_k pump microsteps per host. Returns (state,
-    any_rejected). A microstep on an all-dead carry is the identity
-    (every write is masked by take/alive), so the loop may stop early;
-    the eager debug path runs every step for its tallies."""
+    any_rejected); on an ensemble's rows view, window_end and the
+    rejected flags are [R]. A microstep on an all-dead carry is the
+    identity (every write is masked by take/alive), so the loop may stop
+    early; the eager debug path runs every step for its tallies."""
+    window_end = per_row(st, window_end)
     c = pump_carry_init(st, model, tables, cfg)
     for _ in range(cfg.pump_k):
         if debug_out is None and not bool(c.alive.any()):

@@ -12,6 +12,12 @@ The reference's jitted while_loop and scan become Python loops whose
 conditions are read from the device once per iteration (drain loop) or
 once per round (window choice); `iters_done` and `lanes_live` count
 exactly as the reference counts them.
+
+Every function here also takes an ensemble's rows view
+(engine/state.py::rows_view): R worlds as R * H host rows, with window
+ends, rejected flags and the other per-world values as [R] tensors. Each
+replica's rows see only their own replica's values, as the reference's
+vmap over the replica axis gives them (engine/ensemble.py).
 """
 
 from __future__ import annotations
@@ -23,7 +29,13 @@ import torch
 
 from shadow_tpu_torch import equeue, netstack, rng
 from shadow_tpu_torch.config.options import NotYetPorted
-from shadow_tpu_torch.engine.state import EngineConfig, SimState
+from shadow_tpu_torch.engine.state import (
+    EngineConfig,
+    SimState,
+    per_replica,
+    per_row,
+    replicas_of,
+)
 from shadow_tpu_torch.events import KIND_PACKET, pack_tie
 from shadow_tpu_torch.graph.routing import RoutingTables
 from shadow_tpu_torch.netstack import AUX_SHAPED_BIT, AUX_SIZE_MASK
@@ -86,15 +98,23 @@ def bootstrap(st: SimState, model, cfg: EngineConfig) -> SimState:
 
 
 def handle_one_iteration(
-    st: SimState, window_end, model, tables: RoutingTables, cfg: EngineConfig
+    st: SimState, window_end, model, tables: RoutingTables, cfg: EngineConfig,
+    rows: "torch.Tensor | None" = None,
 ) -> SimState:
-    """Pop + handle one event per eligible host; stage emissions."""
+    """Pop + handle one event per eligible host; stage emissions. `rows`
+    (bool per row), when given, limits the pass to those rows: any other
+    row pops nothing and is left as it was."""
     host_ids = st.host_id
     h = host_ids.shape[0]
     dev = host_ids.device
     i64, i32 = torch.int64, torch.int32
+    replicas = replicas_of(st)
+    window_end = per_row(st, window_end)
+    we_col = window_end if replicas is None else window_end[:, None]
 
     want = equeue.next_time(st.queue) < window_end
+    if rows is not None:
+        want = want & rows
     ev, q = equeue.pop_min(st.queue, want)
     st = _replace(st, queue=q)
 
@@ -174,9 +194,9 @@ def handle_one_iteration(
             tx_last=tx_last,
             bytes_sent=net.bytes_sent + _W(kept, sizes, 0).sum(dim=1),
         )
-        deliver = torch.maximum(dep + lat, window_end)
+        deliver = torch.maximum(dep + lat, we_col)
     else:
-        deliver = torch.maximum(ev.time[:, None] + lat, window_end)
+        deliver = torch.maximum(ev.time[:, None] + lat, we_col)
 
     # --- sequence numbers: local lanes first, then surviving packets ---
     lseq, seq_after_locals = _lane_seqs(lvalid, st.seq)
@@ -236,7 +256,8 @@ def handle_one_iteration(
     if cfg.use_dynamic_runahead:
         cross = dst_clamped != host_ids[:, None]
         used = _W(kept & cross & (lat < TIME_MAX), lat, TIME_MAX)
-        min_used = torch.minimum(min_used, used.amin())
+        used = used.amin() if replicas is None else per_replica(st, used).amin(dim=1)
+        min_used = torch.minimum(min_used, used)
 
     # --- tracker plane ---
     tracker = st.tracker
@@ -309,12 +330,20 @@ def _flush_outbox_traffic(st: SimState, cfg: "EngineConfig | None" = None) -> Si
     ob = st.outbox
     h, o_cap = ob.valid.shape
     m = h * o_cap
+    replicas = replicas_of(st)
+    # a packet's dst is a host id within its sender's world; an
+    # ensemble's replica r lands it in row r * H + dst, and a dst out of
+    # that world's range is dropped as it is in a single run
+    h_world = h if replicas is None else h // replicas
 
     def flat(x):
         return x.reshape((m,) + tuple(x.shape[2:]))
 
     valid, dst = flat(ob.valid), flat(ob.dst)
-    mine = valid & (dst >= 0) & (dst < h)
+    mine = valid & (dst >= 0) & (dst < h_world)
+    if replicas is not None:
+        first_row = torch.arange(m, device=dst.device) // (h_world * o_cap) * h_world
+        dst = dst.to(torch.int64) + first_row
     lanes = cfg.deliver_lanes if cfg is not None else 0
     queue = equeue.push_many_sorted(
         st.queue,
@@ -326,6 +355,7 @@ def _flush_outbox_traffic(st: SimState, cfg: "EngineConfig | None" = None) -> Si
         data=flat(ob.data),
         aux=flat(ob.aux),
         deliver_lanes=lanes if lanes > 0 else st.queue.capacity,
+        rows_per_world=h_world,
     )
     fresh = _replace(
         ob,
@@ -348,9 +378,18 @@ def effective_engine(cfg: EngineConfig, device) -> str:
 
 
 def run_round(st: SimState, window_end, model, tables: RoutingTables,
-              cfg: EngineConfig, counters=None) -> SimState:
+              cfg: EngineConfig, counters=None, live=None) -> SimState:
     """Drain all events < window_end on every host, then exchange packets.
-    `counters` (a dict) gains "iters" and "stage_calls" when given."""
+    `counters` (a dict) gains "iters" when given.
+
+    On an ensemble's rows view, window_end is [R] and each replica drains
+    on its own predicate: once it has no eligible row it is frozen (its
+    rows take no further iteration and count none), and after a pump
+    stage the handler pass runs only on the rows of replicas that
+    rejected an event. `live` ([R] bool) names the replicas whose chunk
+    loop runs this round; the others' tracker marks stay as they were
+    (they have no eligible event and no traffic, so nothing else of
+    theirs changes)."""
     if cfg.active_lanes > 0:
         raise NotYetPorted("active_lanes > 0 (active-set compaction)")
     max_iters = cfg.max_iters_per_round
@@ -369,52 +408,75 @@ def run_round(st: SimState, window_end, model, tables: RoutingTables,
 
             stage = pump_stage
 
+    replicas = replicas_of(st)
+    we_rows = per_row(st, window_end)
     iters = 0
+    # each replica's own iteration count (an ensemble's done-mask)
+    iters_r = None if replicas is None else torch.zeros(
+        replicas, dtype=torch.int32, device=st.device)
     while iters < max_iters:
-        elig = equeue.next_time(st.queue) < window_end
-        if not bool(elig.any()):
-            break
+        elig = equeue.next_time(st.queue) < we_rows
+        if replicas is None:
+            if not bool(elig.any()):
+                break
+        else:
+            going = per_replica(st, elig).any(dim=1)
+            if not bool(going.any()):
+                break
+            iters_r += going.to(torch.int32)
         st = _replace(st, lanes_live=st.lanes_live + elig.to(torch.int64))
         if stage is not None:
             st, rej = stage(st, window_end, model, tables, stage_cfg)
-            if bool(rej):
-                st = handle_one_iteration(st, window_end, model, tables, cfg)
+            if bool(rej.any()):
+                rows = None if replicas is None else per_row(st, rej)
+                st = handle_one_iteration(st, window_end, model, tables, cfg, rows=rows)
         else:
             st = handle_one_iteration(st, window_end, model, tables, cfg)
         iters += 1
     if counters is not None:
         counters["iters"] = counters.get("iters", 0) + iters
+
+    def queue_hwm(tr):
+        hwm = torch.maximum(tr.queue_hwm, st.queue.count)
+        if live is None:
+            return hwm
+        return _W(per_row(st, live), hwm, tr.queue_hwm)
+
     if cfg.tracker:
         tr = st.tracker
         exch = tr.exch_hwm.clone()
-        exch[0] = torch.maximum(exch[0], st.outbox.fill.sum().to(torch.int32))
+        if replicas is None:
+            exch[0] = torch.maximum(exch[0], st.outbox.fill.sum().to(torch.int32))
+        else:
+            e0 = per_replica(st, exch)[:, 0]
+            fill = per_replica(st, st.outbox.fill).sum(dim=1).to(torch.int32)
+            per_replica(st, exch)[:, 0] = torch.maximum(e0, fill)
         st = _replace(
             st,
             tracker=_replace(
                 tr,
                 outbox_hwm=torch.maximum(tr.outbox_hwm, st.outbox.fill),
-                queue_hwm=torch.maximum(tr.queue_hwm, st.queue.count),
+                queue_hwm=queue_hwm(tr),
                 exch_hwm=exch,
             ),
         )
     st = flush_outbox(st, cfg)
     if cfg.tracker:
-        st = _replace(
-            st,
-            tracker=_replace(
-                st.tracker, queue_hwm=torch.maximum(st.tracker.queue_hwm, st.queue.count)
-            ),
-        )
+        st = _replace(st, tracker=_replace(st.tracker, queue_hwm=queue_hwm(st.tracker)))
     iters_done = st.iters_done.clone()
-    iters_done[0] += iters
+    if replicas is None:
+        iters_done[0] += iters
+    else:
+        per_replica(st, iters_done)[:, 0] += iters_r
     return _replace(st, now=torch.maximum(st.now, window_end), iters_done=iters_done)
 
 
 def _next_window_end(st: SimState, end_time: int, cfg: EngineConfig, start,
                      tables: "RoutingTables | None" = None):
-    """The round's window end (an i64 scalar tensor): start + runahead,
-    widened adaptively to min over hosts of (next event + node
-    lookahead), capped at end_time."""
+    """The round's window end (an i64 scalar tensor; [R] on an
+    ensemble's rows view, from each replica's own start and hosts):
+    start + runahead, widened adaptively to min over hosts of (next
+    event + node lookahead), capped at end_time."""
     start = torch.clamp(start, max=end_time)
     runahead = cfg.runahead_ns
     if cfg.use_dynamic_runahead:
@@ -431,7 +493,7 @@ def _next_window_end(st: SimState, end_time: int, cfg: EngineConfig, start,
     nt = equeue.next_time(st.queue)
     la = tables.lookahead_ns[tables.host_node[st.host_id.to(torch.int64)].to(torch.int64)]
     bound = nt + torch.minimum(la, TIME_MAX - nt)
-    w = bound.amin()
+    w = bound.amin() if replicas_of(st) is None else per_replica(st, bound).amin(dim=1)
     return torch.maximum(floor, torch.clamp(w, max=end_time))
 
 
@@ -446,25 +508,35 @@ def validate_runahead(cfg: EngineConfig, tables: RoutingTables) -> None:
 
 PROBE_FIELDS = (
     "next_time", "overflow", "now", "events_handled", "packets_sent",
-    "queue_overflow", "outbox_overflow",
+    "queue_overflow", "outbox_overflow", "rounds_live", "rounds_idle",
 )
 
 
 def state_probe(st: SimState) -> torch.Tensor:
-    """[7] i64 summary the chunk loop reads (one fetch per chunk): min
-    pending time, total/queue/outbox overflow, now, events, packets."""
-    qov = st.queue.overflow.sum().to(torch.int64)
-    oov = st.outbox.overflow.sum().to(torch.int64)
+    """[9] i64 summary the chunk loop reads (one fetch per chunk): min
+    pending time, total/queue/outbox overflow, now, events, packets and
+    the round counters. An ensemble state (stacked or rows view) gives
+    [R, 9], one line per replica."""
+    single = replicas_of(st) is None
+
+    def red(x, fn):
+        return fn(x) if single else fn(per_replica(st, x), dim=1)
+
+    qov = red(st.queue.overflow, torch.sum).to(torch.int64)
+    oov = red(st.outbox.overflow, torch.sum).to(torch.int64)
     return torch.stack(
         [
-            equeue.next_time(st.queue).amin(),
+            red(equeue.next_time(st.queue), torch.amin),
             qov + oov,
             st.now,
-            st.events_handled.sum(),
-            st.packets_sent.sum(),
+            red(st.events_handled, torch.sum),
+            red(st.packets_sent, torch.sum),
             qov,
             oov,
-        ]
+            st.tracker.rounds_live,
+            st.tracker.rounds_idle,
+        ],
+        dim=-1,
     )
 
 
@@ -487,7 +559,15 @@ def _capacity_error(queue_ov: int, outbox_ov: int) -> CapacityError:
 
 
 def check_capacity(st: SimState) -> None:
-    """Fail loudly if fixed-slot capacity was exhausted."""
+    """Fail loudly if fixed-slot capacity was exhausted (on an ensemble,
+    naming the first replica that exhausted it)."""
+    if replicas_of(st) is not None:
+        rows = state_probe(st).cpu().numpy()
+        if rows[:, PROBE_FIELDS.index("overflow")].any():
+            from shadow_tpu_torch.engine.ensemble import _replica_capacity_error
+
+            raise _replica_capacity_error(rows)
+        return
     qov = int(st.queue.overflow.sum())
     oov = int(st.outbox.overflow.sum())
     if qov or oov:
@@ -495,7 +575,9 @@ def check_capacity(st: SimState) -> None:
 
 
 def host_stats(st: SimState) -> dict:
-    """ONE bulk fetch of every per-host stat/tracker tensor, as numpy."""
+    """ONE bulk fetch of every per-host stat/tracker tensor, as numpy
+    ([R, H] per-host arrays and [R] round counters for a stacked
+    ensemble state)."""
     t = st.tracker
     fields = {
         "host_id": st.host_id,

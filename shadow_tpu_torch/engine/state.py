@@ -33,10 +33,12 @@ class EngineConfig:
     onto both packages. The port reads all of them except the ones whose
     planes it does not carry yet: exchange="segment", active_lanes > 0 and
     use_dynamic_runahead raise NotYetPorted, a2a_capacity/pool_capacity/
-    megakernel_tile/ensemble are multi-device or TPU-tiling knobs with no
-    effect here. engine: "auto" (the megakernel on the card, else pump
-    when pump_k > 0, else plain), "plain", "pump" or "megakernel" (the
-    CUDA kernel on the card, its twin on the CPU) — all bit-identical."""
+    megakernel_tile are multi-device or TPU-tiling knobs with no effect
+    here, and ensemble (set by engine/ensemble.py) changes nothing: the
+    engine reads the replica count from the state's shapes. engine:
+    "auto" (the megakernel on the card, else pump when pump_k > 0, else
+    plain), "plain", "pump" or "megakernel" (the CUDA kernel on the card,
+    its twin on the CPU) — all bit-identical."""
 
     num_hosts: int
     queue_capacity: int = 64
@@ -212,6 +214,63 @@ class PacketEmits:
     dst: torch.Tensor  # [H, EP] i32
     data: torch.Tensor  # [H, EP, PAYLOAD_LANES] i32
     size: torch.Tensor  # [H, EP] i32
+
+
+# Leaves that hold one value per world; every other leaf holds one row per
+# host. An ensemble state stacks R worlds: its per-world leaves are [R]
+# and its per-host leaves [R, H, ...] (the reference's stacked layout),
+# which the engine computes on as [R * H, ...] rows (rows_view).
+WORLD_LEAVES = frozenset(
+    (".now", ".min_used_lat", ".win_ns_sum", ".tracker.rounds_live", ".tracker.rounds_idle")
+)
+
+
+def replicas_of(st) -> "int | None":
+    """R of an ensemble state (its per-world leaves are [R]); None for a
+    single world."""
+    return None if st.now.ndim == 0 else int(st.now.shape[0])
+
+
+def per_row(st, x):
+    """A per-world value as the engine's rows see it: unchanged for a
+    single world; an ensemble's [R] value repeated for each replica's H
+    rows (on its rows view)."""
+    r = replicas_of(st)
+    if r is None:
+        return x
+    return x.repeat_interleave(st.num_hosts // r)
+
+
+def per_replica(st, x: torch.Tensor) -> torch.Tensor:
+    """Row tensor x of an ensemble ([R * H, ...], or stacked [R, H, ...])
+    as [R, H * ...]: one line per replica, so that per-replica
+    reductions run along dim 1."""
+    return x.reshape(replicas_of(st), -1)
+
+
+def _map_host_leaves(fn, tree, prefix=""):
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _map_host_leaves(fn, getattr(tree, f.name), f"{prefix}.{f.name}")
+            for f in dataclasses.fields(tree)
+        })
+    if tree is None or prefix in WORLD_LEAVES:
+        return tree
+    return fn(tree)
+
+
+def rows_view(st: SimState) -> SimState:
+    """An ensemble state with its per-host leaves viewed as [R * H, ...]
+    rows (no copy; replica r owns rows r*H .. r*H + H - 1). The engine
+    computes on this view: the handler, the exchange and the kernel see
+    rows, and `host_id` stays each host's id within its replica."""
+    return _map_host_leaves(lambda x: x.reshape((-1,) + tuple(x.shape[2:])), st)
+
+
+def stacked_view(st: SimState) -> SimState:
+    """Inverse of rows_view: per-host leaves back to [R, H, ...]."""
+    r = replicas_of(st)
+    return _map_host_leaves(lambda x: x.reshape((r, -1) + tuple(x.shape[1:])), st)
 
 
 def init_state(

@@ -197,15 +197,18 @@ def push_many(q, dst, valid, time, tie, kind, data, aux=None) -> EventQueue:
 
 
 def push_many_sorted(
-    q, dst, valid, time, tie, kind, data, aux=None, deliver_lanes: int = 48
+    q, dst, valid, time, tie, kind, data, aux=None, deliver_lanes: int = 48,
+    rows_per_world: int = 0,
 ) -> EventQueue:
     """The dense round-boundary landing. Entries are grouped by
     destination with a stable sort (arrival order kept within a
     destination); the r-th arrival at destination d fills lane r of d's
     row in a [H, D] delivery grid (D = min(deliver_lanes, M)), and the
     grid lands with push_self_lanes. Arrivals beyond D are counted in
-    overflow on row 0. This is the grid the reference builds from three
-    multi-operand sorts, computed with one stable sort and a scatter."""
+    overflow on row 0 — on an ensemble's rows (`rows_per_world` rows per
+    replica), on the first row of the replica they were sent in. This is
+    the grid the reference builds from three multi-operand sorts,
+    computed with one stable sort and a scatter."""
     if aux is None:
         aux = torch.zeros_like(kind)
     m = dst.shape[0]
@@ -239,5 +242,9 @@ def push_many_sorted(
 
     q2 = push_self_lanes(q, g_valid, g_time, g_tie, g_kind, g_data, g_aux)
     ov = q2.overflow.clone()
-    ov[0] += (real.sum() - fits.sum()).to(torch.int32)
+    if 0 < rows_per_world < h:
+        world = torch.clamp(key1_s, max=h - 1) // rows_per_world
+        ov.reshape(-1, rows_per_world)[:, 0].index_add_(0, world, (real & ~fits).to(torch.int32))
+    else:
+        ov[0] += (real.sum() - fits.sum()).to(torch.int32)
     return dataclasses.replace(q2, overflow=ov)

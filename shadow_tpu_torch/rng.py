@@ -67,6 +67,23 @@ def host_keys(seed: int, num_hosts: int, device="cpu") -> torch.Tensor:
     return fold_in(base.expand(num_hosts, 2), hosts)
 
 
+def replica_keys(base_seed: int, num_replicas: int, num_hosts: int, stride: int = 1,
+                 device="cpu") -> torch.Tensor:
+    """[R, H, 2] per-host base keys of an R-replica ensemble: row r is
+    exactly host_keys(base_seed + r * stride, H), the one place where a
+    replica's seed enters its state."""
+    if num_replicas < 1:
+        raise ValueError("num_replicas must be >= 1")
+    if stride < 1:
+        raise ValueError(
+            "replica seed stride must be >= 1 (stride 0 would alias every "
+            "replica onto the same stream)"
+        )
+    return torch.stack(
+        [host_keys(base_seed + r * stride, num_hosts, device) for r in range(num_replicas)]
+    )
+
+
 def _bits32(keys: torch.Tensor) -> torch.Tensor:
     """random_bits(key, 32, ()) under the partitionable scheme."""
     z = torch.zeros_like(keys[..., 0])

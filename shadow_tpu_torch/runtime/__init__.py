@@ -1,1 +1,2 @@
-"""Run-time drivers: scheduler, manager, and the `run` front door."""
+"""Run-time drivers: scheduler, ensemble runner, manager, and the `run`
+front door."""

@@ -1,5 +1,6 @@
 """Manager: build the simulated world from config and run it (port of
-shadow_tpu/runtime/manager.py, reduced to scripted single-device runs).
+shadow_tpu/runtime/manager.py, reduced to scripted single-device runs,
+one world or an ensemble of seeded replicas).
 
 Resolve the graph, expand host specs, assign IPs, map hosts to graph
 nodes, build the model, run the device engine with heartbeats, and write
@@ -73,11 +74,30 @@ class SimResults:
         return self.sim_seconds / self.wall_seconds if self.wall_seconds > 0 else float("inf")
 
 
+def _reject_ensemble(config: ConfigOptions) -> None:
+    """The reference's refusals of an ensemble (general.replicas > 1),
+    with its messages; a 2-D mesh stays NotYetPorted (_reject_unported)."""
+    g = config.general
+    if g.replicas <= 1 or g.mesh:
+        return
+    if config.experimental.scheduler != "tpu":
+        raise ValueError(
+            "general.replicas > 1 requires experimental.scheduler: "
+            "tpu (the ensemble plane vmaps the device engine)"
+        )
+    if g.parallelism > 1:
+        raise ValueError(
+            "general.replicas > 1 runs on a single device (the "
+            "replica axis is vmapped); it does not compose with "
+            "general.parallelism > 1 host sharding yet — drop one "
+            "of the two (docs/ensemble.md)"
+        )
+
+
 def _reject_unported(config: ConfigOptions) -> None:
-    """Config-time refusal of everything outside the port's first slice."""
+    """Config-time refusal of everything outside the port's slices."""
     g, e = config.general, config.experimental
     checks = [
-        (g.replicas > 1, "general.replicas > 1 (the ensemble plane)"),
         (bool(g.mesh), "general.mesh (the 2-D mesh plane)"),
         (g.parallelism > 1, "general.parallelism > 1 (multi-device sharding)"),
         (bool(g.checkpoint_dir) or g.resume, "checkpoint/resume"),
@@ -98,10 +118,19 @@ def _reject_unported(config: ConfigOptions) -> None:
 class Manager:
     def __init__(self, config: ConfigOptions, device="cuda"):
         self.config = config
+        _reject_ensemble(config)
         _reject_unported(config)
         self.device = resolve_device(device)
         self.graph = self._load_graph()
         self.hosts = self._expand_hosts()
+        if config.general.replicas > 1 and any(
+            p.path not in _REGISTRY for h in self.hosts for p in h.spec.processes
+        ):
+            raise ValueError(
+                "general.replicas > 1 supports scripted-model runs "
+                "only; managed guests are live OS processes and cannot "
+                "be replicated on device (docs/ensemble.md)"
+            )
         self._validate_process_specs()
         self.ip = IpAssignment()
         for h in self.hosts:
@@ -230,13 +259,23 @@ class Manager:
 
         cfgo = self.config
         world = self.build_world()
-        sched = TpuScheduler(
-            world.model, world.tables, world.ecfg,
+        replicas = cfgo.general.replicas
+        common = dict(
             rounds_per_chunk=cfgo.experimental.rounds_per_chunk,
             tx_bytes_per_interval=world.tx_refill,
             rx_bytes_per_interval=world.rx_refill,
             device=self.device,
         )
+        if replicas > 1:
+            # the ensemble plane: R seeded replicas as one batch
+            from shadow_tpu_torch.runtime.ensemble import EnsembleRunner
+
+            sched = EnsembleRunner(
+                world.model, world.tables, world.ecfg, replicas,
+                seed_stride=cfgo.general.replica_seed_stride, **common,
+            )
+        else:
+            sched = TpuScheduler(world.model, world.tables, world.ecfg, **common)
         end = cfgo.general.stop_time_ns
         hb_ns = cfgo.general.heartbeat_interval_ns
         progress = ProgressLine(cfgo.general.progress)
@@ -254,8 +293,9 @@ class Manager:
                     f"{fmt_time_ns(probe['now'])}",
                 )
 
+        rep_note = f"{replicas} replicas, " if replicas > 1 else ""
         slog("info", 0, "manager",
-             f"starting: {len(self.hosts)} hosts, scheduler={sched.name}, "
+             f"starting: {len(self.hosts)} hosts, {rep_note}scheduler={sched.name}, "
              f"engine={sched.engine}, device={self.device}, "
              f"runahead={world.runahead_ns}ns, stop={fmt_time_ns(end)}")
         launches0 = PUMP_KERNEL.launches
@@ -278,10 +318,18 @@ class Manager:
             sim_seconds=end / NS_PER_SEC,
             scheduler=sched.name,
         )
+        if replicas > 1:
+            # per-replica sections and the aggregate mean/stddev/CI block
+            from shadow_tpu_torch.runtime.ensemble import ensemble_stats
+
+            results.extra_stats["ensemble"] = ensemble_stats(
+                final, sched.seeds, wall, end / NS_PER_SEC,
+                seed_stride=cfgo.general.replica_seed_stride,
+            )
         total = tree_nbytes(final)
         results.extra_stats["memory"] = {
             "num_hosts": len(self.hosts),
-            "replicas": 1,
+            "replicas": replicas,
             "total_bytes": total,
             "bytes_per_host": total / max(len(self.hosts), 1),
         }

@@ -301,3 +301,29 @@ def test_kernel_matches_twin_on_card(mid_run):
         torch.cuda.synchronize()
         assert bool(rej_t) == bool(rej_k)
         _assert_leaves_equal(state_to_numpy(twin), state_to_numpy(kern))
+
+
+def test_kernel_args_take_an_ensembles_rows():
+    """An ensemble's rows view is one launch over R * H rows: the struct
+    carries rows_per_replica = H, and the window end, min_used and the
+    rejected flags are [R] (a single world keeps its scalars and one
+    flag); other shapes are refused before they reach the kernel."""
+    from shadow_tpu_torch.engine.ensemble import init_ensemble_state
+    from shadow_tpu_torch.engine.state import rows_view
+
+    cpu = torch.device("cpu")
+    cfg, model, tables, st = chip_smoke.lossy_world(EDGE_HOSTS, cpu)
+    codel = mk.PUMP_KERNEL.codel_table("cpu")
+    one, _ = mk.kernel_args(st, torch.tensor(10**7), model, tables, cfg,
+                            torch.zeros((1,), dtype=torch.int32), codel)
+    assert (one.H, one.rows_per_replica) == (EDGE_HOSTS, EDGE_HOSTS)
+    ens = rows_view(init_ensemble_state(cfg, model, 3, 1, device=cpu))
+    we = torch.full((3,), 10**7, dtype=torch.int64)
+    rej = torch.zeros((3,), dtype=torch.int32)
+    args, named = mk.kernel_args(ens, we, model, tables, cfg, rej, codel)
+    assert (args.H, args.rows_per_replica) == (3 * EDGE_HOSTS, EDGE_HOSTS)
+    assert named["min_used"].shape == (3,) and named["q_time"].shape[0] == 3 * EDGE_HOSTS
+    for name, bad_we, bad_rej in (("window_end", torch.tensor(10**7), rej),
+                                  ("rejected", we, torch.zeros((1,), dtype=torch.int32))):
+        with pytest.raises(ValueError, match=name):
+            mk.kernel_args(ens, bad_we, model, tables, cfg, bad_rej, codel)
