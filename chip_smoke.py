@@ -18,9 +18,27 @@ Phases, each printing one line; any failure exits non-zero:
      not a multiple of the rows a warp owns; then the same on a 4,096-host
      world whose streams cross lossy links (shaped and unshaped), plus
      whole runs of both engines there;
+     wide_kernel: the kernel's wide instances, which take any pump_k and
+     any socket count: tgen's at pump_k 40 in the burst (timed with its
+     bound), on the edge states and on rows that take 40 events in one
+     launch, and its main path from the burst to 20 ms against the plain
+     engine; onion's at 16 and 32 circuits per relay (33 and 65 sockets),
+     its main path to 60 ms, then kernel vs twin there, timed; while those
+     two host-bound runs go on, the CLI runs on examples/onion (stop time
+     cut, sim-stats pinned) and on examples/fattree (graph from
+     gen_fattree.py 8: two outbox recoveries, 64 -> 128 -> 256, and the
+     reference's 88,768 events) in processes of their own, which end
+     before any kernel is timed;
   4. the main path: run_until to 0.5 s sim with engine "auto", which must
      resolve to the kernel; bench counters equal the pinned oracle values;
   5. plain vs megakernel engines agree on host_stats at 0.1 s sim;
+     recovery: the bench world at an 8-slot outbox recovers through the
+     kernel (8 -> 16 -> 32) to the oracle's counters and the main path's
+     final state, and an R = 2 ensemble of it to 0.1 s regrows the whole
+     batch, leaf-equal to the ensemble started at the grown capacity;
+     checkpoint: the main path (1 round per chunk) interrupted at 10 ms
+     and resumed from its checkpoint file, leaf-equal to the
+     uninterrupted run;
   6. the CLI entry point on examples/tgen/shadow.yaml, sim-stats pinned;
   7. onion-10240: the onion model (4,096 clients, 6,144 relays, 17 sockets
      per host) on the bench graph and shaping: the main path to 0.1 s sim
@@ -30,8 +48,8 @@ Phases, each printing one line; any failure exits non-zero:
      (mid-run), each timed alone with its bound;
   8. phold, bulk-tcp, cdn and gossip (no pump kernel) on the card and on
      the CPU in this process, leaf-equal, at small size; phold at 10,240
-     hosts on the bench graph; the CLI on examples/phold and examples/onion
-     (stop times cut), sim-stats pinned;
+     hosts on the bench graph; the CLI on examples/phold (stop time cut),
+     sim-stats pinned;
   9. the ensemble plane (R seeded replicas as one batch, one kernel launch
      over all R x H rows per drain iteration):
      ensemble-tgen-10240x8, the lossy tgen world (6 nodes) at 10,240 hosts x 8
@@ -44,8 +62,9 @@ Phases, each printing one line; any failure exits non-zero:
      kernel run, kernel against twin at its end; ensemble-ragged, 10,235
      hosts x 2 replicas (a warp owns rows of both), kernel against twin;
      ensemble-cli, `run --replicas 2` on examples/phold (stop time cut);
- 10. the kernels JSON line (one entry per model instance of the kernel),
-     the card line, and the final JSON line.
+ 10. the narrow instances' R = 1 launch times beside the earlier record,
+     the kernels JSON line (one entry per template instance of the
+     kernel), the card line, and the final JSON line.
 
 Imports torch, numpy and the port only (no jax, nothing of shadow_tpu/).
 """
@@ -149,6 +168,40 @@ ONION_CLIENT_SHARE = 0.4
 ONION_END_NS = 100_000_000
 ONION_BURST_NS = 60_000_000
 ONION_WINDOW_CAP_NS = 1_000_000_000
+# wide_kernel: pump_k past a narrow instance's MAX_K, in the bench burst
+# and on the burst state's run to WIDE_RUN_NS; onion past 32 sockets, at
+# circuits_per_relay 16 and 32 (33 and 65 sockets) to its burst state at
+# ONION_BURST_NS (each run host-bound, ~85 s on the card's host: the CLI
+# runs of background_clis go on in processes of their own meanwhile, and
+# no kernel is timed until they have ended)
+WIDE_PUMP_K = 40
+WIDE_RUN_NS = 20_000_000
+ONION_WIDE_NS = {16: ONION_BURST_NS, 32: ONION_BURST_NS}
+# recovery: the bench world at an outbox of RECOVERY_OUTBOX slots, below
+# its 32: the start's burst overflows it in the first chunk, and recovery
+# regrows it 8 -> 16 -> 32 (the bench's own capacity); its R = 2 ensemble
+# to RECOVERY_ENS_END_NS
+RECOVERY_OUTBOX = 8
+RECOVERY_ENS_REPLICAS = 2
+RECOVERY_ENS_END_NS = 100_000_000
+# checkpoint: the bench main path at CHECKPOINT_RPC rounds per chunk (so
+# that chunk boundaries fall inside the streams, which end by ~33 ms),
+# a checkpoint every CHECKPOINT_INTERVAL_NS, interrupted once sim time
+# reaches CHECKPOINT_INTERRUPT_NS, then resumed
+CHECKPOINT_RPC = 1
+CHECKPOINT_INTERVAL_NS = 4_000_000
+CHECKPOINT_INTERRUPT_NS = 10_000_000
+# examples/fattree (its graph from examples/fattree/gen_fattree.py 8):
+# what the JAX package's `shadow-tpu run` gives on the CPU (ROADMAP,
+# Queue 3's record): two recoveries, outbox 64 -> 128 -> 256, and these
+# events
+FATTREE_STATS = {"events_handled": 88_768}
+FATTREE_RECOVERIES = [(256, 128), (256, 256)]
+# the narrow instances' R = 1 launch times as recorded before the wide
+# instances were added (PERF.md §6; NVIDIA H100 80GB HBM3, 700.00 W),
+# which this run's are printed beside
+EARLIER_LAUNCH_MS = {"burst_k8": 0.1442, "burst_k16": 0.1546, "mid_20ms_k8": 0.0910,
+                 "rejects_30ms_k8": 0.0289, "onion_burst": 0.0635}
 # the ensemble cells: replicas of the lossy tgen world on ENS_TGEN_NODES
 # nodes (main path to ENS_TGEN_END_NS, paused at LOSSY_MID_NS_SHAPED,
 # where the batch's kernel is held against its twin and timed), replicas
@@ -198,8 +251,9 @@ def bench_graph(seed: int = 7):
     return NetworkGraph.from_gml("\n".join(lines))
 
 
-def bench_world(num_hosts: int, device, seed: int = 7):
-    """bench.py's _build_world + _build, written against the port."""
+def bench_world(num_hosts: int, device, seed: int = 7, outbox_capacity: int = 32):
+    """bench.py's _build_world + _build, written against the port (the
+    recovery phase rebuilds it at a smaller outbox)."""
     from shadow_tpu_torch.engine.round import bootstrap
     from shadow_tpu_torch.engine.state import EngineConfig, init_state
     from shadow_tpu_torch.graph import compute_routing
@@ -214,7 +268,7 @@ def bench_world(num_hosts: int, device, seed: int = 7):
     cfg = EngineConfig(
         num_hosts=num_hosts,
         queue_capacity=384,
-        outbox_capacity=32,
+        outbox_capacity=outbox_capacity,
         runahead_ns=graph.min_latency_ns(),
         seed=seed,
         use_netstack=True,
@@ -235,11 +289,12 @@ def bench_world(num_hosts: int, device, seed: int = 7):
     return cfg, model, tables, bootstrap(st, model, cfg)
 
 
-def onion_world(num_hosts: int, device, seed: int = 7):
+def onion_world(num_hosts: int, device, seed: int = 7, circuits_per_relay: int = 8):
     """The onion cell: the bench graph and shaping (host i on node i % 32,
     100 Mbit up and down), ONION_CLIENT_SHARE of the hosts clients and the
     rest relays, examples/onion/onion.yaml's onion args and capacities
-    (circuits_per_relay at its default of 8, so 17 sockets per host)."""
+    (circuits_per_relay at its default of 8, so 17 sockets per host; the
+    wide_kernel phase raises it)."""
     from shadow_tpu_torch.engine.round import bootstrap
     from shadow_tpu_torch.engine.state import EngineConfig, init_state
     from shadow_tpu_torch.graph import compute_routing
@@ -265,6 +320,7 @@ def onion_world(num_hosts: int, device, seed: int = 7):
     model = OnionModel(
         num_hosts=num_hosts, num_clients=clients, num_relays=num_hosts - clients,
         hops=3, cell_bytes=512, req_cells=2, resp_cells=20, pause_ns=100 * NS_PER_MS,
+        circuits_per_relay=circuits_per_relay,
     )
     bw = bw_bits_per_sec_to_refill(100_000_000)
     st = init_state(cfg, model.init(device), tx_bytes_per_interval=bw,
@@ -370,19 +426,60 @@ def rebuilt_queue(st, capacity: int, we: int, extra: int = 0, seed: int = 0):
     ))
 
 
+def deferring_queue(st, we: int, n: int, seed: int = 0):
+    """A copy of `st` in which a seeded half of the rows with no event
+    below the window end `we` each gain `n` unshaped packet events from
+    the next host, at times just below `we`, in free columns, each of
+    twice the row's rx refill, and an empty rx bucket (tokens 0, last
+    refill at the first of them): every one waits for the bucket and the
+    pump defers it (P1), so such a row takes n events in one launch, past
+    a narrow instance's MAX_K list, and lands n defers. Needs a shaped
+    world (rx_refill > 0) and n free columns in those rows."""
+    from shadow_tpu_torch.events import KIND_PACKET, pack_tie
+    from shadow_tpu_torch.simtime import TIME_MAX
+
+    st = st.clone()
+    q, net = st.queue, st.net
+    h = q.time.shape[0]
+    dev = q.time.device
+    g = torch.Generator().manual_seed(seed)
+    pick = (q.head_time >= int(we)) & (torch.rand(h, generator=g) < 0.5).to(dev)
+    free = q.time == TIME_MAX
+    pick &= free.sum(dim=1) >= n
+    # each picked row's first n free columns take the new events
+    rank = torch.cumsum(free.to(torch.int64), dim=1) - 1
+    put = pick[:, None] & free & (rank < n)
+    t0 = int(we) - 1 - n
+    src = ((st.host_id.to(torch.int64) + 1) % h)[:, None].expand_as(rank)
+    q.time[put] = (t0 + rank)[put]
+    q.tie[put] = pack_tie(torch.full_like(rank, KIND_PACKET), src, (1 << 31) + rank)[put]
+    q.kind[put] = KIND_PACKET
+    q.data[put] = 0
+    q.aux[put] = (2 * net.rx_refill).clamp(max=(1 << 24) - 1).to(torch.int32)[:, None].expand_as(
+        rank)[put]
+    q.count += torch.where(pick, n, 0).to(torch.int32)
+    q.head_time[pick] = t0
+    net.rx_tokens[pick] = 0
+    net.rx_last[pick] = t0
+    return st
+
+
 def ptxas_resources(log: str) -> dict:
     """Registers and stack frame per thread and static shared memory per
-    block of each instance of the pump kernel (by model name), from
-    nvcc's -Xptxas -v log."""
-    from shadow_tpu_torch.engine.megakernel import MODEL_IDS
+    block of each template instance of the pump kernel (by instance
+    name: the model's, "_wide" for its wide instance), from nvcc's
+    -Xptxas -v log."""
+    from shadow_tpu_torch.engine.megakernel import INSTANCES, MODEL_IDS
 
     names = {v: k for k, v in MODEL_IDS.items()}
-    out = {m: dict(regs=None, stack_bytes=None, smem_bytes=None) for m in MODEL_IDS}
+    out = {m: dict(regs=None, stack_bytes=None, smem_bytes=None) for m in INSTANCES}
     inside = None
     for ln in log.splitlines():
         if "Compiling entry function" in ln or "Function properties for" in ln:
-            m = re.search(r"15pump_megakernelILi(\d+)E", ln)
-            inside = names.get(int(m.group(1))) if m else None
+            m = re.search(r"15pump_megakernelILi(\d+)ELb([01])E", ln)
+            inside = None
+            if m and int(m.group(1)) in names:
+                inside = names[int(m.group(1))] + ("_wide" if m.group(2) == "1" else "")
             continue
         for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
                          ("regs", r"Used (\d+) registers"),
@@ -505,8 +602,9 @@ def pump_bound(st, we, model, tables, cfg, tallies, after) -> "tuple[float, str,
     (the argmin scans it); tie, kind, aux and data of each slot the queue
     supplies; the socket-matching fields (st, ports, remote host) of all
     sockets of a live row and every field of a socket the stage changes;
-    the per-row scalars of a row that takes an event; the routing and
-    CoDel tables once. Writes: exactly the elements that differ between
+    the per-row scalars of a row that takes an event (not a wide
+    instance's FIFO, the kernel's own scratch, which no input fills); the
+    routing and CoDel tables once. Writes: exactly the elements that differ between
     `st` and `after` (the twin's result on the same input)."""
     from shadow_tpu_torch.engine import megakernel as mk
     from shadow_tpu_torch.utils.tree import tree_leaves_with_path
@@ -535,7 +633,8 @@ def pump_bound(st, we, model, tables, cfg, tallies, after) -> "tuple[float, str,
     match_bytes = sum(row_bytes(named[n]) for n in ("st", "lport", "rport", "rhost"))
     table_names = ("host_node", "lat_ns", "rel", "codel_table")
     # the stream counters are read by onion's veto only
-    unread = () if mk.kernel_model(model) == "onion" else ("streams_started", "streams_done")
+    unread = ("fifo",) if mk.kernel_model(model) == "onion" else (
+        "fifo", "streams_started", "streams_done")
     scalar_bytes = sum(
         row_bytes(t) for n, t in named.items()
         if n in ("q_count", "ob_fill") or (
@@ -683,6 +782,325 @@ def onion_phase(hosts: int, end_ns: int, dev) -> "tuple[bool, dict, float]":
     return ok_b and ok_m and ok_p, entry, max(err_b, err_m)
 
 
+def wide_kernel_phase(st_b, we, cfg, model, tables, hosts: int, dev,
+                      meanwhile=None) -> "tuple[bool, dict, float]":
+    """wide_kernel: the kernel's wide instances, which take any pump_k and
+    any socket count. tgen_wide: the bench world's burst launch at pump_k
+    WIDE_PUMP_K (past a narrow instance's MAX_K), held against the twin
+    and timed alone with its bound; the same launch on rebuilt queues of
+    8 slots whose rows start full and of 1,100 slots whose rows hold more
+    slots below the window end than a pass lists, and, with the narrow
+    instance at MAX_K too, on the 30 ms state whose idle rows defer
+    WIDE_PUMP_K arrivals each (deferring_queue); and its main path, the
+    burst state run on to WIDE_RUN_NS at pump_k WIDE_PUMP_K, whose host
+    and model counters must equal the plain engine's. onion_wide: the
+    onion cell at each circuits_per_relay of ONION_WIDE_NS (33 and 65
+    sockets per host, past the narrow instance's 32): its main path to
+    that entry's time through the kernel, then kernel vs twin at that
+    state, timed alone with its bound. `meanwhile()`, called before the
+    onion runs, starts work elsewhere and returns a callable that waits
+    for it and says whether it passed; the onion timings start after it.
+    Launch counts are set to 0 just before each main path and read just
+    after. Returns (ok, {instance: its numbers for the kernels line},
+    largest error)."""
+    from shadow_tpu_torch import equeue
+    from shadow_tpu_torch.engine import megakernel as mk
+    from shadow_tpu_torch.engine.round import _next_window_end, host_stats, run_until
+
+    reps, err, out = 20, 0.0, {}
+    wcfg = dataclasses.replace(mk.resolve_stage_cfg(cfg), pump_k=WIDE_PUMP_K)
+    ok, entry, e = timed_stage(
+        "wide_kernel_vs_twin", st_b, we, model, tables, wcfg, reps, dev, must_take=True,
+        instance=mk.kernel_instance(model, wcfg), launch="burst", hosts=hosts)
+    err = max(err, e)
+    if not (ok and mk.kernel_instance(model, wcfg) == "tgen_wide"):
+        return False, out, err
+    for case, st_e in (
+            ("queue_8_full", rebuilt_queue(st_b, SMALL_QUEUE, int(we))),
+            ("queue_1100_over_stage", rebuilt_queue(
+                st_b, LARGE_QUEUE, int(we), extra=LARGE_QUEUE_EXTRA, seed=3))):
+        ok_e, facts, _ = compare_stage(st_e, we, model, tables, wcfg)
+        err = max(err, facts["max_abs_err"])
+        line("wide_kernel_vs_twin_edge", ok=ok_e, instance="tgen_wide", case=case, **facts)
+        del st_e
+        if not ok_e:
+            return False, out, err
+    # rows that take WIDE_PUMP_K events in one launch (every pass of a wide
+    # list, a full FIFO) and land as many defers: the 30 ms state, whose
+    # idle rows gain deferring arrivals; the narrow instance at MAX_K too
+    st_r = run_until(st_b, REJECTS_NS, model, tables, dataclasses.replace(cfg, engine="plain"))
+    we_r = _next_window_end(st_r, 10**9, cfg, equeue.next_time(st_r.queue).amin(), tables)
+    st_d = deferring_queue(st_r, int(we_r), WIDE_PUMP_K)
+    picked = int((st_d.queue.count != st_r.queue.count).sum())
+    del st_r
+    for k in (mk.MAX_K, WIDE_PUMP_K):
+        ok_e, facts, _ = compare_stage(st_d, we_r, model, tables,
+                                       dataclasses.replace(wcfg, pump_k=k))
+        err = max(err, facts["max_abs_err"])
+        ok_e = ok_e and picked > 0 and facts["classes"]["p1"] >= picked * k
+        line("wide_kernel_vs_twin_edge", ok=ok_e, instance=mk.kernel_instance(
+            model, dataclasses.replace(wcfg, pump_k=k)), case="rows_defer_past_max_k",
+             rows_deferring=picked, **facts)
+        if not ok_e:
+            return False, out, err
+    del st_d
+
+    def counts(st):
+        m = st.model
+        return {k: int(getattr(m, k).sum()) for k in ("streams_done", "bytes_down")}
+
+    runs = {}
+    for eng in ("megakernel", "plain"):
+        rcfg = dataclasses.replace(cfg, engine=eng, pump_k=WIDE_PUMP_K)
+        sync(dev)
+        mk.PUMP_KERNEL.launches_by_model["tgen_wide"] = 0
+        t0 = time.perf_counter()
+        st = run_until(st_b, WIDE_RUN_NS, model, tables, rcfg, rounds_per_chunk=16)
+        sync(dev)
+        runs[eng] = dict(hs=host_stats(st), counts=counts(st), wall_s=time.perf_counter() - t0,
+                         launches=mk.PUMP_KERNEL.launches_by_model["tgen_wide"])
+        del st
+    diff = [k for k in runs["plain"]["hs"] if k not in ("iters_done", "lanes_live")
+            and not np.array_equal(runs["plain"]["hs"][k], runs["megakernel"]["hs"][k])]
+    launches = runs["megakernel"]["launches"]
+    ok = (not diff and runs["plain"]["counts"] == runs["megakernel"]["counts"]
+          and (launches > 0 or dev.type == "cpu"))
+    line("wide_kernel_main_path", ok=ok, instance="tgen_wide", pump_k=WIDE_PUMP_K,
+         from_ns=BURST_NS, end_ns=WIDE_RUN_NS, kernel_launches=launches, differing=diff,
+         events=int(runs["megakernel"]["hs"]["events_handled"].sum()),
+         wall_s={k: round(v["wall_s"], 3) for k, v in runs.items()},
+         **runs["megakernel"]["counts"])
+    if not ok:
+        return False, out, err
+    out["tgen_wide"] = dict(entry, launches=launches, pump_k=WIDE_PUMP_K)
+
+    finish = meanwhile() if meanwhile is not None else (lambda: True)
+    reached = {}
+    for circuits, end_o in ONION_WIDE_NS.items():
+        ocfg, omodel, otables, o0 = onion_world(hosts, dev, circuits_per_relay=circuits)
+        oscfg = mk.resolve_stage_cfg(ocfg)
+        sockets = omodel.tcp_params.num_sockets
+        sync(dev)
+        mk.PUMP_KERNEL.launches_by_model["onion_wide"] = 0
+        t0 = time.perf_counter()
+        st = run_until(o0, end_o, omodel, otables, ocfg, rounds_per_chunk=16)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = mk.PUMP_KERNEL.launches_by_model["onion_wide"]
+        started = int(st.model.streams_started.sum())
+        ok = (mk.kernel_instance(omodel, oscfg) == "onion_wide" and started > 0
+              and (launches > 0 or dev.type == "cpu"))
+        line("wide_kernel_onion_main_path", ok=ok, instance="onion_wide",
+             circuits_per_relay=circuits, sockets=sockets, hosts=hosts, end_ns=end_o,
+             wall_s=round(wall, 3), kernel_launches=launches, streams_started=started,
+             events=int(st.events_handled.sum()), meanwhile=meanwhile is not None)
+        if not ok:
+            return False, out, err
+        del o0
+        reached[circuits] = (st, omodel, otables, ocfg, oscfg, sockets, end_o, launches)
+    if not finish():
+        return False, out, err
+    cells, total = {}, 0
+    for circuits in list(reached):
+        st, omodel, otables, ocfg, oscfg, sockets, end_o, launches = reached.pop(circuits)
+        we_o = _next_window_end(st, ONION_WINDOW_CAP_NS, ocfg,
+                                equeue.next_time(st.queue).amin(), otables)
+        ok, cell, e = timed_stage(
+            "wide_kernel_vs_twin", st, we_o, omodel, otables, oscfg, reps, dev, must_take=True,
+            instance="onion_wide", launch="burst", circuits_per_relay=circuits,
+            sockets=sockets, at_ns=end_o, hosts=hosts)
+        err = max(err, e)
+        del st
+        if not ok:
+            return False, out, err
+        cells[circuits] = dict(cell, sockets=sockets, at_ns=end_o, launches=launches)
+        total += launches
+    first = cells[16]
+    out["onion_wide"] = dict({k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                             launches=total, by_circuits_per_relay=cells)
+    return True, out, err
+
+
+def host_leaves_equal(want: dict, st) -> "list[str]":
+    """The leaves of `st` that differ from a host snapshot (state_to_host)
+    in dtype, shape or value."""
+    from shadow_tpu_torch.engine.state import state_to_numpy
+
+    got = state_to_numpy(st)
+    return [k for k in want if k not in got or got[k].dtype != want[k].dtype
+            or got[k].shape != want[k].shape or not np.array_equal(got[k], want[k])]
+
+
+def bench_counters(st) -> dict:
+    return dict(events=int(st.events_handled.sum()),
+                streams_done=int(st.model.streams_done.sum()),
+                bytes_down=int(st.model.bytes_down.sum()))
+
+
+def recovery_phase(hosts: int, end_ns: int, main_final: dict, dev) -> "tuple[bool, int]":
+    """recovery: the bench world at an outbox of RECOVERY_OUTBOX slots, its
+    main path (engine "auto": the kernel) to end_ns with recovery on
+    (run_until_recovering, the CLI's default policy). It must recover at
+    least once, reach the native oracle's counters, and end leaf-equal to
+    the main path's final state, which started at the grown capacities.
+    Then an R = RECOVERY_ENS_REPLICAS ensemble of that world, whole-batch
+    regrowth, to RECOVERY_ENS_END_NS, leaf-equal to the ensemble started
+    at the grown capacity. Launch counts are set to 0 just before each
+    run and read just after. Returns (ok, the kernel's launches)."""
+    from shadow_tpu_torch.engine import megakernel as mk
+    from shadow_tpu_torch.engine.ensemble import (
+        grow_ensemble_state,
+        init_ensemble_state,
+        run_ensemble_until,
+    )
+    from shadow_tpu_torch.netstack import bw_bits_per_sec_to_refill
+    from shadow_tpu_torch.runtime.recovery import run_until_recovering
+
+    cfg, model, tables, st0 = bench_world(hosts, dev, outbox_capacity=RECOVERY_OUTBOX)
+    sync(dev)
+    mk.PUMP_KERNEL.launches_by_model["tgen"] = 0
+    t0 = time.perf_counter()
+    final, recs = run_until_recovering(st0, end_ns, model, tables, cfg, rounds_per_chunk=16)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = mk.PUMP_KERNEL.launches_by_model["tgen"]
+    got = bench_counters(final)
+    want = dict(events=BENCH_EVENTS, streams_done=BENCH_STREAMS_DONE, bytes_down=BENCH_BYTES_DOWN)
+    full = hosts == BENCH_HOSTS and end_ns == BENCH_END_NS
+    bad = host_leaves_equal(main_final, final)
+    ok = (len(recs) >= 1 and (got == want or not full) and not bad
+          and (launches > 0 or dev.type == "cpu"))
+    line("recovery", ok=ok, hosts=hosts, outbox_capacity=RECOVERY_OUTBOX, end_ns=end_ns,
+         recoveries=recs, counters=got, pinned=want if full else None,
+         mismatched_leaves_vs_main_path=bad, kernel_launches=launches, wall_s=round(wall, 3))
+    del final
+    if not ok:
+        return False, launches
+
+    bw = bw_bits_per_sec_to_refill(100_000_000)
+    r = RECOVERY_ENS_REPLICAS
+
+    def run_ens(c):
+        def go(s, on_state=None):
+            return run_ensemble_until(s, RECOVERY_ENS_END_NS, model, tables, c,
+                                      rounds_per_chunk=16, on_state=on_state)
+        return go
+
+    e0 = init_ensemble_state(cfg, model, r, 1, bw, bw, device=dev)
+    sync(dev)
+    mk.PUMP_KERNEL.launches_by_model["tgen"] = 0
+    t0 = time.perf_counter()
+    ens, erecs = run_until_recovering(e0, RECOVERY_ENS_END_NS, cfg=cfg, runner_factory=run_ens,
+                                      grow_fn=grow_ensemble_state)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    elaunch = mk.PUMP_KERNEL.launches_by_model["tgen"]
+    grown = dataclasses.replace(cfg, outbox_capacity=erecs[-1]["outbox_capacity"] if erecs else
+                                cfg.outbox_capacity)
+    g0 = init_ensemble_state(grown, model, r, 1, bw, bw, device=dev)
+    straight = run_ens(grown)(g0)
+    ebad, _ = leaves_equal(straight, ens)
+    ok = len(erecs) >= 1 and not ebad and (elaunch > 0 or dev.type == "cpu")
+    line("recovery_ensemble", ok=ok, hosts=hosts, replicas=r, end_ns=RECOVERY_ENS_END_NS,
+         recoveries=erecs, mismatched_leaves_vs_grown_start=ebad, kernel_launches=elaunch,
+         events=[int(x) for x in ens.events_handled.sum(dim=1).tolist()],
+         rows=r * hosts, wall_s=round(wall, 3))
+    return ok, launches + elaunch
+
+
+def checkpoint_phase(hosts: int, end_ns: int, dev) -> "tuple[bool, int]":
+    """checkpoint: the bench main path at CHECKPOINT_RPC rounds per chunk,
+    uninterrupted, then again with a checkpoint every
+    CHECKPOINT_INTERVAL_NS and interrupted at CHECKPOINT_INTERRUPT_NS
+    (the interrupt guard's deterministic sim-time knob: a final
+    checkpoint, then RunInterrupted), resumed from the newest checkpoint
+    file to end_ns; the resumed run's final state must equal the
+    uninterrupted run's. Returns (ok, the kernel's launches over the
+    interrupted and the resumed run)."""
+    from shadow_tpu_torch.engine import megakernel as mk
+    from shadow_tpu_torch.engine.round import RunInterrupted, run_until
+    from shadow_tpu_torch.engine.state import state_to_host
+    from shadow_tpu_torch.runtime.checkpoint import (
+        CheckpointManager,
+        InterruptGuard,
+        StateTap,
+        load_checkpoint,
+    )
+
+    cfg, model, tables, st0 = bench_world(hosts, dev)
+    straight = state_to_host(run_until(st0, end_ns, model, tables, cfg,
+                                       rounds_per_chunk=CHECKPOINT_RPC))
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = CheckpointManager(tmp, CHECKPOINT_INTERVAL_NS, "bench")
+        tap = StateTap(checkpoints=ck,
+                       guard=InterruptGuard(test_interrupt_at_ns=CHECKPOINT_INTERRUPT_NS))
+        sync(dev)
+        mk.PUMP_KERNEL.launches_by_model["tgen"] = 0
+        t0 = time.perf_counter()
+        interrupted = False
+        try:
+            run_until(st0, end_ns, model, tables, cfg, rounds_per_chunk=CHECKPOINT_RPC,
+                      on_state=tap)
+        except RunInterrupted:
+            interrupted = True
+        path = CheckpointManager.latest_path(tmp)
+        if path is None:
+            line("checkpoint", ok=False, interrupted=interrupted, note="no checkpoint written")
+            return False, 0
+        restored, meta = load_checkpoint(path, st0, "bench")
+        final = run_until(restored, end_ns, model, tables, cfg, rounds_per_chunk=CHECKPOINT_RPC)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = mk.PUMP_KERNEL.launches_by_model["tgen"]
+        written = [os.path.basename(p) for p in ck.written]
+        size = os.path.getsize(path)
+    bad = host_leaves_equal(straight, final)
+    ok = interrupted and meta["final"] and not bad and (launches > 0 or dev.type == "cpu")
+    line("checkpoint", ok=ok, hosts=hosts, interrupted=interrupted, resumed_from=meta["now_ns"],
+         written=written, file_bytes=size, counters=bench_counters(final),
+         mismatched_leaves_vs_uninterrupted=bad, kernel_launches=launches,
+         wall_s=round(wall, 3))
+    return ok, launches
+
+
+def fattree_cli_start(dev) -> dict:
+    """Start the CLI on examples/fattree, its graph from gen_fattree.py 8
+    in a temporary directory (cli_start)."""
+    gml_dir = tempfile.TemporaryDirectory()
+    gml = os.path.join(gml_dir.name, "fattree.gml")
+    with open(gml, "w") as f:
+        subprocess.run([sys.executable, os.path.join(HERE, "examples", "fattree",
+                                                     "gen_fattree.py"), "8"],
+                       stdout=f, check=True)
+    run = cli_start("fattree/shadow.yaml", dev, subs=[
+        ("file: examples/fattree/fattree.gml", f"file: {gml}")])
+    run["tmps"].append(gml_dir)
+    return run
+
+
+def fattree_cli_finish(run) -> bool:
+    """The fattree run started by fattree_cli_start: recovery on by default
+    must regrow the outbox twice (FATTREE_RECOVERIES) and the run must end
+    with the reference's events (FATTREE_STATS)."""
+    ok, stats = cli_finish(run, FATTREE_STATS)
+    rec = stats.get("recovery") or {"events": []}
+    got = [(e["queue_capacity"], e["outbox_capacity"]) for e in rec["events"]]
+    ok = ok and got == FATTREE_RECOVERIES
+    line("cli_recovery", ok=ok, example="fattree/shadow.yaml", recoveries=got,
+         want=FATTREE_RECOVERIES, events=rec["events"])
+    return ok
+
+
+def background_clis(dev):
+    """Start the CLI runs on the onion example (stop time cut) and on
+    examples/fattree, each in a process of its own: a callable that waits
+    for both and says whether both passed."""
+    runs = [(cli_start("onion/onion.yaml", dev, ONION_EXAMPLE_STOP),
+             lambda r: cli_finish(r, ONION_EXAMPLE_STATS)[0]),
+            (fattree_cli_start(dev), fattree_cli_finish)]
+    return lambda: all([finish(r) for r, finish in runs])
+
+
 def small_model_worlds():
     """(name, model, graph GML, loss) of the small worlds on which the
     models without a pump kernel run on the card and on the CPU: the
@@ -783,36 +1201,62 @@ def models_phase(dev, big_hosts: int) -> bool:
     return ok
 
 
-def cli_phase(example: str, pinned: dict, dev, stop=None, extra=()) -> "tuple[bool, dict]":
-    """`python -m shadow_tpu_torch run` on an example config (its data
-    directory moved to a temporary one; `stop`, a pair of stop_time
-    lines, shortens it; `extra` adds flags): (ok, the run's sim-stats)."""
-    with tempfile.TemporaryDirectory() as tmp:
-        src = open(os.path.join(HERE, "examples", example)).read()
-        if stop is not None:
-            if stop[0] not in src:
-                raise ValueError(f"{example}: no {stop[0]!r} to shorten")
-            src = src.replace(*stop)
-        data = os.path.join(tmp, "data")
-        cfg_path = os.path.join(tmp, "config.yaml")
-        with open(cfg_path, "w") as f:
-            f.write(src.replace("data_directory: shadow.data", f"data_directory: {data}"))
+# the CLI processes started by cli_start, stopped when the smoke ends
+STARTED = []
+
+
+def cli_start(example: str, dev, stop=None, extra=(), subs=()) -> dict:
+    """Start `python -m shadow_tpu_torch run` on an example config in a
+    process of its own (its data directory moved to a temporary one;
+    `stop`, a pair of stop_time lines, shortens it; `subs`, more (old, new)
+    pairs, edit it; `extra` adds flags; its output goes to files, so that
+    it never waits on this process): a handle for cli_finish."""
+    tmp = tempfile.TemporaryDirectory()
+    src = open(os.path.join(HERE, "examples", example)).read()
+    for old, new in ((stop,) if stop is not None else ()) + tuple(subs):
+        if old not in src:
+            raise ValueError(f"{example}: no {old!r} to edit")
+        src = src.replace(old, new)
+    data = os.path.join(tmp.name, "data")
+    cfg_path = os.path.join(tmp.name, "config.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(src.replace("data_directory: shadow.data", f"data_directory: {data}"))
+    cmd = [sys.executable, "-m", "shadow_tpu_torch", "run", *extra, cfg_path]
+    if dev.type == "cpu":
+        cmd += ["--device", "cpu"]
+    err_path = os.path.join(tmp.name, "stderr.txt")
+    with open(os.path.join(tmp.name, "stdout.txt"), "w") as out, open(err_path, "w") as err:
         t0 = time.perf_counter()
-        cmd = [sys.executable, "-m", "shadow_tpu_torch", "run", *extra, cfg_path]
-        if dev.type == "cpu":
-            cmd += ["--device", "cpu"]
-        proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True)
-        cli_s = time.perf_counter() - t0
-        stats = {}
-        if proc.returncode == 0:
-            with open(os.path.join(data, "sim-stats.json")) as f:
-                stats = json.load(f)
-        got = {k: stats.get(k) for k in pinned}
-        ok = proc.returncode == 0 and got == pinned
-        line("cli", ok=ok, example=example, flags=list(extra), rc=proc.returncode, stats=got,
-             execution=stats.get("execution"), wall_s=round(cli_s, 3),
-             stderr_tail=proc.stderr[-2000:] if not ok else "")
-        return ok, stats
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=out, stderr=err)
+    STARTED.append(proc)
+    return dict(example=example, extra=list(extra), proc=proc, t0=t0, data=data,
+                stderr=err_path, tmps=[tmp])
+
+
+def cli_finish(run: dict, pinned: dict) -> "tuple[bool, dict]":
+    """Wait for a run that cli_start started: (ok, the run's sim-stats)."""
+    rc = run["proc"].wait()
+    cli_s = time.perf_counter() - run["t0"]
+    stats = {}
+    if rc == 0:
+        with open(os.path.join(run["data"], "sim-stats.json")) as f:
+            stats = json.load(f)
+    got = {k: stats.get(k) for k in pinned}
+    ok = rc == 0 and got == pinned
+    with open(run["stderr"]) as f:
+        stderr = f.read()
+    line("cli", ok=ok, example=run["example"], flags=run["extra"], rc=rc, stats=got,
+         execution=stats.get("execution"), wall_s=round(cli_s, 3),
+         stderr_tail=stderr[-2000:] if not ok else "")
+    for tmp in run["tmps"]:
+        tmp.cleanup()
+    return ok, stats
+
+
+def cli_phase(example: str, pinned: dict, dev, stop=None, extra=(), subs=()) -> "tuple[bool, dict]":
+    """The CLI on an example config, run to its end (cli_start, then
+    cli_finish)."""
+    return cli_finish(cli_start(example, dev, stop, extra, subs), pinned)
 
 
 def ensemble_window(rows, cfg, tables):
@@ -1048,6 +1492,16 @@ def ensemble_ragged_phase(hosts: int, dev) -> "tuple[bool, float]":
 
 
 def main(argv=None) -> int:
+    try:
+        return run_phases(argv)
+    finally:
+        for proc in STARTED:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def run_phases(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--hosts", type=int, default=BENCH_HOSTS)
     ap.add_argument("--end-ns", type=int, default=BENCH_END_NS)
@@ -1209,6 +1663,17 @@ def main(argv=None) -> int:
     max_abs_err = max(max_abs_err, err)
     if not ok_e:
         return 1
+
+    # 3a. wide_kernel: the wide instances (pump_k past MAX_K, onion past 32
+    # sockets), each held against the twin and timed, and their main paths;
+    # the CLI on the onion and fattree examples meanwhile
+    t0 = time.perf_counter()
+    ok_w, wide, err_w = wide_kernel_phase(st_b, we, cfg, model, tables, args.hosts, dev,
+                                          meanwhile=lambda: background_clis(dev))
+    line("wide_kernel", ok=ok_w, seconds=round(time.perf_counter() - t0, 3),
+         instances={k: dict(v) for k, v in wide.items()})
+    if not ok_w:
+        return 1
     mk.PUMP_KERNEL.launches = launches0  # comparison launches do not count
     del st_b
 
@@ -1266,11 +1731,7 @@ def main(argv=None) -> int:
     sync(dev)
     wall = time.perf_counter() - t0
     main_launches = mk.PUMP_KERNEL.launches
-    got = dict(
-        events=int(final.events_handled.sum()),
-        streams_done=int(final.model.streams_done.sum()),
-        bytes_down=int(final.model.bytes_down.sum()),
-    )
+    got = bench_counters(final)
     want = dict(events=BENCH_EVENTS, streams_done=BENCH_STREAMS_DONE, bytes_down=BENCH_BYTES_DOWN)
     ok4 = (eng == "megakernel" and main_launches > 0) or dev.type == "cpu"
     ok4 = ok4 and (got == want or not full)
@@ -1281,6 +1742,9 @@ def main(argv=None) -> int:
          max_memory_allocated=torch.cuda.max_memory_allocated() if dev.type == "cuda" else None)
     if not ok4:
         return 1
+    from shadow_tpu_torch.engine.state import state_to_host
+
+    main_final = state_to_host(final)  # the recovery phase ends here
     del final
 
     # 5. engines agree on the card
@@ -1305,6 +1769,15 @@ def main(argv=None) -> int:
     if args.profile and dev.type == "cuda":
         profile_main_path(st0, model, tables, cfg, args.end_ns)
 
+    # 5a. recovery and checkpoint/resume on the main path's world
+    ok_r, recovery_launches = recovery_phase(args.hosts, args.end_ns, main_final, dev)
+    if not ok_r:
+        return 1
+    ok_c, checkpoint_launches = checkpoint_phase(args.hosts, args.end_ns, dev)
+    if not ok_c:
+        return 1
+    del main_final
+
     # 6. the CLI entry point on the tgen example
     if not cli_phase("tgen/shadow.yaml", TGEN_EXAMPLE_STATS, dev)[0]:
         return 1
@@ -1319,14 +1792,11 @@ def main(argv=None) -> int:
     max_err = {"tgen": max_abs_err, "onion": err}
 
     # 8. the models without a pump kernel, card against CPU; phold at
-    # full width; the CLI on the phold and onion examples
+    # full width; the CLI on the phold example
     if not models_phase(dev, args.hosts):
         return 1
-    for example, pinned, stop in (
-            ("phold/shadow.yaml", PHOLD_EXAMPLE_STATS, PHOLD_EXAMPLE_STOP),
-            ("onion/onion.yaml", ONION_EXAMPLE_STATS, ONION_EXAMPLE_STOP)):
-        if not cli_phase(example, pinned, dev, stop)[0]:
-            return 1
+    if not cli_phase("phold/shadow.yaml", PHOLD_EXAMPLE_STATS, dev, PHOLD_EXAMPLE_STOP)[0]:
+        return 1
 
     # 9. the ensemble plane: tgen and onion replicas through the kernel,
     # a ragged batch, the CLI's --replicas
@@ -1360,16 +1830,27 @@ def main(argv=None) -> int:
         line("rehearsal_done", note="no result: the kernel runs only on the card")
         return 3
 
-    # 9. the kernels line (the kernel once per model instance: its launches
-    # on that model's main path, its burst launch's times and bound, its
+    # 10. the kernels line (the kernel once per template instance: its
+    # launches on its main path, its burst launch's times and bound, its
     # ptxas resources), the card line, and the result
+    # the narrow instances' R = 1 launches of this run beside the earlier record
+    line("r1_launches", this_run_ms=dict(launch_ms, onion_burst=onion_entry["ms"]),
+         earlier_ms=EARLIER_LAUNCH_MS, card=smi, ptxas={m: resources[m] for m in ("tgen", "onion")})
     timing = {"tgen": dict(ms=ms_k, plain_ms=ms_t, bound_ms=bound_ms, bound_by=bound_by),
               "onion": onion_entry}
+    for m in ("tgen_wide", "onion_wide"):
+        timing[m] = {k: v for k, v in wide[m].items() if k != "launches"}
+        launches_by_model[m] = wide[m]["launches"]
+        max_err[m] = err_w
     # the phases that launched each instance over replica batches (R > 1),
     # with that phase's launches on its main path and its timed launch
     ensemble = {"tgen": [ens_tgen["phase"], f"ensemble-ragged-{args.hosts - RAGGED_SHORT}x"
-                         f"{ENS_RAGGED_REPLICAS}"], "onion": [ens_onion["phase"]]}
-    ens_launch = {"tgen": ens_tgen, "onion": ens_onion}
+                         f"{ENS_RAGGED_REPLICAS}", f"recovery-ensemble-{args.hosts}x"
+                         f"{RECOVERY_ENS_REPLICAS}"],
+                "onion": [ens_onion["phase"]], "tgen_wide": [], "onion_wide": []}
+    ens_launch = {"tgen": ens_tgen, "onion": ens_onion, "tgen_wide": None, "onion_wide": None}
+    # launches on the paths of this slice's phases, besides the main path's
+    more = {"tgen": {"recovery": recovery_launches, "checkpoint": checkpoint_launches}}
     print(json.dumps({"kernels": [{
         "name": f"pump_megakernel[{m}]",
         "route": "cuda",
@@ -1382,7 +1863,8 @@ def main(argv=None) -> int:
         **resources[m],
         "launched_with_replicas_by": ensemble[m],
         "ensemble": ens_launch[m],
-    } for m in ("tgen", "onion")]}), flush=True)
+        "launches_on_other_paths": more.get(m, {}),
+    } for m in mk.INSTANCES]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,6 +37,29 @@ def main(argv: "list[str] | None" = None) -> int:
         help="spacing between consecutive replicas' derived seeds "
         "(default 1; general.replica_seed_stride)",
     )
+    run_p.add_argument(
+        "--checkpoint-dir", metavar="DIR",
+        help="write versioned run checkpoints into DIR at --checkpoint-"
+        "interval cadence; SIGINT/SIGTERM also write a final one "
+        "(general.checkpoint_dir)",
+    )
+    run_p.add_argument(
+        "--checkpoint-interval", metavar="TIME",
+        help="sim-time cadence between checkpoints, e.g. '30 s' "
+        "(general.checkpoint_interval; default 30 s)",
+    )
+    run_p.add_argument(
+        "--resume", action="store_true",
+        help="resume from the newest checkpoint in --checkpoint-dir and "
+        "run to stop_time — bit-exact vs an uninterrupted run "
+        "(general.resume)",
+    )
+    run_p.add_argument(
+        "--no-recover", action="store_true",
+        help="disable rollback-and-regrow capacity recovery: fail fast "
+        "on a CapacityError instead of regrowing the saturated buffer "
+        "and replaying (experimental.recover)",
+    )
     args = parser.parse_args(argv)
 
     if args.command == "run":
@@ -46,6 +69,9 @@ def main(argv: "list[str] | None" = None) -> int:
             return run_from_config(
                 args.config, device=args.device, show_config=args.show_config,
                 replicas=args.replicas, replica_seed_stride=args.replica_seed_stride,
+                checkpoint_dir=args.checkpoint_dir,
+                checkpoint_interval=args.checkpoint_interval,
+                resume=args.resume, no_recover=args.no_recover,
             )
         except CliUserError as e:
             print(f"shadow-tpu-torch: error: {e}", file=sys.stderr)

@@ -62,6 +62,27 @@
 //    with the popped slots), with overflow counted as push_self_lanes
 //    counts it.
 //
+// Wide instances. The design above holds a row's list (pump_k <= MAX_K
+// entries), its defer FIFO and its sockets' matching fields (S <= the
+// instance's *_MAX_S, one bit each in a 32-bit match mask) in shared
+// memory sized at compile time. A launch past either limit runs the wide
+// instance of its model (template flag WIDE), chosen by the wrapper:
+//  - the list is taken in passes of up to MAX_K entries, each by rounds
+//    of a warp-wide minimum over the row's device-memory queue (popped
+//    slots read TIME_MAX there, so a pass starts where the last ended);
+//    a pass ends with one more round, over the row's unlisted slots,
+//    that gives the head once the pass is popped; a row starts a pass
+//    when it has popped its list and that head is below the window end;
+//  - the defer FIFO (at most pump_k entries, each with its payload) lives
+//    in a per-row device scratch of pump_k entries;
+//  - the socket fields are read from device memory and a matching slot
+//    is found again by a scan of the row's S sockets wherever the narrow
+//    instance walks its mask, so any S works;
+//  - the landing takes the row's free columns by scanning its `time` row
+//    after the pops.
+// The per-event body is the narrow instance's; each difference is an
+// `if constexpr (WIDE)`, so the narrow instances compile as before.
+//
 // Replicas. An ensemble of R worlds is one launch over its R x H rows
 // (rows_per_replica = H; a single world is R = 1). A row reads its own
 // replica's window end, folds into its replica's min_used and flags its
@@ -95,13 +116,19 @@ constexpr int CODEL_TABLE_LEN = 1024;
 constexpr int FLAG_FIN = 0x01, FLAG_SYN = 0x02, FLAG_RST = 0x04, FLAG_ACK = 0x10;
 constexpr int ST_CLOSED = 0, ST_LISTEN = 1, ST_ESTABLISHED = 4, ST_FINWAIT1 = 5;
 constexpr int LANES = 8;  // PAYLOAD_LANES
+// The list entries a narrow instance holds (its pump_k limit), and the
+// entries of one pass of a wide instance's list.
 constexpr int MAX_K = 16;
-// The models whose pump rules the kernel carries (a template instance
-// each), and the sockets per host row each instance is built for: tgen's
-// 4 (TGEN_TCP) fit 8, as before; onion's 1 + 2 x circuits_per_relay (17
-// at the default) fit 32, the width of a row's socket-match bitmask.
+// The models whose pump rules the kernel carries (a narrow and a wide
+// template instance each), and the sockets per host row each narrow
+// instance is built for: tgen's 4 (TGEN_TCP) fit 8, as before; onion's
+// 1 + 2 x circuits_per_relay (17 at the default) fit 32, the width of a
+// row's socket-match bitmask. A wide instance takes any socket count.
 constexpr int MODEL_TGEN = 0, MODEL_ONION = 1;
 constexpr int TGEN_MAX_S = 8, ONION_MAX_S = 32;
+// int64 words of a wide instance's defer-FIFO entry: time, tie, kind,
+// aux, then the payload's 8 int32 lanes in 4 words
+constexpr int FIFO_WORDS = 8;
 // TCP's shape, the one shape the kernel is built for: out-of-order ranges
 // and segments per flush (TGEN_TCP); the wrapper refuses any other
 constexpr int NR = 4, NSEG = 4;
@@ -161,8 +188,11 @@ struct PumpArgs {
   void *window_end, *min_used, *rejected;
   // read-only context
   void *host_id, *rng_key, *host_node, *lat_ns, *rel, *codel_table;
-  // shapes and static parameters
-  int64_t H, Q, O, S, R, N, num_global_hosts, pump_k;
+  // a wide instance's defer FIFOs [H, pump_k, FIFO_WORDS] i64 (scratch;
+  // unused by a narrow instance)
+  void *fifo;
+  // shapes and static parameters; wide: run the model's wide instance
+  int64_t H, Q, O, S, R, N, num_global_hosts, pump_k, wide;
   int64_t rows_per_replica;  // H of one world: row h is replica h / rows_per_replica's
   int64_t bootstrap_end_ns;
   int64_t use_netstack, use_sack, tracker, dyn_runahead;
@@ -342,9 +372,12 @@ __device__ __forceinline__ int nth_bit(unsigned m, int n) {
 // lane reads for itself are row-minor ([..][ROWS_PER_WARP]) or padded, so
 // that the lanes of a warp fall into different banks. MAX_S sizes the
 // socket arrays for the instance's model, so tgen's block keeps its size.
-template <int MAX_S>
+// A wide instance streams no row and keeps no socket field here (its
+// arrays for them shrink to a token size).
+template <int MAX_S, bool WIDE>
 struct WarpSmem {
-  alignas(16) int64_t piece[PIECES_IN_FLIGHT][PIECE];  // streamed pieces of `time` rows
+  // streamed pieces of `time` rows
+  alignas(16) int64_t piece[WIDE ? 1 : PIECES_IN_FLIGHT][WIDE ? 2 : PIECE];
   int64_t lim[ROWS_PER_WARP];  // each row's window end (its replica's), capped at TIME_MAX
   // a row's staged slots below the window end, in slot order
   int64_t st_time[ROWS_PER_WARP][STAGE + 1];
@@ -366,11 +399,56 @@ struct WarpSmem {
   int32_t f_aux[MAX_K][ROWS_PER_WARP];
   int8_t f_src[MAX_K][ROWS_PER_WARP];
   // socket-matching fields of the rows' sockets, [row * S + s]
-  int32_t sk_st[ROWS_PER_WARP * MAX_S];
-  int32_t sk_lport[ROWS_PER_WARP * MAX_S];
-  int32_t sk_rport[ROWS_PER_WARP * MAX_S];
-  int32_t sk_rhost[ROWS_PER_WARP * MAX_S];
+  int32_t sk_st[ROWS_PER_WARP * (WIDE ? 1 : MAX_S)];
+  int32_t sk_lport[ROWS_PER_WARP * (WIDE ? 1 : MAX_S)];
+  int32_t sk_rport[ROWS_PER_WARP * (WIDE ? 1 : MAX_S)];
+  int32_t sk_rhost[ROWS_PER_WARP * (WIDE ? 1 : MAX_S)];
 };
+
+// A wide instance's pass: row r's next list of up to MAX_K entries, by
+// (time, tie, slot) among its slots below the row's window end, from
+// rounds of a warp-wide minimum over the row in device memory (popped
+// slots read TIME_MAX there); then one round over all the row's slots
+// past the last listed entry gives the head once the list is popped.
+// Warp-wide: every lane calls it for the same r. Sets n_below[r] (the
+// pass's length), after[r], and the list's staged keys.
+template <class Smem>
+__device__ void take_pass(Smem &w, const int64_t *q_time, const int64_t *q_tie, int64_t row,
+                          int64_t Q, int r, int lane) {
+  const int64_t *tr = q_time + row * Q;
+  const int64_t *tier = q_tie + row * Q;
+  const int64_t lim = w.lim[r];
+  Key prev = {-1, 0, 0};
+  int n = 0;
+  for (; n < MAX_K; ++n) {
+    Key best = {TIME_MAX, I64_MAX, 0x7FFFFFFF};
+    for (int64_t s = lane; s < Q; s += WARP) {
+      const int64_t ts = tr[s];
+      if (ts >= lim) continue;
+      const Key ks = {ts, tier[s], int(s)};
+      if (key_less(prev, ks) && key_less(ks, best)) best = ks;
+    }
+    best = warp_min_key(best);
+    if (best.time >= lim) break;  // no slot below the window end is left
+    if (lane == 0) {
+      w.st_time[r][n] = best.time;
+      w.st_tie[r][n] = best.tie;
+      w.st_slot[r][n] = best.slot;
+      w.list[n][r] = int8_t(n);
+    }
+    prev = best;
+  }
+  Key best = {TIME_MAX, I64_MAX, 0x7FFFFFFF};
+  for (int64_t s = lane; s < Q; s += WARP) {
+    const Key ks = {tr[s], tier[s], int(s)};
+    if (key_less(prev, ks) && key_less(ks, best)) best = ks;
+  }
+  best = warp_min_key(best);
+  if (lane == 0) {
+    w.n_below[r] = n;
+    w.after[r] = best.time;
+  }
+}
 
 // Stage list entry i of row r (lane-independent: any lane may call it):
 // kind, aux and data of the entry's queue slot, copied asynchronously.
@@ -387,9 +465,9 @@ __device__ __forceinline__ void stage_payload(Smem &w, const int32_t *kind,
 
 #define P(type, name) (reinterpret_cast<type *>(a.name))
 
-template <int MODEL>
+template <int MODEL, bool WIDE>
 __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
-  __shared__ WarpSmem<max_sockets<MODEL>()> w;
+  __shared__ WarpSmem<max_sockets<MODEL>(), WIDE> w;
   const int lane = int(threadIdx.x);
   const int64_t row0 = int64_t(blockIdx.x) * ROWS_PER_WARP;  // the warp's first row
   const int64_t h = row0 + lane;  // this lane's row (lanes below ROWS_PER_WARP)
@@ -412,6 +490,7 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
   const unsigned live_rows = __ballot_sync(FULL, live);
   if (live_rows == 0) return;
 
+  if constexpr (!WIDE) {
   // ---- the rows' socket-matching fields, one coalesced pass each ----
   {
     const int64_t first = row0 * S, end = imin(a.H * S, first + ROWS_PER_WARP * S);
@@ -582,6 +661,7 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncwarp();
+  }  // !WIDE: a wide instance takes its first pass in the first microstep
 
   // ---- B. the microsteps, one lane per row ----
   // flow-table row base
@@ -615,8 +695,15 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
   int64_t *ts_rtx = P(int64_t, retransmits) + hs;
   int64_t *ts_sin = P(int64_t, segs_in) + hs;
   int64_t *ts_sout = P(int64_t, segs_out) + hs;
-  // this row's socket-matching fields in shared memory
+  // this row's socket-matching fields: in shared memory (narrow), in
+  // device memory (wide)
   const int sk = lane * S;
+  const int32_t *ts_lport = P(int32_t, lport) + hs;
+  const int32_t *ts_rport = P(int32_t, rport) + hs;
+  const int32_t *ts_rhost = P(int32_t, rhost) + hs;
+#define SK(field, s) (WIDE ? ts_##field[s] : w.sk_##field[sk + (s)])
+  // a wide instance's defer FIFO: this row's pump_k entries
+  int64_t *fifo = WIDE && live ? P(int64_t, fifo) + h * K * FIFO_WORDS : nullptr;
 
   // outbox row
   uint8_t *obv = P(uint8_t, ob_valid) + h * O;
@@ -680,7 +767,9 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
 #undef LOAD
   int64_t min_used_local = TIME_MAX;
   bool rejected = false;
-  const int n_listed = live ? int(imin(w.n_below[lane], K)) : 0;
+  // the list's length (a wide instance's: its current pass's, set when
+  // the pass is taken)
+  int n_listed = !WIDE && live ? int(imin(w.n_below[lane], K)) : 0;
   int qi = 0;  // queue entries popped: the candidate is list entry qi
   int f_head = 0, f_cnt = 0;  // this row's defer FIFO (w.f_*)
   bool active = live;
@@ -688,7 +777,7 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
   for (int step = 0; step < K; ++step) {
     const unsigned going = __ballot_sync(FULL, active);
     if (going == 0) break;
-    if (step == 1) {
+    if (!WIDE && step == 1) {
       // the rest of the lists, for the rows that took their head
       const int pairs = ROWS_PER_WARP * (MAX_K - 1);
       for (int p = lane; p < pairs; p += WARP) {
@@ -699,6 +788,31 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
       __pipeline_commit();
       __pipeline_wait_prior(0);
       __syncwarp();
+    }
+    if constexpr (WIDE) {
+      // a row that has popped its pass and whose head is below the window
+      // end takes its next pass (its first, at step 0), with the payloads
+      const unsigned refill = __ballot_sync(FULL, active && qi == n_listed && qhead < we);
+      if (refill) {
+        __syncwarp();  // the rows' pops, written to device memory, are seen by the warp
+        for (unsigned todo = refill; todo; todo &= todo - 1) {
+          const int r = __ffs(todo) - 1;
+          take_pass(w, q_time, q_tie, row0 + r, Q, r, lane);
+        }
+        __syncwarp();
+        for (int p = lane; p < ROWS_PER_WARP * MAX_K; p += WARP) {
+          const int r = p / MAX_K, i = p % MAX_K;
+          if (((refill >> r) & 1u) && i < w.n_below[r])
+            stage_payload(w, P(int32_t, q_kind), P(int32_t, q_aux), P(int32_t, q_data), row0 + r, Q, r, i);
+        }
+        __pipeline_commit();
+        __pipeline_wait_prior(0);
+        __syncwarp();
+        if ((refill >> lane) & 1u) {
+          n_listed = w.n_below[lane];
+          qi = 0;
+        }
+      }
     }
     if (!active) continue;
 
@@ -716,8 +830,8 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
     const int q_e = q_listed ? w.list[qi][lane] : 0;
     const int q_slot = q_listed ? w.st_slot[lane][q_e] : 0;
     const int64_t q_tie_v = q_listed ? w.st_tie[lane][q_e] : I64_MAX;
-    const int64_t fh_t = fh_has ? w.f_time[f_head][lane] : TIME_MAX;
-    const int64_t fh_tie = fh_has ? w.f_tie[f_head][lane] : I64_MAX;
+    const int64_t fh_t = fh_has ? (WIDE ? fifo[f_head * FIFO_WORDS] : w.f_time[f_head][lane]) : TIME_MAX;
+    const int64_t fh_tie = fh_has ? (WIDE ? fifo[f_head * FIFO_WORDS + 1] : w.f_tie[f_head][lane]) : I64_MAX;
     const bool use_f = fh_has && (!q_valid || fh_t < q_time_v ||
                                   (fh_t == q_time_v && fh_tie < q_tie_v));
     const int64_t ev_time = use_f ? fh_t : q_time_v;
@@ -728,12 +842,20 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
     }
     // the payload: the list entry's, or for a FIFO entry that of the
     // entry it deferred
-    const int src = use_f ? w.f_src[f_head][lane] : qi;
+    const int src = use_f && !WIDE ? w.f_src[f_head][lane] : qi;
     const int64_t ev_tie = use_f ? fh_tie : q_tie_v;
-    const int32_t ev_kind = w.p_kind[src][lane];
-    const int32_t ev_aux = use_f ? w.f_aux[f_head][lane] : w.p_aux[src][lane];
+    int32_t ev_kind, ev_aux;
     int32_t ev_data[LANES];
-    for (int l = 0; l < LANES; ++l) ev_data[l] = w.p_data[lane][src * LANES + l];
+    if (WIDE && use_f) {  // a wide FIFO entry carries its own payload
+      const int64_t *fe = fifo + f_head * FIFO_WORDS;
+      ev_kind = int32_t(fe[2]);
+      ev_aux = int32_t(fe[3]);
+      for (int l = 0; l < LANES; ++l) ev_data[l] = reinterpret_cast<const int32_t *>(fe + 4)[l];
+    } else {
+      ev_kind = w.p_kind[src][lane];
+      ev_aux = use_f ? w.f_aux[f_head][lane] : w.p_aux[src][lane];
+      for (int l = 0; l < LANES; ++l) ev_data[l] = w.p_data[lane][src * LANES + l];
+    }
     const int32_t ev_src = int32_t((ev_tie >> 32) & ((1 << 30) - 1));
     const int64_t now = ev_time;
 
@@ -785,14 +907,36 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
     // ---- TCP classification: the matching slot(s) ----
     const int32_t sport = (ev_data[0] >> 16) & 0xFFFF;
     const int32_t dport = ev_data[0] & 0xFFFF;
-    unsigned oh = 0;  // the matching slots, a bit each
-    for (int s = 0; s < S; ++s) {
-      const int32_t st_s = w.sk_st[sk + s];
-      const bool ex = st_s != ST_CLOSED && st_s != ST_LISTEN && w.sk_lport[sk + s] == dport &&
-                      w.sk_rhost[sk + s] == ev_src && w.sk_rport[sk + s] == sport;
-      if (ex && arrived) oh |= 1u << s;
+    // a matching slot: established (not CLOSED or LISTEN) on the packet's
+    // 4-tuple, for an arrived packet
+#define MATCHES(s)                                                                   \
+  (arrived && SK(st, s) != ST_CLOSED && SK(st, s) != ST_LISTEN && SK(lport, s) == dport && \
+   SK(rhost, s) == ev_src && SK(rport, s) == sport)
+    // the matching slots: a bit each (narrow); a wide instance scans for
+    // them again wherever they are walked (FOR_EACH_MATCH)
+    unsigned oh = 0;
+    bool rx_exact = false;
+    if constexpr (WIDE) {
+      for (int s = 0; s < S && !rx_exact; ++s) rx_exact = MATCHES(s);
+    } else {
+      for (int s = 0; s < S; ++s) {
+        const int32_t st_s = w.sk_st[sk + s];
+        const bool ex = st_s != ST_CLOSED && st_s != ST_LISTEN && w.sk_lport[sk + s] == dport &&
+                        w.sk_rhost[sk + s] == ev_src && w.sk_rport[sk + s] == sport;
+        if (ex && arrived) oh |= 1u << s;
+      }
+      rx_exact = oh != 0;
     }
-    const bool rx_exact = oh != 0;
+#define FOR_EACH_MATCH(s, ...)                           \
+  if constexpr (WIDE) {                                  \
+    for (int s = 0; s < S; ++s)                          \
+      if (MATCHES(s)) { __VA_ARGS__ }                    \
+  } else {                                               \
+    for (unsigned m_ = oh; m_; m_ &= m_ - 1) {           \
+      const int s = __ffs(m_) - 1;                       \
+      __VA_ARGS__                                        \
+    }                                                    \
+  }
     // the one-hot reads (sums over matching slots; a row has at most one)
     int64_t v_st = 0, v_lport = 0, v_rport = 0, v_rhost = 0, v_una = 0, v_nxt = 0;
     int64_t v_max = 0, v_end = 0, v_rcv = 0, v_rfin = 0, v_cwnd = 0, v_ssth = 0;
@@ -802,12 +946,11 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
     int64_t v_ooo[NR][2], v_sack[NR][2];
 #pragma unroll
     for (int r = 0; r < NR; ++r) v_ooo[r][0] = v_ooo[r][1] = v_sack[r][0] = v_sack[r][1] = 0;
-    for (unsigned m = oh; m; m &= m - 1) {
-      const int s = __ffs(m) - 1;
-      v_st += w.sk_st[sk + s];
-      v_lport += w.sk_lport[sk + s];
-      v_rport += w.sk_rport[sk + s];
-      v_rhost += w.sk_rhost[sk + s];
+    FOR_EACH_MATCH(s,
+      v_st += SK(st, s);
+      v_lport += SK(lport, s);
+      v_rport += SK(rport, s);
+      v_rhost += SK(rhost, s);
       v_una += ts_una[s];
       v_nxt += ts_nxt[s];
       v_max += ts_max[s];
@@ -830,13 +973,13 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
       v_tev += ts_tev[s];
       v_dlv += ts_dlv[s];
       v_pwnd += ts_pwnd[s];
-#pragma unroll
+      _Pragma("unroll")
       for (int r = 0; r < NR; ++r)
         for (int c = 0; c < 2; ++c) {
           v_ooo[r][c] += ts_ooo[(s * NR + r) * 2 + c];
           v_sack[r][c] += ts_sack[(s * NR + r) * 2 + c];
         }
-    }
+    )
     // int32 fields wrap back to int32, as the reference's .astype(int32)
     v_st = int32_t(v_st);
     v_lport = int32_t(v_lport);
@@ -1007,10 +1150,19 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
       rx_backlog += (defer ? size_in : 0) - ((take_tcp && shaped) ? size_in : 0);
       if (take_tcp) bytes_recv += size_in;
       if (defer) {  // deferred re-enqueue -> FIFO (ready is monotone per row)
-        w.f_time[f_cnt][lane] = ready;
-        w.f_tie[f_cnt][lane] = ev_tie;
-        w.f_src[f_cnt][lane] = int8_t(src);  // kind and data: list entry src's
-        w.f_aux[f_cnt][lane] = int32_t(size_in) | AUX_SHAPED_BIT;
+        if constexpr (WIDE) {  // the entry carries its payload
+          int64_t *fe = fifo + f_cnt * FIFO_WORDS;
+          fe[0] = ready;
+          fe[1] = ev_tie;
+          fe[2] = ev_kind;
+          fe[3] = int32_t(size_in) | AUX_SHAPED_BIT;
+          for (int l = 0; l < LANES; ++l) reinterpret_cast<int32_t *>(fe + 4)[l] = ev_data[l];
+        } else {
+          w.f_time[f_cnt][lane] = ready;
+          w.f_tie[f_cnt][lane] = ev_tie;
+          w.f_src[f_cnt][lane] = int8_t(src);  // kind and data: list entry src's
+          w.f_aux[f_cnt][lane] = int32_t(size_in) | AUX_SHAPED_BIT;
+        }
         f_cnt += 1;
       }
     }
@@ -1020,11 +1172,10 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
 #pragma unroll
     for (int i = 0; i < NSEG; ++i) lane_sum += lane_valid[i] ? 1 : 0;
     const bool fin3 = p3 && fin_goes;
-    for (unsigned m = oh; m; m &= m - 1) {
-      const int s = __ffs(m) - 1;
+    FOR_EACH_MATCH(s,
       if (fin3) {
         ts_st[s] = ST_FINWAIT1;
-        w.sk_st[sk + s] = ST_FINWAIT1;
+        if constexpr (!WIDE) w.sk_st[sk + s] = ST_FINWAIT1;
         ts_fins[s] = 1;
       }
       if (p3) {
@@ -1043,13 +1194,13 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
         ts_rttt[s] = rt;
         ts_rtx[s] += rtx_count;
         ts_sout[s] += lane_sum;
-#pragma unroll
+        _Pragma("unroll")
         for (int r = 0; r < NR; ++r)
           for (int c = 0; c < 2; ++c) ts_sack[(s * NR + r) * 2 + c] = sack2[r][c];
       }
       if (p2) {
         ts_rcv[s] = rcv1;
-#pragma unroll
+        _Pragma("unroll")
         for (int r = 0; r < NR; ++r)
           for (int c = 0; c < 2; ++c) ts_ooo[(s * NR + r) * 2 + c] = ooo1[r][c];
         ts_dlv[s] += dlv_delta;
@@ -1058,7 +1209,7 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
         ts_pwnd[s] = peer_wnd1;
         ts_sin[s] += 1;
       }
-    }
+    )
     // the model's passive bookkeeping (pump_spec.apply), the same for
     // both: the client download byte counter
     if (is_client && take_tcp) bytes_down += dlv_delta;
@@ -1197,7 +1348,38 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
   // order (push_self_lanes: the l-th valid entry goes to the l-th free
   // slot); the free columns after the pops are those found in A and the
   // popped slots ----
-  if (f_head < f_cnt) {
+  if (WIDE && f_head < f_cnt) {
+    // a wide row: its free columns, in column order, from its `time` row
+    const int room = int(Q - qcount);
+    int rank = 0;
+    int32_t over = 0;
+    int64_t col = 0, head_new = TIME_MAX;
+    for (int k = f_head; k < f_cnt; ++k) {
+      const int64_t *fe = fifo + k * FIFO_WORDS;
+      const int64_t tk = fe[0];
+      if (tk >= TIME_MAX || rank >= room) {  // the free-slot marker is never pushed
+        ++over;
+        continue;
+      }
+      while (col < Q && q_time[h * Q + col] != TIME_MAX) ++col;
+      if (col == Q) {  // none: the count disagrees with the slots
+        ++over;
+        continue;
+      }
+      ++rank;
+      const int64_t at = h * Q + col++;
+      q_time[at] = tk;
+      q_tie[at] = fe[1];
+      P(int32_t, q_kind)[at] = int32_t(fe[2]);
+      for (int l = 0; l < LANES; ++l)
+        P(int32_t, q_data)[at * LANES + l] = reinterpret_cast<const int32_t *>(fe + 4)[l];
+      P(int32_t, q_aux)[at] = int32_t(fe[3]);
+      head_new = imin(head_new, tk);
+    }
+    qcount += rank;
+    if (over) P(int32_t, q_overflow)[h] += over;
+    qhead = imin(qhead, head_new);
+  } else if (f_head < f_cnt) {
     const int room = int(Q - qcount);
     const int nf = imin(w.n_free[lane], MAX_K);
     int rank = 0, prev = -1;
@@ -1272,22 +1454,31 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
   if (rejected) P(int32_t, rejected)[replica] = 1;
 }
 
+#undef SK
+#undef MATCHES
+#undef FOR_EACH_MATCH
 #undef P
 
 }  // namespace
 
 extern "C" {
 
-// Launch the instance of args->model on `stream` (PyTorch's current
-// stream); returns cudaGetLastError(), or cudaErrorInvalidValue for a
-// model or socket count no instance is built for.
+// Launch the instance of args->model (narrow, or wide when args->wide)
+// on `stream` (PyTorch's current stream); returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a model, pump_k or socket count no instance
+// is built for.
 int pump_megakernel_launch(const PumpArgs *args, void *stream) {
   const int64_t blocks = (args->H + ROWS_PER_WARP - 1) / ROWS_PER_WARP;
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (args->model == MODEL_TGEN && args->S <= max_sockets<MODEL_TGEN>())
-    pump_megakernel<MODEL_TGEN><<<blocks, WARP, 0, st>>>(*args);
-  else if (args->model == MODEL_ONION && args->S <= max_sockets<MODEL_ONION>())
-    pump_megakernel<MODEL_ONION><<<blocks, WARP, 0, st>>>(*args);
+  const bool narrow = !args->wide && args->pump_k <= MAX_K;
+  if (args->wide && args->model == MODEL_TGEN)
+    pump_megakernel<MODEL_TGEN, true><<<blocks, WARP, 0, st>>>(*args);
+  else if (args->wide && args->model == MODEL_ONION)
+    pump_megakernel<MODEL_ONION, true><<<blocks, WARP, 0, st>>>(*args);
+  else if (narrow && args->model == MODEL_TGEN && args->S <= max_sockets<MODEL_TGEN>())
+    pump_megakernel<MODEL_TGEN, false><<<blocks, WARP, 0, st>>>(*args);
+  else if (narrow && args->model == MODEL_ONION && args->S <= max_sockets<MODEL_ONION>())
+    pump_megakernel<MODEL_ONION, false><<<blocks, WARP, 0, st>>>(*args);
   else
     return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());

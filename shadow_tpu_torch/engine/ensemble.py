@@ -46,22 +46,27 @@ from shadow_tpu_torch import equeue, rng
 from shadow_tpu_torch.config.options import NotYetPorted
 from shadow_tpu_torch.engine.round import (
     PROBE_FIELDS,
+    ChunkProbe,
     _capacity_error,
     _next_window_end,
     _replace,
+    attach_capacity_bytes,
     bootstrap,
     check_capacity,
     run_round,
     state_probe,
+    tap_chunk,
     validate_runahead,
 )
 from shadow_tpu_torch.engine.state import (
     EngineConfig,
     SimState,
+    _grow,
     init_state,
     per_replica,
     rows_view,
     stacked_view,
+    state_to_host,
 )
 from shadow_tpu_torch.graph.routing import RoutingTables
 from shadow_tpu_torch.utils.tree import tree_map
@@ -69,7 +74,7 @@ from shadow_tpu_torch.utils.tree import tree_map
 _LANE = {name: i for i, name in enumerate(PROBE_FIELDS)}
 # probe lanes that aggregate across replicas by min or max; the rest sum
 _MIN_LANES = ("next_time", "now")
-_MAX_LANES = ("rounds_live", "rounds_idle")
+_MAX_LANES = ("rounds_live", "rounds_idle", "queue_hwm", "outbox_hwm", "exch_hwm")
 
 
 def ensemble_engine_cfg(cfg: EngineConfig) -> EngineConfig:
@@ -126,10 +131,23 @@ def replica_slice(st: SimState, r: int) -> SimState:
     return tree_map(lambda leaf: leaf[r], st)
 
 
-def _aggregate_probe(rows: np.ndarray) -> dict:
-    """The [R, lanes] probe as one probe dict for progress and heartbeat
-    lines: counters sum across replicas, next_time and now take the min
-    (progress follows the slowest replica), the round counters the max."""
+def grow_ensemble_state(
+    st: SimState,
+    queue_capacity: "int | None" = None,
+    outbox_capacity: "int | None" = None,
+) -> SimState:
+    """grow_state on every replica of a stacked [R, ...] state: the whole
+    batch's fixed-slot buffers widen together, keeping one shape.
+    Trajectory-neutral per replica for the same reason the single-world
+    grow is (engine/state.py)."""
+    return _grow(st, queue_capacity, outbox_capacity, axis=2)
+
+
+def _aggregate_probe(rows: np.ndarray) -> ChunkProbe:
+    """The [R, lanes] probe as one ChunkProbe for progress, heartbeat and
+    checkpoint-cadence consumers: counters sum across replicas,
+    next_time and now take the min (progress follows the slowest
+    replica), the round counters and high-water marks the max."""
     out = {}
     for name, i in _LANE.items():
         col = rows[:, i]
@@ -139,7 +157,7 @@ def _aggregate_probe(rows: np.ndarray) -> dict:
             out[name] = int(col.max())
         else:
             out[name] = int(col.sum())
-    return out
+    return ChunkProbe(**out)
 
 
 def _replica_capacity_error(rows: np.ndarray) -> Exception:
@@ -148,13 +166,42 @@ def _replica_capacity_error(rows: np.ndarray) -> Exception:
     bad = np.nonzero(rows[:, _LANE["overflow"]] > 0)[0]
     r = int(bad[0])
     row = rows[r]
-    err = _capacity_error(int(row[_LANE["queue_overflow"]]), int(row[_LANE["outbox_overflow"]]))
+    err = _capacity_error(
+        int(row[_LANE["overflow"]]),
+        queue_ov=int(row[_LANE["queue_overflow"]]),
+        outbox_ov=int(row[_LANE["outbox_overflow"]]),
+        queue_hwm=int(row[_LANE["queue_hwm"]]),
+        outbox_hwm=int(row[_LANE["outbox_hwm"]]),
+    )
     err.replica = r
     detail = f"replica {r} of {rows.shape[0]}"
     if bad.size > 1:
         detail += f" (+{bad.size - 1} more replica(s) saturated)"
     err.args = (f"{err.args[0]} [{detail}]",)
     return err
+
+
+def _patch_snapshot(host: "dict[str, np.ndarray]",
+                    final_rows: "dict[int, np.ndarray]") -> "dict[str, np.ndarray]":
+    """Rewrite a host (state_to_host) snapshot's `now` and round counters
+    for every replica already recorded quiescent, to the values of its
+    own quiescence chunk's probe line, the values _finish restores at the
+    end of the run. A replica that quiesces early keeps taking idle
+    rounds while slower replicas drain (touching exactly these leaves),
+    so an unpatched mid-run checkpoint would bake those idle rounds in
+    and a resumed run could never end leaf-exact to the uninterrupted
+    one. Replicas not (yet) in final_rows are already at their true
+    values and stay untouched."""
+    if not final_rows:
+        return host
+    out = dict(host)
+    for name, path in (("now", ".now"), ("rounds_live", ".tracker.rounds_live"),
+                       ("rounds_idle", ".tracker.rounds_idle")):
+        col = np.array(host[path], copy=True)
+        for r, row in final_rows.items():
+            col[r] = row[_LANE[name]]
+        out[path] = col
+    return out
 
 
 def _finish(out: SimState, final_rows: "dict[int, np.ndarray]") -> SimState:
@@ -190,6 +237,7 @@ def run_ensemble_until(
     on_chunk=None,
     counters=None,
     on_rows=None,
+    on_state=None,
 ) -> SimState:
     """Host-side ensemble driver: chunks of `rounds_per_chunk` rounds over
     the whole batch until no replica has work left before end_time. `st`
@@ -197,10 +245,13 @@ def run_ensemble_until(
     same shape, and the caller's state is never modified. Rounds group
     into chunks exactly as in run_until; in each round a replica with no
     work takes the idle branch (its `now` moves and it counts an idle
-    round) while the others drain. `on_chunk(probe: dict)` sees each
-    chunk's probe aggregated across replicas, `on_rows(rows)` the raw
-    [R, lanes] numpy probe; `counters` (a dict) accumulates "iters", the
-    batch's drain iterations."""
+    round) while the others drain. `on_chunk(probe: ChunkProbe)` sees
+    each chunk's probe aggregated across replicas, `on_rows(rows)` the
+    raw [R, lanes] numpy probe; `counters` (a dict) accumulates "iters",
+    the batch's drain iterations. `on_state` taps
+    chunk-boundary snapshots of the [R, ...] stack as run_until taps a
+    world's (the reference's _drive_ensemble), each patched by
+    _patch_snapshot."""
     cfg = ensemble_engine_cfg(cfg)
     if cfg.exchange == "segment":
         raise NotYetPorted("exchange: segment")
@@ -215,7 +266,8 @@ def run_ensemble_until(
     final_rows = {r: entry[r] for r in range(n) if int(entry[r, nt]) >= end_time}
     st = rows_view(st.clone())
     end_t = torch.tensor(end_time, dtype=torch.int64, device=st.device)
-    for _chunk in range(max_chunks):
+
+    def launch(st):
         for k in range(rounds_per_chunk):
             start = per_replica(st, equeue.next_time(st.queue)).amin(dim=1)
             has_traffic = per_replica(st, st.outbox.valid).any(dim=1)
@@ -239,19 +291,37 @@ def run_ensemble_until(
                     rounds_live=st.tracker.rounds_live + live.to(torch.int64),
                     rounds_idle=st.tracker.rounds_idle + (~live).to(torch.int64),
                 ))
+        return st
+
+    def snapshot(st):
+        return _patch_snapshot(state_to_host(stacked_view(st)), final_rows)
+
+    chunks = 0
+    pending = False  # a due snapshot of this chunk's state (see run_until)
+    while True:
+        st = launch(st)
+        chunks += 1
         rows = state_probe(st).cpu().numpy()
+        ahead = chunks < max_chunks
         if rows[:, _LANE["overflow"]].any():
-            raise _replica_capacity_error(rows)
+            err = _replica_capacity_error(rows)
+            attach_capacity_bytes(err, st)
+            raise err
         if on_rows is not None:
             on_rows(rows)
+        probe = _aggregate_probe(rows)
         if on_chunk is not None:
-            on_chunk(_aggregate_probe(rows))
+            on_chunk(probe)
         for r in range(n):
             if r not in final_rows and int(rows[r, nt]) >= end_time:
                 final_rows[r] = rows[r]
+        if on_state is not None:
+            pending = tap_chunk(on_state, probe, chunks - 1, st, launch, snapshot,
+                                pending, ahead)
         if len(final_rows) == n:
             return _finish(stacked_view(st), final_rows)
-    raise RuntimeError(
-        f"simulation did not reach end_time={end_time} within "
-        f"{max_chunks}x{rounds_per_chunk} rounds; raise max_chunks/rounds_per_chunk"
-    )
+        if chunks >= max_chunks:
+            raise RuntimeError(
+                f"simulation did not reach end_time={end_time} within "
+                f"{max_chunks}x{rounds_per_chunk} rounds; raise max_chunks/rounds_per_chunk"
+            )

@@ -10,8 +10,12 @@ the microsteps, updating the state in place. Its plain twin is
 engine/pump.py::pump_stage.
 
 The kernel carries the pump rules (`pump_spec.block` and `apply`) of
-the models that have them, tgen and onion, as one template instance
-each; `kernel_args` names the instance and refuses any other model.
+the models that have them, tgen and onion, as template instances: a
+narrow one each, which holds a row's list, defer FIFO and socket fields
+in shared memory sized at compile time (pump_k <= MAX_K, at most
+MAX_SOCKETS sockets per row), and a wide one each, which takes any
+pump_k and any socket count. `kernel_args` picks the instance (the
+narrow one wherever it fits) and refuses any other model.
 `megakernel_stage` dispatches on where the state lives: on the card it
 launches the kernel (or raises — there is no fallback), on the CPU it
 runs the twin. An ensemble's rows view (engine/state.py::rows_view) is
@@ -77,8 +81,8 @@ _FIELDS = (
                            "trk_bytes_data", "trk_retrans", "window_end", "min_used")]
     + [("rejected", _I32)]
     + [("host_id", _I32), ("rng_key", _I64), ("host_node", _I32), ("lat_ns", _I64),
-       ("rel", _F32), ("codel_table", _I64)]
-    + [(n, None) for n in ("H", "Q", "O", "S", "R", "N", "num_global_hosts", "pump_k",
+       ("rel", _F32), ("codel_table", _I64), ("fifo", _I64)]
+    + [(n, None) for n in ("H", "Q", "O", "S", "R", "N", "num_global_hosts", "pump_k", "wide",
                            "rows_per_replica", "bootstrap_end_ns", "use_netstack",
                            "use_sack", "tracker", "dyn_runahead", "model", "num_clients", "num_servers",
                            "req_bytes", "num_relays", "resp_span",
@@ -91,15 +95,22 @@ _FIELDS = (
 # The kernel's compile-time layout, as csrc/pump_megakernel.cu declares
 # it: host rows per warp, queue slots a row stages in shared memory, and
 # the one TCP shape (out-of-order ranges, segments per flush) it is built
-# for. tests/test_torch_megakernel.py holds these in step with the source.
+# for; the list entries a narrow instance holds (its pump_k limit, and a
+# wide instance's entries per pass) and the int64 words of a wide
+# instance's defer-FIFO entry. tests/test_torch_megakernel.py holds these
+# in step with the source.
 ROWS_PER_WARP = 8
 STAGE = 32
 TCP_SHAPE = (4, 4)
-# The models whose pump rules the kernel carries, each a template
-# instance: its id in PumpArgs.model and the sockets per host row it is
+MAX_K = 16
+FIFO_WORDS = 8
+# The models whose pump rules the kernel carries: its id in
+# PumpArgs.model and the sockets per host row its narrow instance is
 # built for (the source's MODEL_* and *_MAX_S).
 MODEL_IDS = {"tgen": 0, "onion": 1}
 MAX_SOCKETS = {"tgen": 8, "onion": 32}
+# every template instance, by name: "<model>" (narrow), "<model>_wide"
+INSTANCES = tuple(MODEL_IDS) + tuple(f"{m}_wide" for m in MODEL_IDS)
 _MODEL_NAMES = {v: k for k, v in MODEL_IDS.items()}
 
 
@@ -113,11 +124,11 @@ class PumpArgs(ctypes.Structure):
 class PumpMegakernel:
     """The built kernel and its launch counters. `launches` counts kernel
     launches only (the CPU twin does not count); `launches_by_model`
-    splits them by the model instance launched."""
+    splits them by the template instance launched (INSTANCES)."""
 
     def __init__(self):
         self.launches = 0
-        self.launches_by_model = dict.fromkeys(MODEL_IDS, 0)
+        self.launches_by_model = dict.fromkeys(INSTANCES, 0)
         self.build_seconds = None
         self.build_log = ""
         self._lib = None
@@ -178,7 +189,8 @@ class PumpMegakernel:
         if err != 0:
             raise RuntimeError(f"pump megakernel launch failed: CUDA error {err}")
         self.launches += 1
-        self.launches_by_model[_MODEL_NAMES[args.model]] += 1
+        name = _MODEL_NAMES[args.model]
+        self.launches_by_model[f"{name}_wide" if args.wide else name] += 1
 
 
 PUMP_KERNEL = PumpMegakernel()
@@ -197,14 +209,24 @@ def kernel_model(model) -> str:
     raise NotYetPorted(f"the pump megakernel for model {type(model).__name__}")
 
 
+def kernel_instance(model, cfg: EngineConfig) -> str:
+    """The template instance a launch for `model` at cfg.pump_k runs: the
+    model's narrow instance where its list and sockets fit, else its wide
+    one (INSTANCES)."""
+    name = kernel_model(model)
+    narrow = cfg.pump_k <= MAX_K and model.tcp_params.num_sockets <= MAX_SOCKETS[name]
+    return name if narrow else f"{name}_wide"
+
+
 def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTables,
                 cfg: EngineConfig, rejected: torch.Tensor, codel_table: torch.Tensor):
     """The kernel's argument struct for `st` (one world, or an ensemble's
     rows view, whose window_end and min_used are [R] and rejected [R]),
     after checking device, dtype, shape and contiguity of every tensor it
-    points at. Returns (args, tensors): keep `tensors` alive until the
-    launch is enqueued."""
+    points at. A wide instance gets its defer-FIFO scratch here. Returns
+    (args, tensors): keep `tensors` alive until the launch is enqueued."""
     instance = kernel_model(model)
+    wide = kernel_instance(model, cfg) != instance
     p = model.tcp_params
     q, ob, net, ts, tr = st.queue, st.outbox, st.net, st.model.tcp, st.tracker
     h, cap = q.time.shape
@@ -218,10 +240,6 @@ def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTa
         raise NotYetPorted(
             f"the pump megakernel for TCP with {r} out-of-order ranges and "
             f"{p.segs_per_flush} segments per flush (it is built for {TCP_SHAPE})")
-    if not (cfg.pump_k <= 16 and s <= MAX_SOCKETS[instance]):
-        raise ValueError(
-            f"pump megakernel supports pump_k <= 16 and, for {instance}, at most "
-            f"{MAX_SOCKETS[instance]} sockets per host (got pump_k {cfg.pump_k}, {s} sockets)")
     n = tables.lat_ns.shape[0]
     g = tables.host_node.shape[0]
     shapes = {
@@ -231,6 +249,7 @@ def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTa
         "ob_data": (h, o, 8), "ob_aux": (h, o), "rng_key": (h, 2), "window_end": world,
         "min_used": world, "rejected": (replicas or 1,), "host_node": (g,), "lat_ns": (n, n),
         "rel": (n, n), "codel_table": (1025,),
+        "fifo": (h, cfg.pump_k, FIFO_WORDS) if wide else (0,),
     }
     tcp_names = {f.name for f in dataclasses.fields(ts)}
     tensors = {
@@ -258,6 +277,8 @@ def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTa
         "window_end": window_end, "min_used": st.min_used_lat, "rejected": rejected,
         "host_id": st.host_id, "rng_key": st.rng_key, "host_node": tables.host_node,
         "lat_ns": tables.lat_ns, "rel": tables.rel, "codel_table": codel_table,
+        "fifo": torch.empty(
+            (h, cfg.pump_k, FIFO_WORDS) if wide else (0,), dtype=torch.int64, device=st.device),
     }
     args = PumpArgs()
     dev = st.device
@@ -276,7 +297,7 @@ def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTa
             )
         setattr(args, name, t.data_ptr())
     scalars = dict(
-        H=h, Q=cap, O=o, S=s, R=r, N=n, num_global_hosts=g, pump_k=cfg.pump_k,
+        H=h, Q=cap, O=o, S=s, R=r, N=n, num_global_hosts=g, pump_k=cfg.pump_k, wide=int(wide),
         rows_per_replica=h // (replicas or 1), bootstrap_end_ns=cfg.bootstrap_end_ns,
         use_netstack=int(cfg.use_netstack),
         use_sack=int(p.use_sack), tracker=int(cfg.tracker),

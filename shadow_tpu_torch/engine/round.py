@@ -509,19 +509,23 @@ def validate_runahead(cfg: EngineConfig, tables: RoutingTables) -> None:
 PROBE_FIELDS = (
     "next_time", "overflow", "now", "events_handled", "packets_sent",
     "queue_overflow", "outbox_overflow", "rounds_live", "rounds_idle",
+    "queue_hwm", "outbox_hwm", "exch_hwm",
 )
 
 
 def state_probe(st: SimState) -> torch.Tensor:
-    """[9] i64 summary the chunk loop reads (one fetch per chunk): min
-    pending time, total/queue/outbox overflow, now, events, packets and
-    the round counters. An ensemble state (stacked or rows view) gives
-    [R, 9], one line per replica."""
+    """[12] i64 summary the chunk loop reads (one fetch per chunk): min
+    pending time, total/queue/outbox overflow, now, events, packets, the
+    round counters and the tracker's queue, outbox and exchange
+    high-water marks (0 without cfg.tracker), which a capacity error
+    reports. An ensemble state (stacked or rows view) gives [R, 12], one
+    line per replica."""
     single = replicas_of(st) is None
 
     def red(x, fn):
         return fn(x) if single else fn(per_replica(st, x), dim=1)
 
+    tr = st.tracker
     qov = red(st.queue.overflow, torch.sum).to(torch.int64)
     oov = red(st.outbox.overflow, torch.sum).to(torch.int64)
     return torch.stack(
@@ -533,45 +537,223 @@ def state_probe(st: SimState) -> torch.Tensor:
             red(st.packets_sent, torch.sum),
             qov,
             oov,
-            st.tracker.rounds_live,
-            st.tracker.rounds_idle,
+            tr.rounds_live,
+            tr.rounds_idle,
+            red(tr.queue_hwm, torch.amax).to(torch.int64),
+            red(tr.outbox_hwm, torch.amax).to(torch.int64),
+            red(tr.exch_hwm, torch.amax).to(torch.int64),
         ],
         dim=-1,
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class ChunkProbe:
+    """Host-side view of one fetched probe (plain ints), one field per
+    PROBE_FIELDS lane. This is what `on_chunk` callbacks and the state
+    tap (runtime/checkpoint.py StateTap) receive: progress, heartbeat and
+    checkpoint cadence read these fields instead of syncing on the
+    state."""
+
+    next_time: int
+    overflow: int
+    now: int
+    events_handled: int
+    packets_sent: int
+    queue_overflow: int
+    outbox_overflow: int
+    rounds_live: int
+    rounds_idle: int
+    queue_hwm: int
+    outbox_hwm: int
+    exch_hwm: int
+
+    @classmethod
+    def from_array(cls, arr) -> "ChunkProbe":
+        return cls(*(int(x) for x in arr))
+
+
 class CapacityError(RuntimeError):
-    """Fixed-slot capacity exhausted — user-remediable via config."""
+    """Fixed-slot capacity exhausted — user-remediable via config, or
+    recoverable in place via rollback-and-regrow (runtime/recovery.py).
+    Instances carry the overflow split as attributes so recovery can
+    target the saturated buffer without parsing the message:
+    queue_overflow / outbox_overflow / queue_hwm / outbox_hwm (ints, 0
+    when unknown), the saturated buffers' bytes now and after a x2
+    regrow, and, on an ensemble, the replica whose probe line carried the
+    overflow.
+
+    The top destination hosts (`shard_detail`, capacity_topk) are those
+    of the state the reference's pipelined chunk loop has in flight, one
+    chunk past the failing one; the port's chunk loop runs that chunk
+    only when the message or the detail is first read (`detail_of`), so
+    a recovery, which reads neither, does not pay for it."""
 
     queue_overflow: int = 0
     outbox_overflow: int = 0
+    queue_hwm: int = 0
+    outbox_hwm: int = 0
+    bytes_current: int = 0
+    bytes_regrown: int = 0
+    exchange_hwm: int = 0
+    replica: "int | None" = None
+    _shard_detail: "str | None" = None
+    # a callable giving the detail line, run once on the first read
+    detail_of = None
+
+    def _resolve_detail(self) -> None:
+        fn, self.detail_of = self.detail_of, None
+        if fn is None:
+            return
+        try:
+            detail = fn()
+        except Exception:  # noqa: BLE001 — diagnostics must not mask the error
+            return
+        if detail:
+            self._shard_detail = detail
+            self.args = (f"{self.args[0]}\n{detail}",) + self.args[1:]
+
+    @property
+    def shard_detail(self) -> "str | None":
+        self._resolve_detail()
+        return self._shard_detail
+
+    def __str__(self) -> str:
+        self._resolve_detail()
+        return super().__str__()
 
 
-def _capacity_error(queue_ov: int, outbox_ov: int) -> CapacityError:
-    sat = [n for n, v in (("queue", queue_ov), ("outbox/exchange", outbox_ov)) if v]
+class RunInterrupted(RuntimeError):
+    """The run was stopped by SIGINT/SIGTERM (runtime/checkpoint.py
+    InterruptGuard): the chunk loop committed a final checkpoint (when one
+    could be verified clean) before raising. The partial state is not
+    returned; resume from the checkpoint instead."""
+
+
+def _capacity_error(
+    dropped: int,
+    queue_ov: "int | None" = None,
+    outbox_ov: "int | None" = None,
+    queue_hwm: "int | None" = None,
+    outbox_hwm: "int | None" = None,
+    exch_hwm: "int | None" = None,
+) -> CapacityError:
+    """The reference's capacity error: the split names which fixed-slot
+    counter saturated; the high-water marks (tracker plane, nonzero only
+    with cfg.tracker) say how close to the rim the other one ran, and
+    the exchange high-water the pool occupancy an exchange-side drop was
+    up against."""
+    if queue_ov is None:
+        which = "queue.overflow/outbox.overflow"
+    else:
+        sat = [
+            name
+            for name, n in (("queue", queue_ov), ("outbox/exchange", outbox_ov))
+            if n
+        ]
+        which = (
+            f"saturated: {' + '.join(sat) or 'unknown'} "
+            f"[queue.overflow={queue_ov}, outbox.overflow={outbox_ov}"
+        )
+        if queue_hwm or outbox_hwm:
+            which += f"; high-water queue={queue_hwm}, outbox={outbox_hwm}"
+        if exch_hwm:
+            which += f"; exchange pool occupancy hwm={exch_hwm} events/round"
+        which += "]"
     err = CapacityError(
-        f"event capacity exhausted: {queue_ov + outbox_ov} events/packets dropped "
-        f"(saturated: {' + '.join(sat)} [queue.overflow={queue_ov}, "
-        f"outbox.overflow={outbox_ov}]); increase queue_capacity/outbox_capacity"
+        f"event capacity exhausted: {dropped} events/packets dropped "
+        f"({which}); increase queue_capacity/"
+        f"outbox_capacity — or, for sharded all_to_all runs with "
+        f"pair-skewed destinations, set a2a_capacity=-1 (whole-outbox "
+        f"buckets, never overflow); segment-exchange runs "
+        f"(exchange='segment') raise the pool with pool_capacity "
+        f"(0 = whole outbox, never truncates)"
     )
-    err.queue_overflow, err.outbox_overflow = queue_ov, outbox_ov
+    err.queue_overflow = int(queue_ov or 0)
+    err.outbox_overflow = int(outbox_ov or 0)
+    err.queue_hwm = int(queue_hwm or 0)
+    err.outbox_hwm = int(outbox_hwm or 0)
+    err.exchange_hwm = int(exch_hwm or 0)
     return err
+
+
+def _probe_capacity_error(probe: ChunkProbe) -> CapacityError:
+    return _capacity_error(
+        probe.overflow, queue_ov=probe.queue_overflow, outbox_ov=probe.outbox_overflow,
+        queue_hwm=probe.queue_hwm, outbox_hwm=probe.outbox_hwm, exch_hwm=probe.exch_hwm,
+    )
+
+
+def attach_capacity_bytes(err: CapacityError, st) -> None:
+    """Price the saturated buffer(s) now and after the x2 regrow recovery
+    would apply, from the live state's shapes (no device sync), and
+    render the figures next to the high-water marks. Best-effort:
+    diagnostics never mask the error. Works on single and ensemble
+    states alike (the capacity axis is keyed off the per-host counters'
+    rank)."""
+    from shadow_tpu_torch.engine.state import buffer_nbytes, fmt_bytes
+
+    try:
+        cur = grown = 0
+        for sub, counts, saturated in (
+            (st.queue, st.queue.count, err.queue_overflow),
+            (st.outbox, st.outbox.fill, err.outbox_overflow),
+        ):
+            if not saturated:
+                continue
+            base = counts.dim()
+            cur += buffer_nbytes(sub, base)
+            grown += buffer_nbytes(sub, base, scale=2.0)
+        if not cur:
+            return
+        err.bytes_current = int(cur)
+        err.bytes_regrown = int(grown)
+        err.args = (
+            f"{err.args[0]}\n  saturated buffer bytes: {fmt_bytes(cur)} now, "
+            f"{fmt_bytes(grown)} after the x2 regrow",
+        ) + err.args[1:]
+    except Exception:  # noqa: BLE001 — diagnostics must not mask the error
+        pass
+
+
+def capacity_topk(st: SimState, k: int = 5) -> str:
+    """Failure-path diagnostic: the top-k destination hosts by landed
+    events (queue occupancy / overflow / high-water), one bulk fetch of
+    the [H] counters, naming where the landing side saturated."""
+    cnt, ov, hwm, hid = (
+        t.detach().cpu().numpy()
+        for t in (st.queue.count, st.queue.overflow, st.tracker.queue_hwm, st.host_id)
+    )
+    score = ov.astype(np.int64) * 1_000_000 + np.maximum(
+        hwm.astype(np.int64), cnt.astype(np.int64)
+    )
+    order = np.argsort(-score, kind="stable")[:k]
+    rows = [
+        f"host {int(hid[i])} (count={int(cnt[i])}, overflow={int(ov[i])}, "
+        f"hwm={int(hwm[i])})"
+        for i in order
+        if score[i] > 0
+    ]
+    if not rows:
+        return ""
+    return "top destination hosts by landed events: " + "; ".join(rows)
 
 
 def check_capacity(st: SimState) -> None:
     """Fail loudly if fixed-slot capacity was exhausted (on an ensemble,
     naming the first replica that exhausted it)."""
+    rows = state_probe(st).cpu().numpy()
     if replicas_of(st) is not None:
-        rows = state_probe(st).cpu().numpy()
         if rows[:, PROBE_FIELDS.index("overflow")].any():
             from shadow_tpu_torch.engine.ensemble import _replica_capacity_error
 
             raise _replica_capacity_error(rows)
         return
-    qov = int(st.queue.overflow.sum())
-    oov = int(st.outbox.overflow.sum())
-    if qov or oov:
-        raise _capacity_error(qov, oov)
+    probe = ChunkProbe.from_array(rows)
+    if probe.overflow:
+        err = _probe_capacity_error(probe)
+        attach_capacity_bytes(err, st)
+        raise err
 
 
 def host_stats(st: SimState) -> dict:
@@ -605,6 +787,67 @@ def host_stats(st: SimState) -> dict:
     return {k: np.asarray(v.detach().cpu().numpy()) for k, v in fields.items()}
 
 
+def _run_chunk(st: SimState, end_time: int, model, tables: RoutingTables, cfg: EngineConfig,
+               rounds_per_chunk: int, counters=None) -> SimState:
+    """`rounds_per_chunk` rounds of the chunk loop: each picks its window
+    and drains it; once no host has work before end_time and no packet
+    is staged, this and every later round of the chunk take the idle
+    branch (only `now` and the idle-round counter move)."""
+    end_t = torch.tensor(end_time, dtype=torch.int64, device=st.device)
+    for r in range(rounds_per_chunk):
+        start = equeue.next_time(st.queue).amin()
+        has_traffic = st.outbox.valid.any()
+        window_end = _next_window_end(st, end_time, cfg, start, tables)
+        live = bool(((start < end_t) | has_traffic).item())
+        if not live:
+            idle = rounds_per_chunk - r
+            st = _replace(st, now=torch.maximum(st.now, window_end))
+            if cfg.tracker:
+                st = _replace(
+                    st,
+                    tracker=_replace(st.tracker, rounds_idle=st.tracker.rounds_idle + idle),
+                )
+            break
+        width = window_end - torch.minimum(start, window_end)
+        st = _replace(st, win_ns_sum=st.win_ns_sum + width)
+        st = run_round(st, window_end, model, tables, cfg, counters)
+        if cfg.tracker:
+            st = _replace(
+                st,
+                tracker=_replace(st.tracker, rounds_live=st.tracker.rounds_live + 1),
+            )
+    return st
+
+
+def tap_chunk(on_state, probe: ChunkProbe, chunk: int, st, launch, snapshot,
+              pending: bool, ahead: bool) -> bool:
+    """One chunk boundary of a chunk loop's state tap (run_until,
+    run_ensemble_until), after `probe` passed its overflow check: commit
+    the snapshot left pending at the last boundary (this chunk's state,
+    now verified), then ask `on_state` whether a snapshot is due or an
+    interrupt came. With the reference's next chunk in flight (`ahead`),
+    a due snapshot is that chunk's and waits for its probe (the returned
+    pending flag); on an interrupt no probe will verify it, so its own
+    overflow counters decide whether it is committed before
+    RunInterrupted. `snapshot(st)` makes the host copy."""
+    if pending:
+        on_state.commit(snapshot(st))
+        pending = False
+    interrupted = on_state.interrupted()
+    if on_state.due(probe, chunk) or interrupted:
+        if not ahead:
+            on_state.commit(snapshot(st))
+        elif interrupted:
+            host = snapshot(launch(st))
+            if not (host[".queue.overflow"].any() or host[".outbox.overflow"].any()):
+                on_state.commit(host)
+        else:
+            pending = True
+    if interrupted:
+        raise RunInterrupted(f"run interrupted at sim time {probe.now} ns")
+    return pending
+
+
 def run_until(
     st: SimState,
     end_time: int,
@@ -615,14 +858,32 @@ def run_until(
     max_chunks: int = 10_000,
     on_chunk=None,
     counters=None,
+    on_state=None,
 ) -> SimState:
     """Host-side driver: chunks of `rounds_per_chunk` rounds until no work
     remains before end_time. The caller's state is never modified (the
     run works on a private copy). Rounds are grouped into chunks exactly
     as in the reference, whose probe is read once per chunk, because a
     chunk's trailing idle rounds are visible in `now` and the tracker's
-    round counters. `on_chunk(probe: dict)` sees each chunk's probe;
-    `counters` (a dict) accumulates "iters"."""
+    round counters. `on_chunk(probe: ChunkProbe)` sees each chunk's
+    probe; `counters` (a dict) accumulates "iters".
+
+    `on_state` (runtime/checkpoint.py StateTap) taps chunk-boundary
+    states for checkpoints, recovery snapshots and interrupts, as the
+    reference's `_drive` does: `due(probe, chunk)` decides from the
+    probe, `commit(host)` receives a snapshot (state_to_host) that a
+    probe has verified free of overflow, `interrupted()` asks for a stop
+    (a final snapshot is committed, then RunInterrupted). The
+    reference's pipelined chunk loop (`_drive`) launches the next chunk
+    before it reads a probe, so the state it snapshots at a probe, and
+    the state whose hosts a capacity error names (capacity_topk), is the
+    next chunk's; a due snapshot waits for that chunk's own probe. This
+    loop runs chunks one at a time and takes those same states: the next
+    chunk's state once its probe passed, and one chunk more on the error
+    and interrupt paths (the error's only when its text is read). So
+    checkpoints and error texts equal the reference's."""
+    from shadow_tpu_torch.engine.state import state_to_host
+
     if cfg.exchange == "segment":
         raise NotYetPorted("exchange: segment")
     validate_runahead(cfg, tables)
@@ -630,42 +891,32 @@ def run_until(
         check_capacity(st)
         return st
     st = st.clone()
-    end_t = torch.tensor(end_time, dtype=torch.int64, device=st.device)
-    for _chunk in range(max_chunks):
-        for r in range(rounds_per_chunk):
-            start = equeue.next_time(st.queue).amin()
-            has_traffic = st.outbox.valid.any()
-            window_end = _next_window_end(st, end_time, cfg, start, tables)
-            live = bool(((start < end_t) | has_traffic).item())
-            if not live:
-                # quiescent: this and every later round of the chunk take
-                # the idle branch with the same window end
-                idle = rounds_per_chunk - r
-                st = _replace(st, now=torch.maximum(st.now, window_end))
-                if cfg.tracker:
-                    st = _replace(
-                        st,
-                        tracker=_replace(
-                            st.tracker, rounds_idle=st.tracker.rounds_idle + idle
-                        ),
-                    )
-                break
-            width = window_end - torch.minimum(start, window_end)
-            st = _replace(st, win_ns_sum=st.win_ns_sum + width)
-            st = run_round(st, window_end, model, tables, cfg, counters)
-            if cfg.tracker:
-                st = _replace(
-                    st,
-                    tracker=_replace(st.tracker, rounds_live=st.tracker.rounds_live + 1),
-                )
-        probe = dict(zip(PROBE_FIELDS, state_probe(st).tolist()))
-        if probe["overflow"]:
-            raise _capacity_error(probe["queue_overflow"], probe["outbox_overflow"])
+
+    def launch(s):
+        return _run_chunk(s, end_time, model, tables, cfg, rounds_per_chunk, counters)
+
+    chunks = 0
+    pending = False  # a due snapshot of this chunk's state, verified by its probe
+    while True:
+        st = launch(st)
+        chunks += 1
+        probe = ChunkProbe.from_array(state_probe(st).tolist())
+        # the reference's chunk loop has the next chunk in flight at this probe
+        ahead = chunks < max_chunks
+        if probe.overflow:
+            err = _probe_capacity_error(probe)
+            attach_capacity_bytes(err, st)  # shapes only: the next chunk's are the same
+            err.detail_of = lambda s=st: capacity_topk(launch(s) if ahead else s)
+            raise err
         if on_chunk is not None:
             on_chunk(probe)
-        if probe["next_time"] >= end_time:
+        if on_state is not None:
+            pending = tap_chunk(on_state, probe, chunks - 1, st, launch, state_to_host,
+                                pending, ahead)
+        if probe.next_time >= end_time:
             return st
-    raise RuntimeError(
-        f"simulation did not reach end_time={end_time} within "
-        f"{max_chunks}x{rounds_per_chunk} rounds; raise max_chunks/rounds_per_chunk"
-    )
+        if chunks >= max_chunks:
+            raise RuntimeError(
+                f"simulation did not reach end_time={end_time} within "
+                f"{max_chunks}x{rounds_per_chunk} rounds; raise max_chunks/rounds_per_chunk"
+            )

@@ -421,3 +421,159 @@ def leaf_nbytes(leaf) -> int:
 def tree_nbytes(tree) -> int:
     """Sum of leaf_nbytes over a state (or any sub-tree of one)."""
     return sum(leaf_nbytes(leaf) for _, leaf in tree_leaves_with_path(tree))
+
+
+def snapshot_nbytes(tree) -> int:
+    """Bytes of a state (or any sub-tree of one) in its host snapshot's
+    layout, state_to_host's: u32 leaves at 4 bytes, every other leaf at
+    its tensor's width. This is the reference's pricing of the same
+    state (its u32 leaves are 4 bytes on the device too)."""
+    total = 0
+    for path, leaf in tree_leaves_with_path(tree):
+        width = 4 if path in _U32_LEAVES else leaf.element_size()
+        total += int(leaf.numel()) * width
+    return total
+
+
+def buffer_nbytes(sub, base_ndim: int, scale: float = 1.0) -> int:
+    """Priced bytes of a capacity-indexed buffer sub-tree (queue/outbox).
+    Leaves with more axes than `base_ndim` (the rank of the per-host
+    counters, e.g. queue.count) carry the capacity axis and scale
+    linearly with it, so scale=new/old projects a regrow without
+    allocating."""
+    total = 0
+    for _, leaf in tree_leaves_with_path(sub):
+        b = leaf_nbytes(leaf)
+        if scale != 1.0 and leaf.dim() > base_ndim:
+            b = int(b * scale)
+        total += b
+    return int(total)
+
+
+def price_regrow(st, queue_capacity=None, outbox_capacity=None) -> int:
+    """Projected snapshot_nbytes of `st` after grow_state (or
+    grow_ensemble_state) to the given capacities, priced from the current
+    shapes without allocating: the capacity axis scales every
+    [.., C(, lanes)] grid linearly and nothing else."""
+    q, ob = st.queue, st.outbox
+    total = snapshot_nbytes(st)
+    if queue_capacity is not None:
+        old = int(q.time.shape[-1])
+        if queue_capacity != old:
+            base = q.count.dim()
+            total += buffer_nbytes(q, base, queue_capacity / old) - buffer_nbytes(q, base)
+    if outbox_capacity is not None:
+        old = int(ob.valid.shape[-1])
+        if outbox_capacity != old:
+            base = ob.fill.dim()
+            total += buffer_nbytes(ob, base, outbox_capacity / old) - buffer_nbytes(ob, base)
+    return int(total)
+
+
+def fmt_bytes(n: "int | float") -> str:
+    """Human-readable bytes for error messages."""
+    n = float(n)
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if abs(n) < 1024 or unit == "GiB":
+            return f"{n:.0f} {unit}" if unit == "B" else f"{n:.2f} {unit}"
+        n /= 1024
+    return f"{n:.2f} GiB"
+
+
+def _grow(st: SimState, queue_capacity, outbox_capacity, axis: int) -> SimState:
+    """grow_state along capacity axis `axis` (1 for one world's [H, C]
+    buffers, 2 for an ensemble's [R, H, C])."""
+    from shadow_tpu_torch.events import KIND_INVALID
+
+    def pad(a, extra, fill):
+        shape = list(a.shape)
+        shape[axis] = extra
+        return torch.cat([a, torch.full(shape, fill, dtype=a.dtype, device=a.device)], dim=axis)
+
+    q = st.queue
+    cap = q.time.shape[axis]
+    if queue_capacity is not None and queue_capacity != cap:
+        if queue_capacity < cap:
+            raise ValueError("grow_state cannot shrink queue_capacity")
+        extra = queue_capacity - cap
+        q = dataclasses.replace(
+            q,
+            time=pad(q.time, extra, TIME_MAX),
+            tie=pad(q.tie, extra, equeue.I64_MAX),
+            kind=pad(q.kind, extra, KIND_INVALID),
+            data=pad(q.data, extra, 0),
+            aux=pad(q.aux, extra, 0),
+        )
+    ob = st.outbox
+    o_cap = ob.valid.shape[axis]
+    if outbox_capacity is not None and outbox_capacity != o_cap:
+        if outbox_capacity < o_cap:
+            raise ValueError("grow_state cannot shrink outbox_capacity")
+        extra = outbox_capacity - o_cap
+        ob = dataclasses.replace(
+            ob,
+            valid=pad(ob.valid, extra, False),
+            dst=pad(ob.dst, extra, 0),
+            time=pad(ob.time, extra, TIME_MAX),
+            tie=pad(ob.tie, extra, 0),
+            data=pad(ob.data, extra, 0),
+            aux=pad(ob.aux, extra, 0),
+        )
+    return dataclasses.replace(st, queue=q, outbox=ob)
+
+
+def grow_state(
+    st: SimState,
+    queue_capacity: "int | None" = None,
+    outbox_capacity: "int | None" = None,
+) -> SimState:
+    """Widen the fixed-slot buffers of a state in place of a fresh init:
+    existing slots keep their contents (including tombstone garbage,
+    identical on matched trajectories, so leaf-exactness survives), new
+    slots get the canonical empty fill values of equeue.create /
+    _empty_outbox. Growing is trajectory-neutral for a state that never
+    overflowed: a run continued from the grown state is leaf-exact to one
+    that started with the larger capacity, which is what makes
+    rollback-and-regrow recovery deterministic. Shrinking is refused: it
+    could drop live slots."""
+    return _grow(st, queue_capacity, outbox_capacity, axis=1)
+
+
+def state_to_host(st: SimState) -> "dict[str, np.ndarray]":
+    """The host snapshot of a state: {reference leaf path: numpy array}
+    in the reference's leaf order and dtypes (state_to_numpy), each array
+    owning its memory, so that later writes to the state's tensors (the
+    kernel updates them in place) cannot change it. Shared by checkpoint
+    files (runtime/checkpoint.py) and the rollback point of capacity
+    recovery (runtime/recovery.py). Invert with state_from_host."""
+    return {k: np.array(v, copy=True) for k, v in state_to_numpy(st).items()}
+
+
+def state_from_host(host: "dict[str, np.ndarray]", like: SimState) -> SimState:
+    """Rebuild a state on `like`'s device from a state_to_host snapshot.
+    `like` is the template (a state of the same world and config): every
+    leaf must have its shape, and takes its dtype; a shape drift means
+    the snapshot belongs to a different world or config."""
+
+    def build(node, prefix):
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            return dataclasses.replace(node, **{
+                f.name: build(getattr(node, f.name), f"{prefix}.{f.name}")
+                for f in dataclasses.fields(node)
+            })
+        if node is None:
+            return None
+        if prefix not in host:
+            raise ValueError(
+                f"snapshot has no leaf {prefix}; it was taken for a different world/config")
+        a = np.asarray(host[prefix])
+        if tuple(a.shape) != tuple(node.shape):
+            raise ValueError(
+                f"snapshot leaf shape {tuple(a.shape)} != template {tuple(node.shape)}; "
+                "the snapshot was taken for a different world/config"
+            )
+        if prefix in _U32_LEAVES:
+            a = a.astype(np.int64)
+        return torch.from_numpy(np.array(a, order="C")).to(device=node.device, dtype=node.dtype)
+
+    return build(like, "")

@@ -7,8 +7,9 @@ same run() surface as TpuScheduler. ensemble_stats folds the final state
 into sim-stats.json's `ensemble` section: one block per replica and
 mean/stddev/min/max/95% CI across replicas.
 
-Not carried yet: the reference runner's checkpoint, recovery and
-compile-cache seams, and flatten_host_stats (it feeds the host-side
+run() carries the reference runner's checkpoint, interrupt and recovery
+seams (a regrow widens the whole batch). Not carried yet: its
+compile-cache seam, and flatten_host_stats (it feeds the host-side
 tracker fold, which the port does not have yet).
 """
 
@@ -21,6 +22,7 @@ import numpy as np
 from shadow_tpu_torch.device import resolve_device
 from shadow_tpu_torch.engine.ensemble import (
     ensemble_engine_cfg,
+    grow_ensemble_state,
     init_ensemble_state,
     num_replicas,
     replica_seeds,
@@ -64,7 +66,8 @@ class EnsembleRunner:
         return replica_seeds(self.cfg, self.num_replicas, self.seed_stride)
 
     def initial_state(self):
-        """The bootstrapped [R, ...] t=0 stack."""
+        """The bootstrapped [R, ...] t=0 stack: also the template a resume
+        loads a checkpoint into (same config, same shapes)."""
         return init_ensemble_state(
             self.cfg, self.model, self.num_replicas, self.seed_stride,
             tx_bytes_per_interval=self.tx_bytes_per_interval,
@@ -72,14 +75,40 @@ class EnsembleRunner:
             device=self.device,
         )
 
-    def run(self, end_time_ns: int, on_chunk=None, max_chunks: int = 100_000):
+    def _runner_factory(self, end_time_ns: int, on_chunk, max_chunks):
+        def factory(cfg):
+            def run(st, on_state=None):
+                return run_ensemble_until(
+                    st, end_time_ns, self.model, self.tables, cfg,
+                    rounds_per_chunk=self.rounds_per_chunk, max_chunks=max_chunks,
+                    on_chunk=on_chunk, on_rows=self.on_rows, on_state=on_state,
+                )
+
+            return run
+
+        return factory
+
+    def run(self, end_time_ns: int, on_chunk=None, max_chunks: int = 100_000,
+            start_state=None, checkpoints=None, guard=None, recovery=None):
         """Run the whole batch to end_time_ns (the driver stops when the
-        slowest replica quiesces)."""
-        return run_ensemble_until(
-            self.initial_state(), end_time_ns, self.model, self.tables, self.cfg,
-            rounds_per_chunk=self.rounds_per_chunk, max_chunks=max_chunks,
-            on_chunk=on_chunk, on_rows=self.on_rows,
-        )
+        slowest replica quiesces). Mirrors TpuScheduler.run, with the
+        regrow step on the whole [R, ...] batch (grow_ensemble_state)."""
+        from shadow_tpu_torch.runtime.recovery import RecoveryPolicy, run_until_recovering
+
+        st = start_state if start_state is not None else self.initial_state()
+        self.recovery_report = []
+        try:
+            final, self.recovery_report = run_until_recovering(
+                st, end_time_ns, cfg=self.cfg,
+                policy=recovery or RecoveryPolicy(max_recoveries=0),
+                checkpoints=checkpoints, guard=guard,
+                runner_factory=self._runner_factory(end_time_ns, on_chunk, max_chunks),
+                grow_fn=grow_ensemble_state,
+            )
+        except Exception as err:
+            self.recovery_report = list(getattr(err, "recoveries", []))
+            raise
+        return final
 
 
 def _agg(values) -> dict:

@@ -11,6 +11,7 @@ raise NotYetPorted while the world is validated, before anything runs.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -100,7 +101,6 @@ def _reject_unported(config: ConfigOptions) -> None:
     checks = [
         (bool(g.mesh), "general.mesh (the 2-D mesh plane)"),
         (g.parallelism > 1, "general.parallelism > 1 (multi-device sharding)"),
-        (bool(g.checkpoint_dir) or g.resume, "checkpoint/resume"),
         (e.autotune, "experimental.autotune"),
         (e.scheduler != "tpu", f"scheduler {e.scheduler!r}"),
         (e.use_dynamic_runahead, "experimental.use_dynamic_runahead"),
@@ -253,12 +253,66 @@ class Manager:
             rx_refill=rx_refill, host_node=host_node, runahead_ns=runahead,
         )
 
+    def _setup_checkpointing(self, ecfg: EngineConfig):
+        """Build the checkpoint manager and interrupt guard when
+        general.checkpoint_dir asks for them, and resolve a --resume to
+        the newest checkpoint. Resume validates the config fingerprint
+        and rebuilds the engine config at the checkpoint's recorded
+        buffer capacities, which may exceed the config values when the
+        interrupted run had already regrown them. Returns (ecfg,
+        ckpt_manager, guard, resume_path)."""
+        from shadow_tpu_torch.config.fingerprint import fingerprint_dict
+        from shadow_tpu_torch.runtime.checkpoint import (
+            CheckpointError,
+            CheckpointManager,
+            InterruptGuard,
+            config_fingerprint,
+            peek_checkpoint_meta,
+        )
+
+        g = self.config.general
+        if not g.checkpoint_dir:
+            if g.resume:
+                raise CheckpointError(
+                    "--resume requires --checkpoint-dir (general.checkpoint_dir)"
+                )
+            return ecfg, None, None, None
+        fingerprint = config_fingerprint(self.config)
+        resume_path = None
+        if g.resume:
+            resume_path = CheckpointManager.latest_path(g.checkpoint_dir)
+            if resume_path is None:
+                raise CheckpointError(
+                    f"--resume: no checkpoint found in {g.checkpoint_dir}"
+                )
+            meta = peek_checkpoint_meta(resume_path)
+            # rebuild at the checkpoint's recorded widths: the interrupted
+            # run may have regrown them past the config values, and the
+            # grid knobs grown alongside must follow or the resumed replay
+            # re-hits the very overflow that was recovered
+            overrides = {}
+            qc, oc = meta.get("queue_capacity"), meta.get("outbox_capacity")
+            if qc and oc:
+                overrides.update(queue_capacity=qc, outbox_capacity=oc)
+            for knob in ("deliver_lanes", "a2a_capacity", "pool_capacity"):
+                if knob in meta:
+                    overrides[knob] = meta[knob]
+            if any(overrides.get(k) != getattr(ecfg, k) for k in overrides):
+                ecfg = dataclasses.replace(ecfg, **overrides)
+        ckpt = CheckpointManager(
+            g.checkpoint_dir, g.checkpoint_interval_ns, fingerprint,
+            detail=fingerprint_dict(self.config),
+        )
+        return ecfg, ckpt, InterruptGuard(), resume_path
+
     def run(self) -> SimResults:
         from shadow_tpu_torch.engine.megakernel import PUMP_KERNEL
+        from shadow_tpu_torch.engine.round import RunInterrupted
         from shadow_tpu_torch.utils.progress import ProgressLine
 
         cfgo = self.config
         world = self.build_world()
+        ecfg, ckpt, guard, resume_path = self._setup_checkpointing(world.ecfg)
         replicas = cfgo.general.replicas
         common = dict(
             rounds_per_chunk=cfgo.experimental.rounds_per_chunk,
@@ -271,26 +325,26 @@ class Manager:
             from shadow_tpu_torch.runtime.ensemble import EnsembleRunner
 
             sched = EnsembleRunner(
-                world.model, world.tables, world.ecfg, replicas,
+                world.model, world.tables, ecfg, replicas,
                 seed_stride=cfgo.general.replica_seed_stride, **common,
             )
         else:
-            sched = TpuScheduler(world.model, world.tables, world.ecfg, **common)
+            sched = TpuScheduler(world.model, world.tables, ecfg, **common)
         end = cfgo.general.stop_time_ns
         hb_ns = cfgo.general.heartbeat_interval_ns
         progress = ProgressLine(cfgo.general.progress)
         last_hb = [0]
 
         def on_chunk(probe):
-            progress.update(probe["now"], end, events=probe["events_handled"])
-            if hb_ns > 0 and probe["now"] - last_hb[0] >= hb_ns:
-                last_hb[0] = probe["now"]
+            progress.update(probe.now, end, events=probe.events_handled)
+            if hb_ns > 0 and probe.now - last_hb[0] >= hb_ns:
+                last_hb[0] = probe.now
                 progress.clear()
                 slog(
-                    "info", probe["now"], "manager",
-                    f"heartbeat: {probe['events_handled']} events, "
-                    f"{probe['packets_sent']} packets, sim time "
-                    f"{fmt_time_ns(probe['now'])}",
+                    "info", probe.now, "manager",
+                    f"heartbeat: {probe.events_handled} events, "
+                    f"{probe.packets_sent} packets, sim time "
+                    f"{fmt_time_ns(probe.now)}",
                 )
 
         rep_note = f"{replicas} replicas, " if replicas > 1 else ""
@@ -300,7 +354,39 @@ class Manager:
              f"runahead={world.runahead_ns}ns, stop={fmt_time_ns(end)}")
         launches0 = PUMP_KERNEL.launches
         t0 = time.perf_counter()
-        final = sched.run(end, on_chunk=on_chunk)
+        resume_state = None
+        if resume_path is not None:
+            from shadow_tpu_torch.runtime.checkpoint import load_checkpoint
+
+            # resume_path came from latest_path, which verified the sha-256
+            # digest moments ago: skip the second full hash
+            resume_state, meta = load_checkpoint(
+                resume_path, sched.initial_state(), ckpt.fingerprint,
+                check_digest=False, detail=ckpt.detail,
+            )
+            slog("info", meta["now_ns"], "manager",
+                 f"resuming from checkpoint {resume_path} "
+                 f"(sim time {fmt_time_ns(meta['now_ns'])})")
+        recovery = None
+        if cfgo.experimental.recover:
+            from shadow_tpu_torch.runtime.recovery import RecoveryPolicy
+
+            recovery = RecoveryPolicy(
+                max_recoveries=cfgo.experimental.recovery_max_retries,
+                snapshot_interval_chunks=cfgo.experimental.recovery_snapshot_chunks,
+            )
+        try:
+            with guard if guard is not None else contextlib.nullcontext():
+                final = sched.run(
+                    end, on_chunk=on_chunk, start_state=resume_state,
+                    checkpoints=ckpt, guard=guard, recovery=recovery,
+                )
+        except RunInterrupted:
+            progress.clear()
+            slog("info", 0, "manager",
+                 f"interrupted; checkpoints are in {cfgo.general.checkpoint_dir} — "
+                 "rerun with --resume to continue to a bit-identical final state")
+            raise
         if self.device.type == "cuda":
             import torch
 
@@ -318,6 +404,10 @@ class Manager:
             sim_seconds=end / NS_PER_SEC,
             scheduler=sched.name,
         )
+        report = getattr(sched, "recovery_report", [])
+        if report:
+            # rollback-and-regrow happened: surface it in sim-stats.json
+            results.extra_stats["recovery"] = {"count": len(report), "events": report}
         if replicas > 1:
             # per-replica sections and the aggregate mean/stddev/CI block
             from shadow_tpu_torch.runtime.ensemble import ensemble_stats

@@ -36,7 +36,8 @@ class TpuScheduler:
         )
 
     def initial_state(self):
-        """The bootstrapped t=0 state."""
+        """The bootstrapped t=0 state: also the template a resume loads a
+        checkpoint into (same config, same shapes)."""
         st = init_state(
             self.cfg,
             self.model.init(self.device),
@@ -46,9 +47,42 @@ class TpuScheduler:
         )
         return bootstrap(st, self.model, self.cfg)
 
-    def run(self, end_time_ns: int, on_chunk=None, max_chunks: int = 100_000):
-        return run_until(
-            self.initial_state(), end_time_ns, self.model, self.tables, self.cfg,
-            rounds_per_chunk=self.rounds_per_chunk, max_chunks=max_chunks,
-            on_chunk=on_chunk,
-        )
+    def _runner_factory(self, end_time_ns: int, on_chunk, max_chunks):
+        """run(st, on_state=...) per engine config: the seam
+        rollback-and-regrow replays through at a regrown capacity."""
+
+        def factory(cfg):
+            def run(st, on_state=None):
+                return run_until(
+                    st, end_time_ns, self.model, self.tables, cfg,
+                    rounds_per_chunk=self.rounds_per_chunk, max_chunks=max_chunks,
+                    on_chunk=on_chunk, on_state=on_state,
+                )
+
+            return run
+
+        return factory
+
+    def run(self, end_time_ns: int, on_chunk=None, max_chunks: int = 100_000,
+            start_state=None, checkpoints=None, guard=None, recovery=None):
+        """Run to end_time_ns. `start_state` (a restored checkpoint)
+        replaces the bootstrapped t=0 state; `checkpoints`/`guard` tap
+        chunk-boundary states (runtime/checkpoint.py); `recovery` (a
+        RecoveryPolicy, None = fail-fast) turns a CapacityError into
+        rollback-and-regrow. The recovery report of the last run is left
+        on self.recovery_report (also when the run fails)."""
+        from shadow_tpu_torch.runtime.recovery import RecoveryPolicy, run_until_recovering
+
+        st = start_state if start_state is not None else self.initial_state()
+        self.recovery_report = []
+        try:
+            final, self.recovery_report = run_until_recovering(
+                st, end_time_ns, cfg=self.cfg,
+                policy=recovery or RecoveryPolicy(max_recoveries=0),
+                checkpoints=checkpoints, guard=guard,
+                runner_factory=self._runner_factory(end_time_ns, on_chunk, max_chunks),
+            )
+        except Exception as err:
+            self.recovery_report = list(getattr(err, "recoveries", []))
+            raise
+        return final

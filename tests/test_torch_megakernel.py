@@ -186,22 +186,31 @@ def test_c_struct_matches_the_ctypes_fields():
 def test_layout_constants_match_the_kernel_source():
     """The wrapper's copy of the kernel's compile-time layout equals the
     constexprs in csrc/pump_megakernel.cu, and the one TCP shape the
-    kernel is built for is tgen's."""
+    kernel is built for is tgen's. Every instance the wrapper can pick is
+    instantiated in the source: per model a narrow one, built for the
+    sockets its model has at its defaults (a narrow row's socket-match
+    bitmask is 32 bits) and for pump_k up to MAX_K, and a wide one, which
+    takes any pump_k and socket count (its list in passes of MAX_K, its
+    defer FIFO of pump_k entries of FIFO_WORDS words each in device
+    scratch)."""
     src = (REPO / "shadow_tpu_torch" / "csrc" / "pump_megakernel.cu").read_text()
 
     def constexpr(name):
         return int(re.search(rf"constexpr int (?:\w+ = \d+, )*{name} = (\d+)", src)[1])
 
     assert (constexpr("ROWS_PER_WARP"), constexpr("STAGE")) == (mk.ROWS_PER_WARP, mk.STAGE)
+    assert (constexpr("MAX_K"), constexpr("FIFO_WORDS")) == (mk.MAX_K, mk.FIFO_WORDS)
+    assert mk.STAGE > mk.MAX_K
     assert (constexpr("NR"), constexpr("NSEG")) == mk.TCP_SHAPE
     assert mk.TCP_SHAPE == (TGEN_TCP.ooo_ranges, TGEN_TCP.segs_per_flush)
-    # one instance per model whose pump rules the kernel carries, each
-    # built for a socket count its model fits
     assert {m: constexpr(f"MODEL_{m.upper()}") for m in mk.MODEL_IDS} == mk.MODEL_IDS
     assert {m: constexpr(f"{m.upper()}_MAX_S") for m in mk.MAX_SOCKETS} == mk.MAX_SOCKETS
     assert TGEN_TCP.num_sockets <= mk.MAX_SOCKETS["tgen"]
     onion_s = OnionModel(num_hosts=4, num_clients=1, num_relays=3).tcp_params.num_sockets
-    assert onion_s <= mk.MAX_SOCKETS["onion"] <= 32  # a row's socket bitmask is 32 bits
+    assert onion_s <= mk.MAX_SOCKETS["onion"] <= 32  # a narrow row's socket bitmask is 32 bits
+    assert mk.INSTANCES == ("tgen", "onion", "tgen_wide", "onion_wide")
+    launched = set(re.findall(r"pump_megakernel<MODEL_(\w+), (true|false)><<<", src))
+    assert launched == {(m.upper(), w) for m in mk.MODEL_IDS for w in ("true", "false")}
 
 
 def test_auto_engine_resolves_to_the_kernel_on_the_card():

@@ -109,7 +109,10 @@ def test_one_stage_matches_jax_megakernel(onion_world, case):
 
 def test_kernel_args_carry_onion_rules(onion_world):
     """The wrapper passes onion's instance, socket count and veto scalars;
-    a model without a kernel instance, or too many sockets, is refused."""
+    past the narrow instance's 32 sockets (16 and 32 circuits per relay:
+    33 and 65 sockets) it picks onion's wide instance, with a defer-FIFO
+    scratch of pump_k entries per row; a model without a kernel instance
+    is refused."""
     w = onion_world
     st, cfg, tables = w["states"]["burst"], w["cfg"], w["tables"]
     rej = torch.zeros((1,), dtype=torch.int32)
@@ -120,11 +123,16 @@ def test_kernel_args_carry_onion_rules(onion_world):
         MODEL.resp_cells * MODEL.cell_bytes)
     assert (args.draws_per_event, args.packet_emits) == (3, 6)
     assert args.streams_started == st.model.streams_started.data_ptr()
-    # 16 circuits per relay need 33 sockets: more than the instance holds
-    big = OnionModel(num_hosts=HOSTS, num_clients=4, num_relays=20, circuits_per_relay=16)
-    bst = dataclasses.replace(st, model=big.init("cpu"))
-    with pytest.raises(ValueError, match="at most 32 sockets"):
-        mk.kernel_args(bst, torch.tensor(BURST_NS), big, tables, cfg, rej, codel)
+    assert args.wide == 0 and mk.kernel_instance(MODEL, cfg) == "onion"
+    for circuits, sockets in ((16, 33), (32, 65)):
+        big = OnionModel(num_hosts=HOSTS, num_clients=4, num_relays=20,
+                         circuits_per_relay=circuits)
+        bst = dataclasses.replace(st, model=big.init("cpu"))
+        args, keep = mk.kernel_args(bst, torch.tensor(BURST_NS), big, tables, cfg, rej, codel)
+        assert (args.model, args.S, args.wide) == (mk.MODEL_IDS["onion"], sockets, 1)
+        assert mk.kernel_instance(big, cfg) == "onion_wide"
+        assert tuple(keep["fifo"].shape) == (HOSTS, cfg.pump_k, mk.FIFO_WORDS)
+        assert args.fifo == keep["fifo"].data_ptr()
     cdn = CdnModel(num_hosts=HOSTS)
     with pytest.raises(NotYetPorted, match="CdnModel"):
         mk.kernel_args(st, torch.tensor(BURST_NS), cdn, tables, cfg, rej, codel)
