@@ -21,9 +21,14 @@ Phases, each printing one line; any failure exits non-zero:
      wide_kernel: the kernel's wide instances, which take any pump_k and
      any socket count: tgen's at pump_k 40 in the burst (timed with its
      bound), on the edge states and on rows that take 40 events in one
-     launch, and its main path from the burst to 20 ms against the plain
+     launch, on rows with more slots below the window end than a wide
+     pass stages and equal times and ties across the list's end, and at
+     pump_k 80, past the list and FIFO entries a wide launch's shared
+     memory holds; its main path from the burst to 20 ms against the plain
      engine; onion's at 16 and 32 circuits per relay (33 and 65 sockets),
-     its main path to 60 ms, then kernel vs twin there, timed; while those
+     its main path to 60 ms, then kernel vs twin there, timed, and at 33
+     sockets also at pump_k 40; each wide launch prints its dynamic shared
+     memory; while those
      two host-bound runs go on, the CLI runs on examples/onion (stop time
      cut, sim-stats pinned) and on examples/fattree (graph from
      gen_fattree.py 8: two outbox recoveries, 64 -> 128 -> 256, and the
@@ -63,6 +68,7 @@ Phases, each printing one line; any failure exits non-zero:
      hosts x 2 replicas (a warp owns rows of both), kernel against twin;
      ensemble-cli, `run --replicas 2` on examples/phold (stop time cut);
  10. the narrow instances' R = 1 launch times beside the earlier record,
+     the wide instances' launch times beside theirs before the redesign,
      the kernels JSON line (one entry per template instance of the
      kernel), the card line, and the final JSON line.
 
@@ -176,6 +182,16 @@ ONION_WINDOW_CAP_NS = 1_000_000_000
 # no kernel is timed until they have ended)
 WIDE_PUMP_K = 40
 WIDE_RUN_NS = 20_000_000
+# wide_kernel's edge states on the 30 ms state's idle rows
+# (deferring_queue at group 3, columns rebuilt by rebuilt_queue): rows of
+# BOUNDARY_ARRIVALS arrivals at pump_k WIDE_PUMP_K, more slots below the
+# window end than a wide pass stages, with equal times and ties across
+# the list's end; and rows of WIDE_PAST_ARRIVALS arrivals at pump_k
+# WIDE_PAST_K, past the list entries and FIFO entries a wide launch's
+# shared memory holds (megakernel.WIDE_LIST_CAP, WIDE_FIFO_CAP: 64)
+BOUNDARY_ARRIVALS = 60
+WIDE_PAST_K = 80
+WIDE_PAST_ARRIVALS = 100
 ONION_WIDE_NS = {16: ONION_BURST_NS, 32: ONION_BURST_NS}
 # recovery: the bench world at an outbox of RECOVERY_OUTBOX slots, below
 # its 32: the start's burst overflows it in the first chunk, and recovery
@@ -202,6 +218,10 @@ FATTREE_RECOVERIES = [(256, 128), (256, 256)]
 # which this run's are printed beside
 EARLIER_LAUNCH_MS = {"burst_k8": 0.1442, "burst_k16": 0.1546, "mid_20ms_k8": 0.0910,
                  "rejects_30ms_k8": 0.0289, "onion_burst": 0.0635}
+# the wide instances' launch times as recorded before their redesign for
+# Hopper (PERF.md §6; the same card), which this run's are printed beside
+EARLIER_WIDE_LAUNCH_MS = {"tgen_wide_burst_k40": 0.5351, "onion_wide_33_sockets": 0.1308,
+                          "onion_wide_65_sockets": 0.1593}
 # the ensemble cells: replicas of the lossy tgen world on ENS_TGEN_NODES
 # nodes (main path to ENS_TGEN_END_NS, paused at LOSSY_MID_NS_SHAPED,
 # where the batch's kernel is held against its twin and timed), replicas
@@ -376,12 +396,16 @@ def lossy_world(num_hosts: int, device, shaped: bool = True, loss: float = 0.05,
     return cfg, model, tables, bootstrap(st, model, cfg)
 
 
-def rebuilt_queue(st, capacity: int, we: int, extra: int = 0, seed: int = 0):
+def rebuilt_queue(st, capacity: int, we: int, extra: int = 0, seed: int = 0,
+                  order: str = "random"):
     """A copy of `st` whose event queue has `capacity` slots. Each row keeps
     its earliest `capacity` events by (time, tie); on a seeded half of the
     rows it also gains up to `extra` timer events just below the window
     end `we` (the pump rejects a non-packet event, so the row's earlier
-    events keep their outcome). Events sit at seeded random columns. A row
+    events keep their outcome). Events sit at seeded random columns, or
+    with order "reversed" in descending (time, tie) order from the last
+    column down, so that a row's column order is the reverse of the
+    order its events are taken in and its free columns come first. A row
     whose kept events fill `capacity` starts full."""
     from shadow_tpu_torch.events import KIND_INVALID, KIND_MODEL_BASE, pack_tie
     from shadow_tpu_torch.simtime import TIME_MAX
@@ -413,7 +437,10 @@ def rebuilt_queue(st, capacity: int, we: int, extra: int = 0, seed: int = 0):
         q.data, 1, src[:, :, None].expand(h, capacity, q.data.shape[2])), 0)
     aux = torch.where(real, torch.gather(q.aux, 1, src), 0).to(torch.int32)
     # list position i -> column col[h, i]
-    col = torch.from_numpy(np.argsort(g.random((h, capacity)), axis=1)).to(dev)
+    if order == "reversed":
+        col = (capacity - 1 - torch.arange(capacity, device=dev))[None, :].expand(h, capacity)
+    else:
+        col = torch.from_numpy(np.argsort(g.random((h, capacity)), axis=1)).to(dev)
     return dataclasses.replace(st.clone(), queue=dataclasses.replace(
         q,
         time=torch.empty_like(time).scatter_(1, col, time),
@@ -426,15 +453,19 @@ def rebuilt_queue(st, capacity: int, we: int, extra: int = 0, seed: int = 0):
     ))
 
 
-def deferring_queue(st, we: int, n: int, seed: int = 0):
+def deferring_queue(st, we: int, n: int, seed: int = 0, group: int = 1):
     """A copy of `st` in which a seeded half of the rows with no event
     below the window end `we` each gain `n` unshaped packet events from
     the next host, at times just below `we`, in free columns, each of
     twice the row's rx refill, and an empty rx bucket (tokens 0, last
     refill at the first of them): every one waits for the bucket and the
     pump defers it (P1), so such a row takes n events in one launch, past
-    a narrow instance's MAX_K list, and lands n defers. Needs a shaped
-    world (rx_refill > 0) and n free columns in those rows."""
+    a narrow instance's MAX_K list, and lands n defers. With group > 1,
+    each run of `group` consecutive events shares one time and the events
+    2j - 1 and 2j share a tie, so that ties, and then columns, order
+    them (at group 3, events 39 and 40, 63 and 64, 79 and 80 are equal in
+    both). Needs a shaped world (rx_refill > 0) and n free columns in
+    those rows."""
     from shadow_tpu_torch.events import KIND_PACKET, pack_tie
     from shadow_tpu_torch.simtime import TIME_MAX
 
@@ -451,8 +482,9 @@ def deferring_queue(st, we: int, n: int, seed: int = 0):
     put = pick[:, None] & free & (rank < n)
     t0 = int(we) - 1 - n
     src = ((st.host_id.to(torch.int64) + 1) % h)[:, None].expand_as(rank)
-    q.time[put] = (t0 + rank)[put]
-    q.tie[put] = pack_tie(torch.full_like(rank, KIND_PACKET), src, (1 << 31) + rank)[put]
+    seq = rank if group == 1 else (rank + 1) // 2
+    q.time[put] = (t0 + rank // group)[put]
+    q.tie[put] = pack_tie(torch.full_like(rank, KIND_PACKET), src, (1 << 31) + seq)[put]
     q.kind[put] = KIND_PACKET
     q.data[put] = 0
     q.aux[put] = (2 * net.rx_refill).clamp(max=(1 << 24) - 1).to(torch.int32)[:, None].expand_as(
@@ -832,7 +864,6 @@ def wide_kernel_phase(st_b, we, cfg, model, tables, hosts: int, dev,
     we_r = _next_window_end(st_r, 10**9, cfg, equeue.next_time(st_r.queue).amin(), tables)
     st_d = deferring_queue(st_r, int(we_r), WIDE_PUMP_K)
     picked = int((st_d.queue.count != st_r.queue.count).sum())
-    del st_r
     for k in (mk.MAX_K, WIDE_PUMP_K):
         ok_e, facts, _ = compare_stage(st_d, we_r, model, tables,
                                        dataclasses.replace(wcfg, pump_k=k))
@@ -844,6 +875,36 @@ def wide_kernel_phase(st_b, we, cfg, model, tables, hosts: int, dev,
         if not ok_e:
             return False, out, err
     del st_d
+    # rows with more slots below the window end than a wide pass stages
+    # (its stage compacts), equal times and ties across the list's end,
+    # columns in random order: at pump_k WIDE_PUMP_K (one pass), and at
+    # WIDE_PAST_K in reverse column order, past the list and FIFO entries
+    # a wide launch's shared memory holds (passes, FIFO scratch, a landing
+    # past the recorded free columns)
+    cap = int(st_r.queue.time.shape[1])
+    for case, arrivals, k, order in (
+            ("pass_boundary_ties", BOUNDARY_ARRIVALS, WIDE_PUMP_K, "random"),
+            ("pump_k_past_shared_memory", WIDE_PAST_ARRIVALS, WIDE_PAST_K, "reversed")):
+        st_e = rebuilt_queue(deferring_queue(st_r, int(we_r), arrivals, group=3), cap, int(we_r),
+                             order=order)
+        picked = int((st_e.queue.count != st_r.queue.count).sum())
+        ecfg = dataclasses.replace(wcfg, pump_k=k)
+        # the slots a wide row stages per read (the kernel's wide_stage)
+        stage = max(mk.STAGE, -(-(min(k, mk.WIDE_LIST_CAP) + 2) // 16) * 16)
+        over = int(((st_e.queue.time < int(we_r)).sum(dim=1) > stage).sum())
+        ok_e, facts, _ = compare_stage(st_e, we_r, model, tables, ecfg)
+        err = max(err, facts["max_abs_err"])
+        reached = k == WIDE_PUMP_K or k > max(mk.WIDE_LIST_CAP, mk.WIDE_FIFO_CAP)
+        ok_e = (ok_e and reached and picked > 0 and over > 0
+                and facts["classes"]["p1"] >= picked * k)
+        line("wide_kernel_vs_twin_edge", ok=ok_e, instance=mk.kernel_instance(model, ecfg),
+             case=case, rows_deferring=picked, arrivals=arrivals, wide_stage=stage,
+             rows_over_wide_stage=over, dynamic_smem_bytes=launch_smem(st_e, we_r, model, tables, ecfg),
+             **facts)
+        del st_e
+        if not ok_e:
+            return False, out, err
+    del st_r
 
     def counts(st):
         m = st.model
@@ -910,13 +971,24 @@ def wide_kernel_phase(st_b, we, cfg, model, tables, hosts: int, dev,
             instance="onion_wide", launch="burst", circuits_per_relay=circuits,
             sockets=sockets, at_ns=end_o, hosts=hosts)
         err = max(err, e)
+        if ok and circuits == min(ONION_WIDE_NS):
+            # past both narrow limits in one launch: the sockets and pump_k
+            ecfg = dataclasses.replace(oscfg, pump_k=WIDE_PUMP_K)
+            ok, facts, _ = compare_stage(st, we_o, omodel, otables, ecfg)
+            err = max(err, facts["max_abs_err"])
+            ok = ok and facts["live_rows"] > 0
+            line("wide_kernel_vs_twin_edge", ok=ok, instance=mk.kernel_instance(omodel, ecfg),
+                 case="onion_sockets_and_pump_k", circuits_per_relay=circuits, sockets=sockets,
+                 at_ns=end_o, dynamic_smem_bytes=launch_smem(st, we_o, omodel, otables, ecfg),
+                 **facts)
         del st
         if not ok:
             return False, out, err
         cells[circuits] = dict(cell, sockets=sockets, at_ns=end_o, launches=launches)
         total += launches
     first = cells[16]
-    out["onion_wide"] = dict({k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+    out["onion_wide"] = dict({k: first[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                    "dynamic_smem_bytes")},
                              launches=total, by_circuits_per_relay=cells)
     return True, out, err
 
@@ -1270,6 +1342,18 @@ def ensemble_window(rows, cfg, tables):
     return _next_window_end(rows, ONION_WINDOW_CAP_NS, cfg, start, tables)
 
 
+def launch_smem(st, we, model, tables, scfg):
+    """Bytes of dynamic shared memory the kernel launch for `st` takes (a
+    wide instance's; 0 for a narrow one), or None on the CPU."""
+    from shadow_tpu_torch.engine import megakernel as mk
+
+    if st.device.type != "cuda":
+        return None
+    w, rej = world_args(st, we)
+    args, _ = mk.kernel_args(st, w, model, tables, scfg, rej, mk.PUMP_KERNEL.codel_table(st.device))
+    return mk.PUMP_KERNEL.dynamic_smem(args)
+
+
 def timed_stage(name, st, we, model, tables, scfg, reps, dev, must_take=False, **fields):
     """Kernel vs twin on one launch (one world, or an ensemble's rows with
     [R] window ends), the kernel timed alone, with its bound, printed as
@@ -1295,11 +1379,12 @@ def timed_stage(name, st, we, model, tables, scfg, reps, dev, must_take=False, *
     # take their list from device memory
     below = st.queue.time < per_row(st, we)[..., None]
     over = int((below.sum(dim=1) > mk.STAGE).sum())
+    smem = launch_smem(st, we, model, tables, scfg)
     line(name, ok=ok, **fields, rows_over_stage=over, **facts,
          kernel_ms=ms_k, twin_ms=ms_t, bound_ms=bound_ms, bound_by=bound_by,
-         share_of_bound=bound_ms / ms_k, reckoning=reck)
-    return ok, dict(ms=ms_k, plain_ms=ms_t, bound_ms=bound_ms, bound_by=bound_by), facts[
-        "max_abs_err"]
+         share_of_bound=bound_ms / ms_k, dynamic_smem_bytes=smem, reckoning=reck)
+    return ok, dict(ms=ms_k, plain_ms=ms_t, bound_ms=bound_ms, bound_by=bound_by,
+                    dynamic_smem_bytes=smem), facts["max_abs_err"]
 
 
 def ensemble_stage(cell, rows, we, model, tables, scfg, reps, dev, must_take=False):
@@ -1836,6 +1921,17 @@ def run_phases(argv=None) -> int:
     # the narrow instances' R = 1 launches of this run beside the earlier record
     line("r1_launches", this_run_ms=dict(launch_ms, onion_burst=onion_entry["ms"]),
          earlier_ms=EARLIER_LAUNCH_MS, card=smi, ptxas={m: resources[m] for m in ("tgen", "onion")})
+    # the wide instances' launches of this run beside the record from
+    # before their redesign, with their static and dynamic shared memory
+    by_c = wide["onion_wide"]["by_circuits_per_relay"]
+    line("wide_launches", this_run_ms={
+        "tgen_wide_burst_k40": wide["tgen_wide"]["ms"],
+        **{f"onion_wide_{c['sockets']}_sockets": c["ms"] for c in by_c.values()}},
+         earlier_ms=EARLIER_WIDE_LAUNCH_MS, card=smi,
+         ptxas={m: resources[m] for m in ("tgen_wide", "onion_wide")},
+         dynamic_smem_bytes={"tgen_wide_burst_k40": wide["tgen_wide"]["dynamic_smem_bytes"],
+                             **{f"onion_wide_{c['sockets']}_sockets": c["dynamic_smem_bytes"]
+                                for c in by_c.values()}})
     timing = {"tgen": dict(ms=ms_k, plain_ms=ms_t, bound_ms=bound_ms, bound_by=bound_by),
               "onion": onion_entry}
     for m in ("tgen_wide", "onion_wide"):

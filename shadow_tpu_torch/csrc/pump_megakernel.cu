@@ -66,20 +66,37 @@
 // entries), its defer FIFO and its sockets' matching fields (S <= the
 // instance's *_MAX_S, one bit each in a 32-bit match mask) in shared
 // memory sized at compile time. A launch past either limit runs the wide
-// instance of its model (template flag WIDE), chosen by the wrapper:
-//  - the list is taken in passes of up to MAX_K entries, each by rounds
-//    of a warp-wide minimum over the row's device-memory queue (popped
-//    slots read TIME_MAX there, so a pass starts where the last ended);
-//    a pass ends with one more round, over the row's unlisted slots,
-//    that gives the head once the pass is popped; a row starts a pass
-//    when it has popped its list and that head is below the window end;
-//  - the defer FIFO (at most pump_k entries, each with its payload) lives
-//    in a per-row device scratch of pump_k entries;
-//  - the socket fields are read from device memory and a matching slot
-//    is found again by a scan of the row's S sockets wherever the narrow
-//    instance walks its mask, so any S works;
-//  - the landing takes the row's free columns by scanning its `time` row
-//    after the pops.
+// instance of its model (template flag WIDE), chosen by the wrapper. Its
+// lists, staged keys, payloads, defer FIFO, free columns and socket-match
+// bits live in dynamic shared memory sized at launch (WideLayout) from
+// C = min(pump_k, WIDE_LIST_CAP) list entries and F = min(pump_k,
+// WIDE_FIFO_CAP) FIFO entries per row:
+//  - selection is A's one streamed read, for all the rows that need a
+//    list at once: it stages up to SC slots below the window end per
+//    row, ranks them and lists the first min(C, the row's remaining
+//    pump_k). A row with more slots below the window end than the stage
+//    holds keeps, whenever its stage fills, the best list length + 1
+//    entries (ranked with their ties) and from then on stages only slots
+//    no later than the last of them, so one read still finds the row's
+//    first entries. pump_k past C takes the list in passes: a row that
+//    has popped its pass while its next head is below the window end
+//    takes the next pass by another such read (popped slots read
+//    TIME_MAX in device memory, so it stages only what is left);
+//  - sockets: at the top of each microstep the going rows' event 4-tuples
+//    go to shared memory and the warp scans the rows' S sockets (8 x S
+//    consecutive ints per field) 32 at a time, coalesced, building one
+//    match bit per socket with __ballot_sync; each lane then walks its
+//    row's bits as the narrow body walks its mask. The scan reads `st`
+//    after the last microstep's commit, so a FIN_WAIT_1 write is seen;
+//  - the defer FIFO's first F entries per row live in shared memory: with
+//    one pass per launch (pump_k <= C) an entry names the list entry
+//    whose payload it carries, as in the narrow instance; past C it
+//    carries its own payload, since a later pass reuses the list. Entries
+//    past F go to a device scratch of pump_k - F entries per row;
+//  - the landing takes the free columns recorded in the row's last read,
+//    merged with the slots its pass popped; past the last recorded column
+//    (only when more defers land than C), it scans device memory from
+//    there.
 // The per-event body is the narrow instance's; each difference is an
 // `if constexpr (WIDE)`, so the narrow instances compile as before.
 //
@@ -97,6 +114,7 @@
 // f32 path reliability; no multiply-add is formed.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 
@@ -126,8 +144,8 @@ constexpr int MAX_K = 16;
 // row's socket-match bitmask. A wide instance takes any socket count.
 constexpr int MODEL_TGEN = 0, MODEL_ONION = 1;
 constexpr int TGEN_MAX_S = 8, ONION_MAX_S = 32;
-// int64 words of a wide instance's defer-FIFO entry: time, tie, kind,
-// aux, then the payload's 8 int32 lanes in 4 words
+// int64 words of a wide instance's defer-FIFO entry in device scratch:
+// time, tie, kind, aux, then the payload's 8 int32 lanes in 4 words
 constexpr int FIFO_WORDS = 8;
 // TCP's shape, the one shape the kernel is built for: out-of-order ranges
 // and segments per flush (TGEN_TCP); the wrapper refuses any other
@@ -143,6 +161,19 @@ constexpr int STAGE = 32;
 // `time` slots per piece of a streamed queue row, and pieces in flight.
 constexpr int PIECE = 512;
 constexpr int PIECES_IN_FLIGHT = 3;
+// A wide instance's dynamic shared memory holds the list entries of one
+// pass (pump_k past it: more passes), the defer-FIFO entries of a row
+// (pump_k past it: the rest in device scratch) and the words of the
+// warp's socket-match bits (ROWS_PER_WARP x S, one each; past it: device
+// scratch), each taken at min(what the launch needs, this cap).
+constexpr int WIDE_LIST_CAP = 64;
+constexpr int WIDE_FIFO_CAP = 64;
+constexpr int WIDE_MATCH_WORDS = 2048;
+// slots a wide row stages per read: room for the list + 1 and more
+__host__ __device__ constexpr int wide_stage(int c) {
+  return (c + 2 + 15) / 16 * 16 > STAGE ? (c + 2 + 15) / 16 * 16 : STAGE;
+}
+constexpr int WIDE_MAX_SC = wide_stage(WIDE_LIST_CAP);
 
 template <int MODEL>
 __host__ __device__ constexpr int max_sockets() {
@@ -151,6 +182,8 @@ __host__ __device__ constexpr int max_sockets() {
 
 static_assert(ONION_MAX_S <= 32 && ROWS_PER_WARP <= WARP && STAGE == WARP && STAGE > MAX_K && PIECE % (2 * WARP) == 0,
               "layout");
+static_assert(WIDE_MAX_SC <= 255 && WIDE_LIST_CAP <= 127,
+              "wide layout: list entries index the stage in a byte");
 
 }  // namespace
 
@@ -188,9 +221,12 @@ struct PumpArgs {
   void *window_end, *min_used, *rejected;
   // read-only context
   void *host_id, *rng_key, *host_node, *lat_ns, *rel, *codel_table;
-  // a wide instance's defer FIFOs [H, pump_k, FIFO_WORDS] i64 (scratch;
-  // unused by a narrow instance)
-  void *fifo;
+  // a wide instance's scratch (unused by a narrow instance): the defer
+  // FIFO entries past WIDE_FIFO_CAP [H, pump_k - WIDE_FIFO_CAP,
+  // FIFO_WORDS] i64, and the socket-match words past WIDE_MATCH_WORDS
+  // [blocks, ceil(ROWS_PER_WARP * S / 32)] i32; each is empty when
+  // shared memory holds it all
+  void *fifo, *match;
   // shapes and static parameters; wide: run the model's wide instance
   int64_t H, Q, O, S, R, N, num_global_hosts, pump_k, wide;
   int64_t rows_per_replica;  // H of one world: row h is replica h / rows_per_replica's
@@ -372,12 +408,10 @@ __device__ __forceinline__ int nth_bit(unsigned m, int n) {
 // lane reads for itself are row-minor ([..][ROWS_PER_WARP]) or padded, so
 // that the lanes of a warp fall into different banks. MAX_S sizes the
 // socket arrays for the instance's model, so tgen's block keeps its size.
-// A wide instance streams no row and keeps no socket field here (its
-// arrays for them shrink to a token size).
-template <int MAX_S, bool WIDE>
+template <int MAX_S>
 struct WarpSmem {
   // streamed pieces of `time` rows
-  alignas(16) int64_t piece[WIDE ? 1 : PIECES_IN_FLIGHT][WIDE ? 2 : PIECE];
+  alignas(16) int64_t piece[PIECES_IN_FLIGHT][PIECE];
   int64_t lim[ROWS_PER_WARP];  // each row's window end (its replica's), capped at TIME_MAX
   // a row's staged slots below the window end, in slot order
   int64_t st_time[ROWS_PER_WARP][STAGE + 1];
@@ -399,55 +433,415 @@ struct WarpSmem {
   int32_t f_aux[MAX_K][ROWS_PER_WARP];
   int8_t f_src[MAX_K][ROWS_PER_WARP];
   // socket-matching fields of the rows' sockets, [row * S + s]
-  int32_t sk_st[ROWS_PER_WARP * (WIDE ? 1 : MAX_S)];
-  int32_t sk_lport[ROWS_PER_WARP * (WIDE ? 1 : MAX_S)];
-  int32_t sk_rport[ROWS_PER_WARP * (WIDE ? 1 : MAX_S)];
-  int32_t sk_rhost[ROWS_PER_WARP * (WIDE ? 1 : MAX_S)];
+  int32_t sk_st[ROWS_PER_WARP * MAX_S];
+  int32_t sk_lport[ROWS_PER_WARP * MAX_S];
+  int32_t sk_rport[ROWS_PER_WARP * MAX_S];
+  int32_t sk_rhost[ROWS_PER_WARP * MAX_S];
 };
 
-// A wide instance's pass: row r's next list of up to MAX_K entries, by
-// (time, tie, slot) among its slots below the row's window end, from
-// rounds of a warp-wide minimum over the row in device memory (popped
-// slots read TIME_MAX there); then one round over all the row's slots
-// past the last listed entry gives the head once the list is popped.
-// Warp-wide: every lane calls it for the same r. Sets n_below[r] (the
-// pass's length), after[r], and the list's staged keys.
-template <class Smem>
-__device__ void take_pass(Smem &w, const int64_t *q_time, const int64_t *q_tie, int64_t row,
-                          int64_t Q, int r, int lane) {
-  const int64_t *tr = q_time + row * Q;
-  const int64_t *tier = q_tie + row * Q;
-  const int64_t lim = w.lim[r];
-  Key prev = {-1, 0, 0};
-  int n = 0;
-  for (; n < MAX_K; ++n) {
-    Key best = {TIME_MAX, I64_MAX, 0x7FFFFFFF};
-    for (int64_t s = lane; s < Q; s += WARP) {
-      const int64_t ts = tr[s];
-      if (ts >= lim) continue;
-      const Key ks = {ts, tier[s], int(s)};
-      if (key_less(prev, ks) && key_less(ks, best)) best = ks;
+// A wide launch's dynamic shared memory: its sizes and the byte offset
+// of each array (16-byte aligned), from pump_k (K) and the socket count
+// (S). The launch sizes the block with it; the kernel finds its arrays.
+struct WideLayout {
+  int32_t C;    // list entries a pass holds
+  int32_t SC;   // slots a row stages per read
+  int32_t F;    // defer-FIFO entries a row keeps here
+  int32_t own;  // FIFO entries carry their payload (K > C: passes reuse the list)
+  int32_t MW;   // socket-match words here (0: in device scratch)
+  uint32_t st_time, st_tie, f_time, f_tie, st_slot, p_kind, p_aux, p_data, f_aux, f_kind, f_data,
+      free_col, match, list, f_src, bytes;
+};
+__host__ __device__ inline int64_t match_words(int64_t S) {
+  return (ROWS_PER_WARP * S + WARP - 1) / WARP;
+}
+__host__ __device__ inline uint32_t wide_take(uint32_t &end, int64_t bytes) {
+  const uint32_t at = end;
+  end = uint32_t((end + bytes + 15) / 16 * 16);
+  return at;
+}
+__host__ __device__ inline WideLayout wide_layout(int64_t K, int64_t S) {
+  WideLayout L;
+  L.C = int(K < WIDE_LIST_CAP ? K : WIDE_LIST_CAP);
+  L.SC = wide_stage(L.C);
+  L.F = int(K < WIDE_FIFO_CAP ? K : WIDE_FIFO_CAP);
+  L.own = K > L.C;
+  L.MW = match_words(S) <= WIDE_MATCH_WORDS ? int(match_words(S)) : 0;
+  const int64_t R = ROWS_PER_WARP, SP = L.SC + 1, C = L.C, F = L.F;
+  uint32_t end = 0;
+  L.st_time = wide_take(end, R * SP * 8);  // [row][SC + 1], slot order
+  L.st_tie = wide_take(end, R * SP * 8);
+  L.f_time = wide_take(end, F * R * 8);  // [entry][row]
+  L.f_tie = wide_take(end, F * R * 8);
+  L.st_slot = wide_take(end, R * SP * 4);
+  L.p_kind = wide_take(end, C * R * 4);  // [list entry][row]
+  L.p_aux = wide_take(end, C * R * 4);
+  L.p_data = wide_take(end, R * (C * LANES + 4) * 4);  // [row][C * LANES + 4]
+  L.f_aux = wide_take(end, F * R * 4);
+  L.f_kind = wide_take(end, L.own ? F * R * 4 : 0);
+  L.f_data = wide_take(end, L.own ? R * (F * LANES + 4) * 4 : 0);
+  L.free_col = wide_take(end, R * C * 4);  // [row][C], ascending
+  L.match = wide_take(end, int64_t(L.MW) * 4);
+  L.list = wide_take(end, C * R);  // [list entry][row]: its staged index
+  L.f_src = wide_take(end, F * R);
+  L.bytes = end;
+  return L;
+}
+
+// A wide instance's static shared memory (the rest is WideLayout's).
+struct WideSmem {
+  alignas(16) int64_t piece[PIECES_IN_FLIGHT][PIECE];
+  int64_t lim[ROWS_PER_WARP];
+  int64_t rest[ROWS_PER_WARP];   // least time at or past the window end
+  int64_t after[ROWS_PER_WARP];  // head time once the pass is popped
+  int32_t n_st[ROWS_PER_WARP];    // staged slots
+  int32_t n_tied[ROWS_PER_WARP];  // the first of them, whose ties are staged
+  int32_t n_free[ROWS_PER_WARP];  // free columns seen (the first C recorded)
+  int32_t len[ROWS_PER_WARP];     // the pass's list length
+  int32_t want[ROWS_PER_WARP];    // entries the pass may list
+  // each going row's event, for the socket match: on (a packet), ports, source host
+  int32_t m_on[ROWS_PER_WARP], m_dport[ROWS_PER_WARP], m_sport[ROWS_PER_WARP], m_src[ROWS_PER_WARP];
+  WideLayout lay;
+  // never read: the body's SK names them where a wide instance reads device memory
+  int32_t sk_st[1], sk_lport[1], sk_rport[1], sk_rhost[1];
+};
+
+__device__ __forceinline__ unsigned char *wide_dynamic_smem() {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  return dyn;
+}
+
+// The arrays of a wide launch's dynamic shared memory.
+struct WideView {
+  unsigned char *d;
+  const WideLayout *L;
+  template <class T>
+  __device__ __forceinline__ T *at(uint32_t off) const { return reinterpret_cast<T *>(d + off); }
+  // staged slot e of row r: time, tie, column
+  __device__ __forceinline__ int64_t &time(int r, int e) const { return at<int64_t>(L->st_time)[r * (L->SC + 1) + e]; }
+  __device__ __forceinline__ int64_t &tie(int r, int e) const { return at<int64_t>(L->st_tie)[r * (L->SC + 1) + e]; }
+  __device__ __forceinline__ int32_t &slot(int r, int e) const { return at<int32_t>(L->st_slot)[r * (L->SC + 1) + e]; }
+  // list entry i of row r: its staged index and payload
+  __device__ __forceinline__ uint8_t &list(int i, int r) const { return at<uint8_t>(L->list)[i * ROWS_PER_WARP + r]; }
+  __device__ __forceinline__ int32_t &kind(int i, int r) const { return at<int32_t>(L->p_kind)[i * ROWS_PER_WARP + r]; }
+  __device__ __forceinline__ int32_t &aux(int i, int r) const { return at<int32_t>(L->p_aux)[i * ROWS_PER_WARP + r]; }
+  __device__ __forceinline__ int32_t *data(int r, int i) const {
+    return at<int32_t>(L->p_data) + r * (L->C * LANES + 4) + i * LANES;
+  }
+  __device__ __forceinline__ int32_t &free_col(int r, int i) const { return at<int32_t>(L->free_col)[r * L->C + i]; }
+  // defer-FIFO entry k (< F) of row r
+  __device__ __forceinline__ int64_t &f_time(int k, int r) const { return at<int64_t>(L->f_time)[k * ROWS_PER_WARP + r]; }
+  __device__ __forceinline__ int64_t &f_tie(int k, int r) const { return at<int64_t>(L->f_tie)[k * ROWS_PER_WARP + r]; }
+  __device__ __forceinline__ int32_t &f_aux(int k, int r) const { return at<int32_t>(L->f_aux)[k * ROWS_PER_WARP + r]; }
+  __device__ __forceinline__ int32_t &f_kind(int k, int r) const { return at<int32_t>(L->f_kind)[k * ROWS_PER_WARP + r]; }
+  __device__ __forceinline__ int32_t *f_data(int r, int k) const {
+    return at<int32_t>(L->f_data) + r * (L->F * LANES + 4) + k * LANES;
+  }
+  __device__ __forceinline__ int8_t &f_src(int k, int r) const { return at<int8_t>(L->f_src)[k * ROWS_PER_WARP + r]; }
+  __device__ __forceinline__ uint32_t *match() const { return at<uint32_t>(L->match); }
+};
+struct NoView {};
+
+template <bool WIDE, class Smem>
+__device__ __forceinline__ auto wide_view(Smem &w) {
+  if constexpr (WIDE)
+    return WideView{wide_dynamic_smem(), &w.lay};
+  else
+    return NoView{};
+}
+
+// Row r's stage is full: keep its best L + 1 entries by (time, tie,
+// slot), in that order at its front (the ties of [n_tied, n) are
+// gathered first). Warp-wide; n and n_tied become L + 1.
+__device__ __forceinline__ void wide_compact(const WideView &v, const int64_t *q_tie, int64_t row, int64_t Q,
+                             int r, int L, int &n, int &n_tied, int lane) {
+  for (int e = n_tied + lane; e < n; e += WARP) v.tie(r, e) = q_tie[row * Q + v.slot(r, e)];
+  __syncwarp();
+  constexpr int CH = (WIDE_MAX_SC + WARP - 1) / WARP;
+  Key k[CH];
+  int rank[CH];
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const int e = c * WARP + lane;
+    k[c] = {TIME_MAX, I64_MAX, 0x7FFFFFFF};
+    rank[c] = WIDE_MAX_SC;
+    if (e < n) {
+      k[c] = {v.time(r, e), v.tie(r, e), v.slot(r, e)};
+      int rk = 0;
+      for (int j = 0; j < n; ++j) {
+        const Key kj = {v.time(r, j), v.tie(r, j), v.slot(r, j)};
+        rk += key_less(kj, k[c]) ? 1 : 0;
+      }
+      rank[c] = rk;
     }
-    best = warp_min_key(best);
-    if (best.time >= lim) break;  // no slot below the window end is left
-    if (lane == 0) {
-      w.st_time[r][n] = best.time;
-      w.st_tie[r][n] = best.tie;
-      w.st_slot[r][n] = best.slot;
-      w.list[n][r] = int8_t(n);
+  }
+  __syncwarp();  // every entry is read before any moves
+#pragma unroll
+  for (int c = 0; c < CH; ++c)
+    if (rank[c] <= L) {
+      v.time(r, rank[c]) = k[c].time;
+      v.tie(r, rank[c]) = k[c].tie;
+      v.slot(r, rank[c]) = k[c].slot;
     }
-    prev = best;
+  __syncwarp();
+  n = n_tied = L + 1;
+}
+
+// A wide instance's pass, for every row of `rows` at once (warp-wide):
+// one streamed read of each row's `time` row stages its slots below the
+// window end (compacting to the best want + 1 whenever the stage fills,
+// then staging only slots no later than the last kept), the least time at
+// or past it and its first C free columns; then the staged slots' ties,
+// gathered for all rows at once, and each row's ranks: the first
+// min(want, staged) form its list (len), and the time after the list is
+// the head once it is popped (after). Reads w.lim and w.want.
+__device__ __forceinline__ void wide_read(WideSmem &w, const WideView &v, const int64_t *q_time,
+                          const int64_t *q_tie, int64_t row0, int64_t Q, unsigned rows, int lane) {
+  const int SC = w.lay.SC, FC = w.lay.C;
+  const int per_row = int((Q + PIECE - 1) / PIECE);
+  const int n_pieces = __popc(rows) * per_row;
+  auto fetch = [&](int p) {  // piece p: row p / per_row of `rows`, its chunk p % per_row
+    if (p < n_pieces) {
+      const int r = nth_bit(rows, p / per_row);
+      const int64_t base = int64_t(p % per_row) * PIECE;
+      const int n = int(imin(PIECE, Q - base));
+      const int64_t *src = q_time + (row0 + r) * Q + base;
+      int64_t *dst = w.piece[p % PIECES_IN_FLIGHT];
+      for (int j = lane; j < n; j += WARP) __pipeline_memcpy_async(dst + j, src + j, 8);
+    }
+    __pipeline_commit();
+  };
+  for (int p = 0; p < PIECES_IN_FLIGHT - 1; ++p) fetch(p);
+  int n = 0, n_tied = 0, n_free = 0, want = 0;
+  int64_t rest = TIME_MAX, cut = TIME_MAX;  // cut: the last kept time once the stage compacted
+  for (int p = 0; p < n_pieces; ++p) {
+    fetch(p + PIECES_IN_FLIGHT - 1);
+    __pipeline_wait_prior(PIECES_IN_FLIGHT - 1);
+    __syncwarp();  // piece p has landed, every lane's part of it
+    const int r = nth_bit(rows, p / per_row);
+    const int64_t base = int64_t(p % per_row) * PIECE;
+    const int np = int(imin(PIECE, Q - base));
+    const int64_t *t = w.piece[p % PIECES_IN_FLIGHT];
+    const int64_t lim = w.lim[r];
+    if (p % per_row == 0) want = w.want[r];
+    for (int j0 = 0; j0 < np; j0 += 2 * WARP) {
+      const int j = j0 + 2 * lane;
+      const longlong2 x = *reinterpret_cast<const longlong2 *>(t + j);
+      const int64_t t0 = x.x, t1 = x.y;
+      const bool in0 = j < np, in1 = j + 1 < np;
+      // 64 free slots add nothing once C free columns are recorded
+      if (n_free >= FC && !__any_sync(FULL, (in0 && t0 != TIME_MAX) || (in1 && t1 != TIME_MAX)))
+        continue;
+      if (in0 && t0 >= lim) rest = imin(rest, t0);
+      if (in1 && t1 >= lim) rest = imin(rest, t1);
+      const bool b0 = in0 && t0 < lim && t0 <= cut, b1 = in1 && t1 < lim && t1 <= cut;
+      const unsigned below = lanes_below(lane);
+      const unsigned m0 = __ballot_sync(FULL, b0), m1 = __ballot_sync(FULL, b1);
+      const int add = __popc(m0) + __popc(m1);
+      const int i0 = __popc(m0 & below) + __popc(m1 & below), i1 = i0 + b0;
+      // the iteration's staged slots, in slot order; a full stage compacts
+      for (int done = 0;;) {
+        const int room = SC - n;
+        if (b0 && i0 >= done && i0 - done < room) {
+          v.time(r, n + i0 - done) = t0;
+          v.slot(r, n + i0 - done) = int(base + j);
+        }
+        if (b1 && i1 >= done && i1 - done < room) {
+          v.time(r, n + i1 - done) = t1;
+          v.slot(r, n + i1 - done) = int(base + j + 1);
+        }
+        const int wrote = add - done < room ? add - done : room;
+        n += wrote;
+        done += wrote;
+        if (done == add) break;
+        __syncwarp();
+        wide_compact(v, q_tie, row0 + r, Q, r, want, n, n_tied, lane);
+        cut = v.time(r, want);
+      }
+      const bool f0 = in0 && t0 == TIME_MAX, f1 = in1 && t1 == TIME_MAX;
+      const unsigned g0 = __ballot_sync(FULL, f0), g1 = __ballot_sync(FULL, f1);
+      const int fat = n_free + __popc(g0 & below) + __popc(g1 & below);
+      if (f0 && fat < FC) v.free_col(r, fat) = int(base + j);
+      if (f1 && fat + f0 < FC) v.free_col(r, fat + f0) = int(base + j + 1);
+      n_free += __popc(g0) + __popc(g1);
+    }
+    if (p % per_row == per_row - 1) {  // the row's last piece
+      const int64_t m = warp_min_i64(rest);
+      if (lane == 0) {
+        w.n_st[r] = n;
+        w.n_tied[r] = n_tied;
+        w.n_free[r] = n_free;
+        w.rest[r] = m;
+      }
+      n = n_tied = n_free = 0;
+      rest = cut = TIME_MAX;
+    }
+    __syncwarp();  // done with the piece's buffer before it is refilled
   }
-  Key best = {TIME_MAX, I64_MAX, 0x7FFFFFFF};
-  for (int64_t s = lane; s < Q; s += WARP) {
-    const Key ks = {tr[s], tier[s], int(s)};
-    if (key_less(prev, ks) && key_less(ks, best)) best = ks;
+  // the ties of the staged slots not yet tied, for all rows at once
+  for (int c0 = 0;; c0 += WARP) {
+    int64_t tie[ROWS_PER_WARP];
+    bool any = false;
+#pragma unroll
+    for (int r = 0; r < ROWS_PER_WARP; ++r) {
+      const int e = w.n_tied[r] + c0 + lane;
+      const bool m = ((rows >> r) & 1u) && e < w.n_st[r];
+      tie[r] = m ? q_tie[(row0 + r) * Q + v.slot(r, e)] : 0;
+      any = any || m;
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS_PER_WARP; ++r) {
+      const int e = w.n_tied[r] + c0 + lane;
+      if (((rows >> r) & 1u) && e < w.n_st[r]) v.tie(r, e) = tie[r];
+    }
+    if (!__any_sync(FULL, any)) break;
   }
-  best = warp_min_key(best);
-  if (lane == 0) {
-    w.n_below[r] = n;
-    w.after[r] = best.time;
+  __syncwarp();
+  // each row's list: its staged slots ranked by (time, tie, slot), a lane
+  // per entry across the rows; ranks below want form the list, rank want
+  // is the head once it is popped
+  int total = 0;
+  for (int r = 0; r < ROWS_PER_WARP; ++r) total += ((rows >> r) & 1u) ? w.n_st[r] : 0;
+  for (int g0 = 0; g0 < total; g0 += WARP) {
+    const int g = g0 + lane;
+    int r = -1, e = 0;
+    for (int rr = 0, off = 0; rr < ROWS_PER_WARP && r < 0; ++rr) {
+      const int nr = ((rows >> rr) & 1u) ? w.n_st[rr] : 0;
+      if (g < off + nr) {
+        r = rr;
+        e = g - off;
+      }
+      off += nr;
+    }
+    if (r < 0) continue;
+    const int n_r = w.n_st[r], want_r = w.want[r];
+    const Key ke = {v.time(r, e), v.tie(r, e), v.slot(r, e)};
+    int rank = 0;
+#pragma unroll 4
+    for (int j = 0; j < n_r; ++j) {
+      const Key kj = {v.time(r, j), v.tie(r, j), v.slot(r, j)};
+      rank += key_less(kj, ke) ? 1 : 0;
+    }
+    if (rank < want_r) v.list(rank, r) = uint8_t(e);
+    if (rank == want_r) w.after[r] = ke.time;
   }
+  if (lane < ROWS_PER_WARP && ((rows >> lane) & 1u)) {
+    const int n_r = w.n_st[lane], want_r = w.want[lane];
+    if (n_r <= want_r) w.after[lane] = w.rest[lane];  // the row's every slot below the window end is listed
+    w.len[lane] = n_r < want_r ? n_r : want_r;
+  }
+  __syncwarp();
+}
+
+// A wide instance's socket match for the warp's rows (warp-wide): bit
+// r * S + s of `bits` is set where row r's event (w.m_*, for rows with
+// m_on) matches its socket s: established (not CLOSED or LISTEN) on the
+// packet's 4-tuple. The rows' sockets are ROWS_PER_WARP * S consecutive
+// ints of each field, read 32 at a time; only the words of the rows with
+// m_on (`on_rows`) are written.
+__device__ __forceinline__ void wide_match(const WideSmem &w, uint32_t *bits, const int32_t *st,
+                           const int32_t *lport, const int32_t *rport, const int32_t *rhost,
+                           int64_t row0, int S, unsigned on_rows, int lane) {
+  const int64_t first = row0 * S;
+  const int lo = (__ffs(on_rows) - 1) * S, hi = (32 - __clz(on_rows)) * S;
+#pragma unroll 4
+  for (int g0 = lo / WARP * WARP; g0 < hi; g0 += WARP) {
+    const int g = g0 + lane;
+    bool hit = false;
+    if (g >= lo && g < hi) {
+      const int r = g / S;
+      if (w.m_on[r]) {
+        const int32_t s_st = st[first + g];
+        hit = s_st != ST_CLOSED && s_st != ST_LISTEN && lport[first + g] == w.m_dport[r] &&
+              rhost[first + g] == w.m_src[r] && rport[first + g] == w.m_sport[r];
+      }
+    }
+    const unsigned word = __ballot_sync(FULL, hit);
+    if (lane == 0) bits[g0 / WARP] = word;
+  }
+}
+
+__device__ __forceinline__ void prefetch_l2(const void *p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// Bits [lo, lo + n) of a bit array's word wd, in place.
+__device__ __forceinline__ unsigned bits_in(unsigned word, int wd, int lo, int n) {
+  const int a = lo - wd * WARP, b = lo + n - wd * WARP;  // the range within the word: [a, b)
+  const unsigned from = a <= 0 ? FULL : (a >= WARP ? 0u : FULL << a);
+  const unsigned to = b >= WARP ? FULL : (b <= 0 ? 0u : FULL >> (WARP - b));
+  return word & from & to;
+}
+
+// Stage list entry i of row r of a wide pass (any lane may call it).
+__device__ __forceinline__ void wide_stage_payload(const WideView &v, const int32_t *kind,
+                                                   const int32_t *aux, const int32_t *data,
+                                                   int64_t row, int64_t Q, int r, int i) {
+  const int64_t at = row * Q + v.slot(r, v.list(i, r));
+  __pipeline_memcpy_async(&v.kind(i, r), kind + at, 4);
+  __pipeline_memcpy_async(&v.aux(i, r), aux + at, 4);
+  __pipeline_memcpy_async(v.data(r, i), data + at * LANES, 16);
+  __pipeline_memcpy_async(v.data(r, i) + 4, data + at * LANES + 4, 16);
+}
+
+// A wide row's defer-FIFO entry k: below F in shared memory (its payload
+// that of list entry f_src, or with pump_k past C its own), past it in
+// the row's device scratch `gf` (FIFO_WORDS words).
+__device__ __forceinline__ int64_t wf_time(const WideView &v, const int64_t *gf, int k, int r) {
+  const int F = v.L->F;
+  return k < F ? v.f_time(k, r) : gf[int64_t(k - F) * FIFO_WORDS];
+}
+__device__ __forceinline__ int64_t wf_tie(const WideView &v, const int64_t *gf, int k, int r) {
+  const int F = v.L->F;
+  return k < F ? v.f_tie(k, r) : gf[int64_t(k - F) * FIFO_WORDS + 1];
+}
+__device__ __forceinline__ void wf_payload(const WideView &v, const int64_t *gf, int k, int r,
+                                           int32_t &kind, int32_t &aux, int32_t (&data)[LANES]) {
+  const int F = v.L->F;
+  const int32_t *d;
+  if (k >= F) {
+    const int64_t *e = gf + int64_t(k - F) * FIFO_WORDS;
+    kind = int32_t(e[2]);
+    aux = int32_t(e[3]);
+    d = reinterpret_cast<const int32_t *>(e + 4);
+  } else if (v.L->own) {
+    kind = v.f_kind(k, r);
+    aux = v.f_aux(k, r);
+    d = v.f_data(r, k);
+  } else {
+    const int src = v.f_src(k, r);
+    kind = v.kind(src, r);
+    aux = v.f_aux(k, r);
+    d = v.data(r, src);
+  }
+#pragma unroll
+  for (int l = 0; l < LANES; ++l) data[l] = d[l];
+}
+// Append entry k (list entry src's event, deferred to `time`).
+__device__ __forceinline__ void wf_push(const WideView &v, int64_t *gf, int k, int r, int64_t time,
+                                        int64_t tie, int32_t kind, int32_t aux,
+                                        const int32_t (&data)[LANES], int src) {
+  const int F = v.L->F;
+  int32_t *d;
+  if (k >= F) {
+    int64_t *e = gf + int64_t(k - F) * FIFO_WORDS;
+    e[0] = time;
+    e[1] = tie;
+    e[2] = kind;
+    e[3] = aux;
+    d = reinterpret_cast<int32_t *>(e + 4);
+  } else {
+    v.f_time(k, r) = time;
+    v.f_tie(k, r) = tie;
+    v.f_aux(k, r) = aux;
+    if (!v.L->own) {
+      v.f_src(k, r) = int8_t(src);
+      return;
+    }
+    v.f_kind(k, r) = kind;
+    d = v.f_data(r, k);
+  }
+#pragma unroll
+  for (int l = 0; l < LANES; ++l) d[l] = data[l];
 }
 
 // Stage list entry i of row r (lane-independent: any lane may call it):
@@ -465,9 +859,12 @@ __device__ __forceinline__ void stage_payload(Smem &w, const int32_t *kind,
 
 #define P(type, name) (reinterpret_cast<type *>(a.name))
 
+// A wide instance names its one block an SM at least: without it ptxas
+// holds the kernel to 168 registers and spills.
 template <int MODEL, bool WIDE>
-__global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
-  __shared__ WarpSmem<max_sockets<MODEL>(), WIDE> w;
+__global__ void __launch_bounds__(WARP, WIDE ? 1 : 0) pump_megakernel(const PumpArgs a) {
+  __shared__ std::conditional_t<WIDE, WideSmem, WarpSmem<max_sockets<MODEL>()>> w;
+  const auto v = wide_view<WIDE>(w);  // a wide launch's dynamic arrays
   const int lane = int(threadIdx.x);
   const int64_t row0 = int64_t(blockIdx.x) * ROWS_PER_WARP;  // the warp's first row
   const int64_t h = row0 + lane;  // this lane's row (lanes below ROWS_PER_WARP)
@@ -661,7 +1058,30 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncwarp();
-  }  // !WIDE: a wide instance takes its first pass in the first microstep
+  } else {
+    // ---- A (wide). the rows' socket-matching fields towards L2 (the
+    // first microstep's match reads them), the layout, then the first
+    // pass of every live row ----
+    {
+      const int64_t first = row0 * S, end = imin(a.H * S, first + ROWS_PER_WARP * S);
+      for (int64_t g = (first & ~int64_t(WARP - 1)) + lane * WARP; g < end; g += WARP * WARP) {
+        prefetch_l2(P(int32_t, st) + g);
+        prefetch_l2(P(int32_t, lport) + g);
+        prefetch_l2(P(int32_t, rport) + g);
+        prefetch_l2(P(int32_t, rhost) + g);
+      }
+    }
+    if (lane == 0) w.lay = wide_layout(a.pump_k, a.S);
+    __syncwarp();
+    if (lane < ROWS_PER_WARP) w.want[lane] = w.lay.C;
+    __syncwarp();
+    wide_read(w, v, q_time, q_tie, row0, Q, live_rows, lane);
+    if (live && w.len[lane] > 0)
+      wide_stage_payload(v, P(int32_t, q_kind), P(int32_t, q_aux), P(int32_t, q_data), h, Q, lane, 0);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncwarp();
+  }
 
   // ---- B. the microsteps, one lane per row ----
   // flow-table row base
@@ -702,8 +1122,15 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
   const int32_t *ts_rport = P(int32_t, rport) + hs;
   const int32_t *ts_rhost = P(int32_t, rhost) + hs;
 #define SK(field, s) (WIDE ? ts_##field[s] : w.sk_##field[sk + (s)])
-  // a wide instance's defer FIFO: this row's pump_k entries
-  int64_t *fifo = WIDE && live ? P(int64_t, fifo) + h * K * FIFO_WORDS : nullptr;
+  // a wide instance's defer-FIFO entries past F (this row's device
+  // scratch) and the warp's socket-match bits
+  int64_t *fifo = nullptr;
+  uint32_t *match_bits = nullptr;
+  if constexpr (WIDE) {
+    const int F = w.lay.F;
+    if (live && K > F) fifo = P(int64_t, fifo) + h * (K - F) * FIFO_WORDS;
+    match_bits = w.lay.MW ? v.match() : P(uint32_t, match) + int64_t(blockIdx.x) * match_words(S);
+  }
 
   // outbox row
   uint8_t *obv = P(uint8_t, ob_valid) + h * O;
@@ -767,9 +1194,12 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
 #undef LOAD
   int64_t min_used_local = TIME_MAX;
   bool rejected = false;
-  // the list's length (a wide instance's: its current pass's, set when
-  // the pass is taken)
-  int n_listed = !WIDE && live ? int(imin(w.n_below[lane], K)) : 0;
+  // the list's length (a wide instance's: its current pass's)
+  int n_listed = 0;
+  if constexpr (WIDE)
+    n_listed = live ? w.len[lane] : 0;
+  else
+    n_listed = live ? int(imin(w.n_below[lane], K)) : 0;
   int qi = 0;  // queue entries popped: the candidate is list entry qi
   int f_head = 0, f_cnt = 0;  // this row's defer FIFO (w.f_*)
   bool active = live;
@@ -777,7 +1207,8 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
   for (int step = 0; step < K; ++step) {
     const unsigned going = __ballot_sync(FULL, active);
     if (going == 0) break;
-    if (!WIDE && step == 1) {
+    if constexpr (!WIDE) {
+    if (step == 1) {
       // the rest of the lists, for the rows that took their head
       const int pairs = ROWS_PER_WARP * (MAX_K - 1);
       for (int p = lane; p < pairs; p += WARP) {
@@ -789,30 +1220,75 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
       __pipeline_wait_prior(0);
       __syncwarp();
     }
-    if constexpr (WIDE) {
+    } else {
+      const int C = w.lay.C;
+      if (step == 1 && C > 1) {
+        // the rest of the first pass's lists, for the rows that took their head
+        const int pairs = ROWS_PER_WARP * (C - 1);
+        for (int p = lane; p < pairs; p += WARP) {
+          const int r = p / (C - 1), i = 1 + p % (C - 1);
+          if (((going >> r) & 1u) && i < w.len[r])
+            wide_stage_payload(v, P(int32_t, q_kind), P(int32_t, q_aux), P(int32_t, q_data), row0 + r, Q, r, i);
+        }
+        __pipeline_commit();
+        __pipeline_wait_prior(0);
+        __syncwarp();
+      }
       // a row that has popped its pass and whose head is below the window
-      // end takes its next pass (its first, at step 0), with the payloads
+      // end takes its next pass (pump_k past C), with its payloads
       const unsigned refill = __ballot_sync(FULL, active && qi == n_listed && qhead < we);
       if (refill) {
+        __threadfence_block();
         __syncwarp();  // the rows' pops, written to device memory, are seen by the warp
-        for (unsigned todo = refill; todo; todo &= todo - 1) {
-          const int r = __ffs(todo) - 1;
-          take_pass(w, q_time, q_tie, row0 + r, Q, r, lane);
-        }
+        if ((refill >> lane) & 1u) w.want[lane] = int(imin(C, K - step));
         __syncwarp();
-        for (int p = lane; p < ROWS_PER_WARP * MAX_K; p += WARP) {
-          const int r = p / MAX_K, i = p % MAX_K;
-          if (((refill >> r) & 1u) && i < w.n_below[r])
-            stage_payload(w, P(int32_t, q_kind), P(int32_t, q_aux), P(int32_t, q_data), row0 + r, Q, r, i);
+        wide_read(w, v, q_time, q_tie, row0, Q, refill, lane);
+        for (int p = lane; p < ROWS_PER_WARP * C; p += WARP) {
+          const int r = p / C, i = p % C;
+          if (((refill >> r) & 1u) && i < w.len[r])
+            wide_stage_payload(v, P(int32_t, q_kind), P(int32_t, q_aux), P(int32_t, q_data), row0 + r, Q, r, i);
         }
         __pipeline_commit();
         __pipeline_wait_prior(0);
         __syncwarp();
         if ((refill >> lane) & 1u) {
-          n_listed = w.n_below[lane];
+          n_listed = w.len[lane];
           qi = 0;
         }
       }
+      // the going rows' events (the body below picks the same one), then
+      // the warp's socket-match bits for those that are packets
+      bool on = false;
+      if (active) {
+        const bool fh_has = a.use_netstack && f_head < f_cnt;
+        const bool q_listed = qi < n_listed;
+        const int64_t q_tie_v = q_listed ? v.tie(lane, v.list(qi, lane)) : I64_MAX;
+        const int64_t fh_t = fh_has ? wf_time(v, fifo, f_head, lane) : TIME_MAX;
+        const bool use_f = fh_has && (qcount <= 0 || fh_t < qhead ||
+                                      (fh_t == qhead && wf_tie(v, fifo, f_head, lane) < q_tie_v));
+        const int64_t ev_time = use_f ? fh_t : qhead;
+        if ((use_f || (qcount > 0 && q_listed)) && ev_time < we) {
+          int32_t kind, aux, data[LANES];
+          if (use_f) {
+            wf_payload(v, fifo, f_head, lane, kind, aux, data);
+          } else {
+            kind = v.kind(qi, lane);
+            data[0] = v.data(lane, qi)[0];
+          }
+          const int64_t tie = use_f ? wf_tie(v, fifo, f_head, lane) : q_tie_v;
+          on = kind == KIND_PACKET;
+          w.m_dport[lane] = data[0] & 0xFFFF;
+          w.m_sport[lane] = (data[0] >> 16) & 0xFFFF;
+          w.m_src[lane] = int32_t((tie >> 32) & ((1 << 30) - 1));
+        }
+      }
+      if (lane < ROWS_PER_WARP) w.m_on[lane] = on;
+      const unsigned on_rows = __ballot_sync(FULL, on);
+      __syncwarp();  // the tuples are written, and the last microstep's reads of the bits done
+      if (on_rows)
+        wide_match(w, match_bits, P(int32_t, st), P(int32_t, lport), P(int32_t, rport),
+                   P(int32_t, rhost), row0, S, on_rows, lane);
+      __syncwarp();
     }
     if (!active) continue;
 
@@ -827,11 +1303,25 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
     // the queue's candidate is the row's next list entry; past the list
     // the head is at or past the window end and its tie is never compared
     const bool q_listed = qi < n_listed;
-    const int q_e = q_listed ? w.list[qi][lane] : 0;
-    const int q_slot = q_listed ? w.st_slot[lane][q_e] : 0;
-    const int64_t q_tie_v = q_listed ? w.st_tie[lane][q_e] : I64_MAX;
-    const int64_t fh_t = fh_has ? (WIDE ? fifo[f_head * FIFO_WORDS] : w.f_time[f_head][lane]) : TIME_MAX;
-    const int64_t fh_tie = fh_has ? (WIDE ? fifo[f_head * FIFO_WORDS + 1] : w.f_tie[f_head][lane]) : I64_MAX;
+    int q_slot = 0;
+    int64_t q_tie_v = I64_MAX, fh_t = TIME_MAX, fh_tie = I64_MAX;
+    if constexpr (WIDE) {
+      if (q_listed) {
+        const int q_e = v.list(qi, lane);
+        q_slot = v.slot(lane, q_e);
+        q_tie_v = v.tie(lane, q_e);
+      }
+      if (fh_has) {
+        fh_t = wf_time(v, fifo, f_head, lane);
+        fh_tie = wf_tie(v, fifo, f_head, lane);
+      }
+    } else {
+      const int q_e = q_listed ? w.list[qi][lane] : 0;
+      q_slot = q_listed ? w.st_slot[lane][q_e] : 0;
+      q_tie_v = q_listed ? w.st_tie[lane][q_e] : I64_MAX;
+      fh_t = fh_has ? w.f_time[f_head][lane] : TIME_MAX;
+      fh_tie = fh_has ? w.f_tie[f_head][lane] : I64_MAX;
+    }
     const bool use_f = fh_has && (!q_valid || fh_t < q_time_v ||
                                   (fh_t == q_time_v && fh_tie < q_tie_v));
     const int64_t ev_time = use_f ? fh_t : q_time_v;
@@ -841,17 +1331,21 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
       continue;
     }
     // the payload: the list entry's, or for a FIFO entry that of the
-    // entry it deferred
-    const int src = use_f && !WIDE ? w.f_src[f_head][lane] : qi;
+    // entry it deferred (a wide entry past the first pass: its own)
     const int64_t ev_tie = use_f ? fh_tie : q_tie_v;
     int32_t ev_kind, ev_aux;
     int32_t ev_data[LANES];
-    if (WIDE && use_f) {  // a wide FIFO entry carries its own payload
-      const int64_t *fe = fifo + f_head * FIFO_WORDS;
-      ev_kind = int32_t(fe[2]);
-      ev_aux = int32_t(fe[3]);
-      for (int l = 0; l < LANES; ++l) ev_data[l] = reinterpret_cast<const int32_t *>(fe + 4)[l];
+    int src = qi;
+    if constexpr (WIDE) {
+      if (use_f) {
+        wf_payload(v, fifo, f_head, lane, ev_kind, ev_aux, ev_data);
+      } else {
+        ev_kind = v.kind(qi, lane);
+        ev_aux = v.aux(qi, lane);
+        for (int l = 0; l < LANES; ++l) ev_data[l] = v.data(lane, qi)[l];
+      }
     } else {
+      src = use_f ? w.f_src[f_head][lane] : qi;
       ev_kind = w.p_kind[src][lane];
       ev_aux = use_f ? w.f_aux[f_head][lane] : w.p_aux[src][lane];
       for (int l = 0; l < LANES; ++l) ev_data[l] = w.p_data[lane][src * LANES + l];
@@ -907,17 +1401,15 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
     // ---- TCP classification: the matching slot(s) ----
     const int32_t sport = (ev_data[0] >> 16) & 0xFFFF;
     const int32_t dport = ev_data[0] & 0xFFFF;
-    // a matching slot: established (not CLOSED or LISTEN) on the packet's
-    // 4-tuple, for an arrived packet
-#define MATCHES(s)                                                                   \
-  (arrived && SK(st, s) != ST_CLOSED && SK(st, s) != ST_LISTEN && SK(lport, s) == dport && \
-   SK(rhost, s) == ev_src && SK(rport, s) == sport)
-    // the matching slots: a bit each (narrow); a wide instance scans for
-    // them again wherever they are walked (FOR_EACH_MATCH)
+    // the matching slots (established, not CLOSED or LISTEN, on the
+    // packet's 4-tuple), for an arrived packet: a bit each in a mask
+    // (narrow), or this row's bits of the warp's match bits (wide: bits
+    // sk .. sk + S - 1, found at the top of the microstep)
     unsigned oh = 0;
     bool rx_exact = false;
     if constexpr (WIDE) {
-      for (int s = 0; s < S && !rx_exact; ++s) rx_exact = MATCHES(s);
+      for (int wd = sk / WARP; arrived && wd <= (sk + S - 1) / WARP; ++wd)
+        rx_exact = rx_exact || bits_in(match_bits[wd], wd, sk, S) != 0;
     } else {
       for (int s = 0; s < S; ++s) {
         const int32_t st_s = w.sk_st[sk + s];
@@ -927,15 +1419,18 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
       }
       rx_exact = oh != 0;
     }
-#define FOR_EACH_MATCH(s, ...)                           \
-  if constexpr (WIDE) {                                  \
-    for (int s = 0; s < S; ++s)                          \
-      if (MATCHES(s)) { __VA_ARGS__ }                    \
-  } else {                                               \
-    for (unsigned m_ = oh; m_; m_ &= m_ - 1) {           \
-      const int s = __ffs(m_) - 1;                       \
-      __VA_ARGS__                                        \
-    }                                                    \
+#define FOR_EACH_MATCH(s, ...)                                           \
+  if constexpr (WIDE) {                                                  \
+    for (int wd = sk / WARP; arrived && wd <= (sk + S - 1) / WARP; ++wd) \
+      for (unsigned m_ = bits_in(match_bits[wd], wd, sk, S); m_; m_ &= m_ - 1) { \
+        const int s = wd * WARP + __ffs(m_) - 1 - sk;                    \
+        __VA_ARGS__                                                      \
+      }                                                                  \
+  } else {                                                               \
+    for (unsigned m_ = oh; m_; m_ &= m_ - 1) {                           \
+      const int s = __ffs(m_) - 1;                                       \
+      __VA_ARGS__                                                        \
+    }                                                                    \
   }
     // the one-hot reads (sums over matching slots; a row has at most one)
     int64_t v_st = 0, v_lport = 0, v_rport = 0, v_rhost = 0, v_una = 0, v_nxt = 0;
@@ -1130,7 +1625,10 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
       q_tie[h * Q + q_slot] = I64_MAX;
       qcount -= 1;
       qi += 1;
-      qhead = qi < n_listed ? w.st_time[lane][w.list[qi][lane]] : w.after[lane];
+      if constexpr (WIDE)
+        qhead = qi < n_listed ? v.time(lane, v.list(qi, lane)) : w.after[lane];
+      else
+        qhead = qi < n_listed ? w.st_time[lane][w.list[qi][lane]] : w.after[lane];
     }
 
     // ---- commit netstack state ----
@@ -1150,13 +1648,9 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
       rx_backlog += (defer ? size_in : 0) - ((take_tcp && shaped) ? size_in : 0);
       if (take_tcp) bytes_recv += size_in;
       if (defer) {  // deferred re-enqueue -> FIFO (ready is monotone per row)
-        if constexpr (WIDE) {  // the entry carries its payload
-          int64_t *fe = fifo + f_cnt * FIFO_WORDS;
-          fe[0] = ready;
-          fe[1] = ev_tie;
-          fe[2] = ev_kind;
-          fe[3] = int32_t(size_in) | AUX_SHAPED_BIT;
-          for (int l = 0; l < LANES; ++l) reinterpret_cast<int32_t *>(fe + 4)[l] = ev_data[l];
+        if constexpr (WIDE) {
+          wf_push(v, fifo, f_cnt, lane, ready, ev_tie, ev_kind, int32_t(size_in) | AUX_SHAPED_BIT,
+                  ev_data, src);
         } else {
           w.f_time[f_cnt][lane] = ready;
           w.f_tie[f_cnt][lane] = ev_tie;
@@ -1348,38 +1842,57 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
   // order (push_self_lanes: the l-th valid entry goes to the l-th free
   // slot); the free columns after the pops are those found in A and the
   // popped slots ----
-  if (WIDE && f_head < f_cnt) {
-    // a wide row: its free columns, in column order, from its `time` row
+  if constexpr (WIDE) {
+  if (f_head < f_cnt) {
+    // the free columns recorded in the row's last read (its first C, if
+    // it has that many) merged with the slots its pass popped; past the
+    // last recorded one, the row's `time` row is scanned from there
     const int room = int(Q - qcount);
-    int rank = 0;
+    const int C = w.lay.C;
+    const int nf = imin(w.n_free[lane], C);
+    const int last = w.n_free[lane] >= C ? v.free_col(lane, C - 1) : int(Q);
+    int rank = 0, prev = -1, fi = 0;
     int32_t over = 0;
-    int64_t col = 0, head_new = TIME_MAX;
+    int64_t head_new = TIME_MAX;
     for (int k = f_head; k < f_cnt; ++k) {
-      const int64_t *fe = fifo + k * FIFO_WORDS;
-      const int64_t tk = fe[0];
+      const int64_t tk = wf_time(v, fifo, k, lane);
       if (tk >= TIME_MAX || rank >= room) {  // the free-slot marker is never pushed
         ++over;
         continue;
       }
-      while (col < Q && q_time[h * Q + col] != TIME_MAX) ++col;
-      if (col == Q) {  // none: the count disagrees with the slots
+      while (fi < nf && v.free_col(lane, fi) <= prev) ++fi;
+      int col = fi < nf ? v.free_col(lane, fi) : int(Q);  // the next free column after `prev`
+      for (int i = 0; i < qi; ++i) {
+        const int c = v.slot(lane, v.list(i, lane));
+        if (c > prev && c < col) col = c;
+      }
+      if (col > last) {
+        int c = (prev > last ? prev : last) + 1;
+        while (c < Q && q_time[h * Q + c] != TIME_MAX) ++c;
+        col = c;
+      }
+      if (col >= int(Q)) {  // none: the count disagrees with the slots
         ++over;
         continue;
       }
       ++rank;
-      const int64_t at = h * Q + col++;
+      prev = col;
+      int32_t kind, aux, data[LANES];
+      wf_payload(v, fifo, k, lane, kind, aux, data);
+      const int64_t at = h * Q + col;
       q_time[at] = tk;
-      q_tie[at] = fe[1];
-      P(int32_t, q_kind)[at] = int32_t(fe[2]);
-      for (int l = 0; l < LANES; ++l)
-        P(int32_t, q_data)[at * LANES + l] = reinterpret_cast<const int32_t *>(fe + 4)[l];
-      P(int32_t, q_aux)[at] = int32_t(fe[3]);
+      q_tie[at] = wf_tie(v, fifo, k, lane);
+      P(int32_t, q_kind)[at] = kind;
+      for (int l = 0; l < LANES; ++l) P(int32_t, q_data)[at * LANES + l] = data[l];
+      P(int32_t, q_aux)[at] = aux;
       head_new = imin(head_new, tk);
     }
     qcount += rank;
     if (over) P(int32_t, q_overflow)[h] += over;
     qhead = imin(qhead, head_new);
-  } else if (f_head < f_cnt) {
+  }
+  } else {
+  if (f_head < f_cnt) {
     const int room = int(Q - qcount);
     const int nf = imin(w.n_free[lane], MAX_K);
     int rank = 0, prev = -1;
@@ -1419,6 +1932,7 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
     if (over) P(int32_t, q_overflow)[h] += over;
     qhead = imin(qhead, head_new);
   }
+  }
 
   P(int32_t, q_count)[h] = qcount;
   P(int64_t, q_head)[h] = qhead;
@@ -1455,7 +1969,6 @@ __global__ void __launch_bounds__(WARP) pump_megakernel(const PumpArgs a) {
 }
 
 #undef SK
-#undef MATCHES
 #undef FOR_EACH_MATCH
 #undef P
 
@@ -1466,22 +1979,36 @@ extern "C" {
 // Launch the instance of args->model (narrow, or wide when args->wide)
 // on `stream` (PyTorch's current stream); returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a model, pump_k or socket count no instance
-// is built for.
+// is built for. A wide launch takes WideLayout's dynamic shared memory,
+// its limit raised to that first.
 int pump_megakernel_launch(const PumpArgs *args, void *stream) {
   const int64_t blocks = (args->H + ROWS_PER_WARP - 1) / ROWS_PER_WARP;
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const bool narrow = !args->wide && args->pump_k <= MAX_K;
-  if (args->wide && args->model == MODEL_TGEN)
-    pump_megakernel<MODEL_TGEN, true><<<blocks, WARP, 0, st>>>(*args);
-  else if (args->wide && args->model == MODEL_ONION)
-    pump_megakernel<MODEL_ONION, true><<<blocks, WARP, 0, st>>>(*args);
-  else if (narrow && args->model == MODEL_TGEN && args->S <= max_sockets<MODEL_TGEN>())
+  if (args->wide && (args->model == MODEL_TGEN || args->model == MODEL_ONION)) {
+    const int bytes = int(wide_layout(args->pump_k, args->S).bytes);
+    const auto kernel = args->model == MODEL_TGEN ? pump_megakernel<MODEL_TGEN, true>
+                                                  : pump_megakernel<MODEL_ONION, true>;
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return int(e);
+    if (args->model == MODEL_TGEN)
+      pump_megakernel<MODEL_TGEN, true><<<blocks, WARP, bytes, st>>>(*args);
+    else
+      pump_megakernel<MODEL_ONION, true><<<blocks, WARP, bytes, st>>>(*args);
+  } else if (narrow && args->model == MODEL_TGEN && args->S <= max_sockets<MODEL_TGEN>())
     pump_megakernel<MODEL_TGEN, false><<<blocks, WARP, 0, st>>>(*args);
   else if (narrow && args->model == MODEL_ONION && args->S <= max_sockets<MODEL_ONION>())
     pump_megakernel<MODEL_ONION, false><<<blocks, WARP, 0, st>>>(*args);
   else
     return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());
+}
+
+// The dynamic shared memory a launch with these arguments takes, bytes
+// (0 for a narrow instance, whose shared memory is all static).
+int pump_megakernel_dynamic_smem(const PumpArgs *args) {
+  return args->wide ? int(wide_layout(args->pump_k, args->S).bytes) : 0;
 }
 
 int pump_megakernel_args_size() { return int(sizeof(PumpArgs)); }

@@ -14,8 +14,12 @@ the models that have them, tgen and onion, as template instances: a
 narrow one each, which holds a row's list, defer FIFO and socket fields
 in shared memory sized at compile time (pump_k <= MAX_K, at most
 MAX_SOCKETS sockets per row), and a wide one each, which takes any
-pump_k and any socket count. `kernel_args` picks the instance (the
-narrow one wherever it fits) and refuses any other model.
+pump_k and any socket count: its lists, FIFO and socket-match bits live
+in dynamic shared memory sized at launch, up to WIDE_LIST_CAP list
+entries per pass, WIDE_FIFO_CAP FIFO entries per row and
+WIDE_MATCH_WORDS match words per warp; what is past the last two goes
+to device scratch that `kernel_args` allocates. `kernel_args` picks the
+instance (the narrow one wherever it fits) and refuses any other model.
 `megakernel_stage` dispatches on where the state lives: on the card it
 launches the kernel (or raises — there is no fallback), on the CPU it
 runs the twin. An ensemble's rows view (engine/state.py::rows_view) is
@@ -81,7 +85,7 @@ _FIELDS = (
                            "trk_bytes_data", "trk_retrans", "window_end", "min_used")]
     + [("rejected", _I32)]
     + [("host_id", _I32), ("rng_key", _I64), ("host_node", _I32), ("lat_ns", _I64),
-       ("rel", _F32), ("codel_table", _I64), ("fifo", _I64)]
+       ("rel", _F32), ("codel_table", _I64), ("fifo", _I64), ("match", _I32)]
     + [(n, None) for n in ("H", "Q", "O", "S", "R", "N", "num_global_hosts", "pump_k", "wide",
                            "rows_per_replica", "bootstrap_end_ns", "use_netstack",
                            "use_sack", "tracker", "dyn_runahead", "model", "num_clients", "num_servers",
@@ -95,15 +99,21 @@ _FIELDS = (
 # The kernel's compile-time layout, as csrc/pump_megakernel.cu declares
 # it: host rows per warp, queue slots a row stages in shared memory, and
 # the one TCP shape (out-of-order ranges, segments per flush) it is built
-# for; the list entries a narrow instance holds (its pump_k limit, and a
-# wide instance's entries per pass) and the int64 words of a wide
-# instance's defer-FIFO entry. tests/test_torch_megakernel.py holds these
-# in step with the source.
+# for; the list entries a narrow instance holds (its pump_k limit) and
+# the int64 words of a wide instance's defer-FIFO entry in device
+# scratch; a wide instance's caps on its dynamic shared memory: list
+# entries per pass, FIFO entries per row (pump_k past it: the rest in
+# scratch) and socket-match words per warp (ROWS_PER_WARP x sockets bits;
+# past it: all in scratch). tests/test_torch_megakernel.py holds these in
+# step with the source.
 ROWS_PER_WARP = 8
 STAGE = 32
 TCP_SHAPE = (4, 4)
 MAX_K = 16
 FIFO_WORDS = 8
+WIDE_LIST_CAP = 64
+WIDE_FIFO_CAP = 64
+WIDE_MATCH_WORDS = 2048
 # The models whose pump rules the kernel carries: its id in
 # PumpArgs.model and the sockets per host row its narrow instance is
 # built for (the source's MODEL_* and *_MAX_S).
@@ -170,6 +180,8 @@ class PumpMegakernel:
         lib.pump_megakernel_launch.argtypes = [ctypes.POINTER(PumpArgs), ctypes.c_void_p]
         lib.pump_megakernel_launch.restype = ctypes.c_int
         lib.pump_megakernel_args_size.restype = ctypes.c_int
+        lib.pump_megakernel_dynamic_smem.argtypes = [ctypes.POINTER(PumpArgs)]
+        lib.pump_megakernel_dynamic_smem.restype = ctypes.c_int
         if lib.pump_megakernel_args_size() != ctypes.sizeof(PumpArgs):
             raise RuntimeError("PumpArgs layout differs between Python and CUDA")
         return lib
@@ -181,6 +193,12 @@ class PumpMegakernel:
         if key not in self._codel:
             self._codel[key] = codel_table(device)
         return self._codel[key]
+
+    def dynamic_smem(self, args: PumpArgs) -> int:
+        """Bytes of dynamic shared memory a launch with `args` takes (a
+        wide instance's, sized from pump_k and the socket count; 0 for a
+        narrow one)."""
+        return self.library().pump_megakernel_dynamic_smem(ctypes.byref(args))
 
     def launch(self, args: PumpArgs, device) -> None:
         lib = self.library()
@@ -223,8 +241,11 @@ def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTa
     """The kernel's argument struct for `st` (one world, or an ensemble's
     rows view, whose window_end and min_used are [R] and rejected [R]),
     after checking device, dtype, shape and contiguity of every tensor it
-    points at. A wide instance gets its defer-FIFO scratch here. Returns
-    (args, tensors): keep `tensors` alive until the launch is enqueued."""
+    points at. A wide instance gets its scratch here, only for what its
+    shared memory does not hold: the defer-FIFO entries past
+    WIDE_FIFO_CAP, and the socket-match words when a warp's are more than
+    WIDE_MATCH_WORDS. Returns (args, tensors): keep `tensors` alive until
+    the launch is enqueued."""
     instance = kernel_model(model)
     wide = kernel_instance(model, cfg) != instance
     p = model.tcp_params
@@ -242,6 +263,11 @@ def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTa
             f"{p.segs_per_flush} segments per flush (it is built for {TCP_SHAPE})")
     n = tables.lat_ns.shape[0]
     g = tables.host_node.shape[0]
+    words = -(-ROWS_PER_WARP * s // 32)
+    fifo_shape = ((h, cfg.pump_k - WIDE_FIFO_CAP, FIFO_WORDS)
+                  if wide and cfg.pump_k > WIDE_FIFO_CAP else (0,))
+    match_shape = ((-(-h // ROWS_PER_WARP), words)
+                   if wide and words > WIDE_MATCH_WORDS else (0,))
     shapes = {
         "q_time": (h, cap), "q_tie": (h, cap), "q_kind": (h, cap), "q_data": (h, cap, 8),
         "q_aux": (h, cap), "ooo": (h, s, r, 2), "sacked": (h, s, r, 2),
@@ -249,7 +275,7 @@ def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTa
         "ob_data": (h, o, 8), "ob_aux": (h, o), "rng_key": (h, 2), "window_end": world,
         "min_used": world, "rejected": (replicas or 1,), "host_node": (g,), "lat_ns": (n, n),
         "rel": (n, n), "codel_table": (1025,),
-        "fifo": (h, cfg.pump_k, FIFO_WORDS) if wide else (0,),
+        "fifo": fifo_shape, "match": match_shape,
     }
     tcp_names = {f.name for f in dataclasses.fields(ts)}
     tensors = {
@@ -277,8 +303,8 @@ def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTa
         "window_end": window_end, "min_used": st.min_used_lat, "rejected": rejected,
         "host_id": st.host_id, "rng_key": st.rng_key, "host_node": tables.host_node,
         "lat_ns": tables.lat_ns, "rel": tables.rel, "codel_table": codel_table,
-        "fifo": torch.empty(
-            (h, cfg.pump_k, FIFO_WORDS) if wide else (0,), dtype=torch.int64, device=st.device),
+        "fifo": torch.empty(fifo_shape, dtype=torch.int64, device=st.device),
+        "match": torch.empty(match_shape, dtype=torch.int32, device=st.device),
     }
     args = PumpArgs()
     dev = st.device

@@ -190,8 +190,10 @@ def test_layout_constants_match_the_kernel_source():
     instantiated in the source: per model a narrow one, built for the
     sockets its model has at its defaults (a narrow row's socket-match
     bitmask is 32 bits) and for pump_k up to MAX_K, and a wide one, which
-    takes any pump_k and socket count (its list in passes of MAX_K, its
-    defer FIFO of pump_k entries of FIFO_WORDS words each in device
+    takes any pump_k and socket count (in dynamic shared memory its list
+    of up to WIDE_LIST_CAP entries a pass, WIDE_FIFO_CAP defer-FIFO
+    entries a row and WIDE_MATCH_WORDS socket-match words a warp; FIFO
+    entries of FIFO_WORDS words and match words past those in device
     scratch)."""
     src = (REPO / "shadow_tpu_torch" / "csrc" / "pump_megakernel.cu").read_text()
 
@@ -201,6 +203,10 @@ def test_layout_constants_match_the_kernel_source():
     assert (constexpr("ROWS_PER_WARP"), constexpr("STAGE")) == (mk.ROWS_PER_WARP, mk.STAGE)
     assert (constexpr("MAX_K"), constexpr("FIFO_WORDS")) == (mk.MAX_K, mk.FIFO_WORDS)
     assert mk.STAGE > mk.MAX_K
+    assert (constexpr("WIDE_LIST_CAP"), constexpr("WIDE_FIFO_CAP"),
+            constexpr("WIDE_MATCH_WORDS")) == (mk.WIDE_LIST_CAP, mk.WIDE_FIFO_CAP,
+                                               mk.WIDE_MATCH_WORDS)
+    assert mk.MAX_K < mk.WIDE_LIST_CAP <= 127  # a list entry's FIFO reference is one byte
     assert (constexpr("NR"), constexpr("NSEG")) == mk.TCP_SHAPE
     assert mk.TCP_SHAPE == (TGEN_TCP.ooo_ranges, TGEN_TCP.segs_per_flush)
     assert {m: constexpr(f"MODEL_{m.upper()}") for m in mk.MODEL_IDS} == mk.MODEL_IDS

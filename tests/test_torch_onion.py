@@ -110,9 +110,9 @@ def test_one_stage_matches_jax_megakernel(onion_world, case):
 def test_kernel_args_carry_onion_rules(onion_world):
     """The wrapper passes onion's instance, socket count and veto scalars;
     past the narrow instance's 32 sockets (16 and 32 circuits per relay:
-    33 and 65 sockets) it picks onion's wide instance, with a defer-FIFO
-    scratch of pump_k entries per row; a model without a kernel instance
-    is refused."""
+    33 and 65 sockets) it picks onion's wide instance, whose defer FIFO
+    and socket-match words fit its shared memory there, so it gets no
+    device scratch; a model without a kernel instance is refused."""
     w = onion_world
     st, cfg, tables = w["states"]["burst"], w["cfg"], w["tables"]
     rej = torch.zeros((1,), dtype=torch.int32)
@@ -131,8 +131,10 @@ def test_kernel_args_carry_onion_rules(onion_world):
         args, keep = mk.kernel_args(bst, torch.tensor(BURST_NS), big, tables, cfg, rej, codel)
         assert (args.model, args.S, args.wide) == (mk.MODEL_IDS["onion"], sockets, 1)
         assert mk.kernel_instance(big, cfg) == "onion_wide"
-        assert tuple(keep["fifo"].shape) == (HOSTS, cfg.pump_k, mk.FIFO_WORDS)
-        assert args.fifo == keep["fifo"].data_ptr()
+        # pump_k 8 and 65 sockets: the FIFO and the match words fit shared memory
+        assert cfg.pump_k <= mk.WIDE_FIFO_CAP and 8 * sockets <= 32 * mk.WIDE_MATCH_WORDS
+        assert tuple(keep["fifo"].shape) == tuple(keep["match"].shape) == (0,)
+        assert (args.fifo or 0) == keep["fifo"].data_ptr() == 0  # ctypes: None for null
     cdn = CdnModel(num_hosts=HOSTS)
     with pytest.raises(NotYetPorted, match="CdnModel"):
         mk.kernel_args(st, torch.tensor(BURST_NS), cdn, tables, cfg, rej, codel)

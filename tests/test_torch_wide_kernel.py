@@ -3,10 +3,13 @@ take any pump_k and any socket count, as the wrapper sees them on the
 CPU: kernel_args picks a model's narrow instance wherever its list and
 sockets fit and the wide one past either limit (pump_k past MAX_K on
 tests/test_pump.py's tgen world; onion's 65 sockets are in
-test_torch_onion.py), with its defer-FIFO scratch; the twin the card
-holds the wide instance against equals the JAX package's pump stage at
-pump_k 40 on that world leaf for leaf, also where rows take 40 events
-in one launch. The instance
+test_torch_onion.py), with device scratch only for the defer-FIFO
+entries past what its shared memory holds; the twin the card holds the
+wide instance against equals the JAX package's pump stage at pump_k 40
+on that world leaf for leaf, also where rows take 40 events in one
+launch and where they hold more slots below the window end than a wide
+pass stages, with equal times and ties across the list's end. The
+instance
 itself runs only on the card (the `cuda`-marked test; chip_smoke.py's
 wide_kernel phase at full width). Exact equality."""
 
@@ -41,6 +44,7 @@ def _one_torch_thread():
 
 
 WIDE_K = 40
+BOUNDARY_ARRIVALS = chip_smoke.BOUNDARY_ARRIVALS
 MID = 10 * NS_PER_MS
 DEFER_NS = 45 * NS_PER_MS  # four of the eight rows have no event below the window
 
@@ -53,10 +57,14 @@ def _world(pump_k, engine="pump"):
 
 
 @pytest.mark.parametrize("pump_k,instance", [(1, "tgen"), (mk.MAX_K, "tgen"),
-                                             (mk.MAX_K + 1, "tgen_wide"), (WIDE_K, "tgen_wide")])
+                                             (mk.MAX_K + 1, "tgen_wide"), (WIDE_K, "tgen_wide"),
+                                             (mk.WIDE_FIFO_CAP + 16, "tgen_wide")])
 def test_kernel_args_pick_the_instance(pump_k, instance):
     """pump_k up to MAX_K runs the narrow instance, past it the wide one,
-    whose defer FIFO holds pump_k entries a row in device scratch."""
+    whose defer FIFO keeps WIDE_FIFO_CAP entries a row in shared memory:
+    device scratch holds the pump_k - WIDE_FIFO_CAP entries past them, and
+    exists only then. tgen's 4 sockets a row leave no match words to
+    scratch."""
     *_, cfg, model, tables, st = _world(pump_k)
     assert mk.kernel_instance(model, cfg) == instance
     rej = torch.zeros((1,), dtype=torch.int32)
@@ -64,23 +72,47 @@ def test_kernel_args_pick_the_instance(pump_k, instance):
                                 mk.PUMP_KERNEL.codel_table("cpu"))
     wide = instance.endswith("_wide")
     assert (args.pump_k, args.wide) == (pump_k, int(wide))
-    fifo = (st.num_hosts, pump_k, mk.FIFO_WORDS) if wide else (0,)
+    past = wide and pump_k > mk.WIDE_FIFO_CAP
+    fifo = (st.num_hosts, pump_k - mk.WIDE_FIFO_CAP, mk.FIFO_WORDS) if past else (0,)
     assert tuple(keep["fifo"].shape) == fifo
+    assert tuple(keep["match"].shape) == (0,)
+    # ctypes reads a null pointer (an empty tensor's) as None
+    assert (args.fifo or 0, args.match or 0) == (keep["fifo"].data_ptr(), keep["match"].data_ptr())
 
 
-@pytest.mark.parametrize("at_ns", [0, DEFER_NS])
-def test_twin_at_wide_pump_k_matches_jax_pump(at_ns):
+@pytest.mark.parametrize("at_ns,arrivals", [
+    pytest.param(0, 0, id="0"), pytest.param(DEFER_NS, WIDE_K, id=str(DEFER_NS)),
+    pytest.param(DEFER_NS, BOUNDARY_ARRIVALS, id="pass_boundary")])
+def test_twin_at_wide_pump_k_matches_jax_pump(at_ns, arrivals):
     """One twin stage at pump_k 40 (what the wide instance is held
     against on the card) equals the JAX package's pump_stage at pump_k 40
     (run eagerly: compiling 40 microsteps takes minutes): in the start's
     burst, and on the DEFER_NS state rebuilt by chip_smoke.deferring_queue
-    so that rows take 40 events each (P1 defers) and land 40 defers,
-    through every pass of a wide list."""
+    so that rows take 40 events each (P1 defers) and land 40 defers. The
+    pass boundary: rows gain BOUNDARY_ARRIVALS arrivals, more slots below
+    the window end than a wide pass stages, in runs of three at one time
+    and in pairs at one tie (group 3), so that arrivals 39 and 40 (the
+    list's last and the first after it) are equal in both and their
+    columns decide; chip_smoke.rebuilt_queue then puts each row's events
+    at random columns."""
     jcfg, jm, jt, jst, cfg, model, tables, st = _world(WIDE_K)
     if at_ns:
         mid = run_until(st, at_ns, model, tables, dataclasses.replace(cfg, engine="plain"))
         we = _next_window_end(mid, 10**9, cfg, equeue.next_time(mid.queue).amin(), tables)
-        st = chip_smoke.deferring_queue(mid, int(we), WIDE_K)
+        if arrivals == WIDE_K:
+            st = chip_smoke.deferring_queue(mid, int(we), WIDE_K)
+        else:
+            st = chip_smoke.rebuilt_queue(
+                chip_smoke.deferring_queue(mid, int(we), arrivals, group=3),
+                mid.queue.time.shape[1], int(we))
+            below = (st.queue.time < int(we)).sum(dim=1)
+            stage = max(mk.STAGE, -(-(min(WIDE_K, mk.WIDE_LIST_CAP) + 2) // 16) * 16)
+            assert int((below > stage).sum()) > 0
+            # the list's last entry and the first after it: one time, one tie
+            q = st.queue
+            for h in torch.nonzero(below >= arrivals).flatten().tolist():
+                keys = sorted(zip(q.time[h].tolist(), q.tie[h].tolist()))
+                assert keys[WIDE_K - 1] == keys[WIDE_K]
         assert int((st.queue.count - mid.queue.count).sum()) >= WIDE_K
     else:
         we = _next_window_end(st, 10**9, cfg, equeue.next_time(st.queue).amin(), tables)
