@@ -67,6 +67,20 @@ Phases, each printing one line; any failure exits non-zero:
      kernel run, kernel against twin at its end; ensemble-ragged, 10,235
      hosts x 2 replicas (a warp owns rows of both), kernel against twin;
      ensemble-cli, `run --replicas 2` on examples/phold (stop time cut);
+  9a. planes-10240, the reference's other execution planes through the
+     kernel: the bench world to 0.5 s with exchange "segment", with
+     active_lanes 1,280 (H / 8) and with both, each at the oracle's
+     counters and equal to the main path's final state (queues in pop
+     order; iters_done and lanes_live apart under compaction), and with
+     use_dynamic_runahead through the kernel engine and the twin engine,
+     every leaf equal; kernel vs twin, timed, on a compacted sub-state
+     with sentinel lanes (the lossy world at 10,240 hosts, whose hosts
+     spread), on a dyn_runahead launch in the burst whose min_used
+     changes, and on a compacted sub-state of the ragged ensemble
+     (10,235 x 2, 2,560 rows, 1,280 a replica); that ensemble with all
+     three planes to 30 ms against its single runs; how many of 10^6
+     f32 draws of rng.exponential_ns CUDA's log1pf makes differ from the
+     CPU's;
  10. the narrow instances' R = 1 launch times beside the earlier record,
      the wide instances' launch times beside theirs before the redesign,
      the kernels JSON line (one entry per template instance of the
@@ -239,6 +253,18 @@ ENS_RAGGED_REPLICAS = 2
 # the horizon of phold at full width
 SMALL_WORLD_END_NS = 200_000_000
 PHOLD_END_NS = 200_000_000
+# planes-10240: active_lanes = hosts / PLANES_LANES_DIV (1,280 at full
+# width, as tools/profile_kernels.py sizes it); the end of the search, in
+# steps of 1 ms from the lossy world's burst, for a state whose next
+# window holds fewer eligible rows than lanes; the ragged ensemble's horizon with all three
+# planes; the draws of rng.exponential_ns compared between the card and
+# the CPU
+PLANES_LANES_DIV = 8
+PLANES_SENTINEL_END_NS = 120_000_000
+PLANES_RAGGED_END_NS = 30_000_000
+PLANES_EXP_DRAWS = 1_000_000
+PLANES_EXP_SEED = 7
+PLANES_EXP_MEAN_NS = 1_000_000
 # H100 SXM device-memory rate (NVIDIA data sheet) for the bound column
 HBM_BYTES_PER_S = 3.35e12
 # non-tensor-core 32-bit rate (NVIDIA data sheet, FP32), the op yardstick
@@ -1576,6 +1602,254 @@ def ensemble_ragged_phase(hosts: int, dev) -> "tuple[bool, float]":
     return ok and straddled, err
 
 
+def pop_order(leaves: dict, drop=()) -> dict:
+    """A host snapshot (state_to_host) with each queue row in (time, tie)
+    pop order and dead slots' contents zeroed, without the leaves in
+    `drop`: what two runs that lay out their slots differently (the
+    segment landing) share."""
+    out = {k: v for k, v in leaves.items() if k not in drop}
+    time = leaves[".queue.time"]
+    dead = time >= (1 << 62) - 1
+    tie = np.where(dead, np.iinfo(np.int64).max, leaves[".queue.tie"])
+    order = np.lexsort((tie, time), axis=1)
+    oi = np.arange(time.shape[0])[:, None]
+    out[".queue.time"], out[".queue.tie"] = time[oi, order], tie[oi, order]
+    for f in ("kind", "aux"):
+        out[f".queue.{f}"] = np.where(dead, 0, leaves[f".queue.{f}"])[oi, order]
+    out[".queue.data"] = np.where(dead[:, :, None], 0, leaves[".queue.data"])[oi, order]
+    return out
+
+
+def snapshots_differ(want: dict, got: dict) -> "list[str]":
+    return [k for k in want if k not in got or got[k].shape != want[k].shape
+            or not np.array_equal(got[k], want[k])]
+
+
+def exponential_draws(dev, n: int = PLANES_EXP_DRAWS) -> dict:
+    """rng.exponential_ns on the card against the same draws on the CPU:
+    how many of n f32 Exp(1) draws -log1p(-u) CUDA's log1pf makes differ
+    from the CPU's, by how many ulps at most, and how many ns values
+    differ (the uniforms are integer arithmetic, equal on both)."""
+    from shadow_tpu_torch import rng
+
+    keys = rng.host_keys(PLANES_EXP_SEED, n, dev)
+    ctr = torch.arange(n, dtype=torch.int64, device=dev) & rng.MASK32
+    u = rng.uniform_f32(keys, ctr)
+    u_cpu = rng.uniform_f32(keys.cpu(), ctr.cpu())
+    draw, draw_cpu = -torch.log1p(-u), -torch.log1p(-u_cpu)
+    ulps = (draw.cpu().view(torch.int32).to(torch.int64)
+            - draw_cpu.view(torch.int32).to(torch.int64)).abs()
+    ns = rng.exponential_ns(keys, ctr, PLANES_EXP_MEAN_NS).cpu()
+    ns_cpu = rng.exponential_ns(keys.cpu(), ctr.cpu(), PLANES_EXP_MEAN_NS)
+    return dict(draws=n, uniforms_differing=int((u.cpu() != u_cpu).sum()),
+                draws_differing=int((ulps > 0).sum()), max_ulps=int(ulps.max()),
+                ns_differing=int((ns != ns_cpu).sum()),
+                max_ns_diff=int((ns - ns_cpu).abs().max()), mean_ns=PLANES_EXP_MEAN_NS)
+
+
+def planes_phase(hosts: int, end_ns: int, main_ref: dict, dev) -> "tuple[bool, dict]":
+    """planes-10240: the segment exchange, active-set compaction and
+    dynamic runahead through the kernel. bench-10240 to end_ns with
+    exchange "segment", with active_lanes H / 8 and with both: each must
+    reach the oracle's counters and equal the main path's final state
+    (`main_ref`, in pop order) but for iters_done and lanes_live under
+    compaction; with use_dynamic_runahead through the kernel and the twin
+    engine, every leaf equal. Kernel against twin, timed: a compacted
+    sub-state with sentinel lanes, a dyn_runahead launch whose min_used
+    changes, and a compacted sub-state of the ragged ensemble world
+    (replica-major, rows_per_replica = lanes). Then that ensemble with
+    all three planes on to PLANES_RAGGED_END_NS, each replica equal to
+    its single run. Launch counts are set to 0 just before each run and
+    read just after. Returns (ok, {"launches", "timed", "max_abs_err",
+    "exponential"})."""
+    from shadow_tpu_torch import equeue
+    from shadow_tpu_torch.engine import megakernel as mk
+    from shadow_tpu_torch.engine.ensemble import init_ensemble_state, replica_slice
+    from shadow_tpu_torch.engine.pump import pump_stage
+    from shadow_tpu_torch.engine.round import (
+        _next_window_end,
+        bootstrap,
+        gather_lanes,
+        run_until,
+    )
+    from shadow_tpu_torch.engine.state import init_state, rows_view, state_to_host
+    from shadow_tpu_torch.netstack import bw_bits_per_sec_to_refill
+    from shadow_tpu_torch.simtime import TIME_MAX
+
+    t_phase = time.perf_counter()
+    cfg, model, tables, st0 = bench_world(hosts, dev)
+    lanes = hosts // PLANES_LANES_DIV
+    full = hosts == BENCH_HOSTS and end_ns == BENCH_END_NS
+    want = dict(events=BENCH_EVENTS, streams_done=BENCH_STREAMS_DONE, bytes_down=BENCH_BYTES_DOWN)
+    shape = (".iters_done", ".lanes_live")
+    info = {"launches": {}, "timed": {}, "max_abs_err": 0.0}
+    ok = True
+
+    def counted(fn):
+        """fn() with the tgen launch count set to 0 just before and read
+        just after: (result, launches, drain iterations, wall s)."""
+        counters = {}
+        sync(dev)
+        mk.PUMP_KERNEL.launches_by_model["tgen"] = 0
+        t0 = time.perf_counter()
+        out = fn(counters)
+        sync(dev)
+        return (out, mk.PUMP_KERNEL.launches_by_model["tgen"], counters.get("iters", 0),
+                time.perf_counter() - t0)
+
+    # bench-10240 through the kernel: segment, compaction, both
+    variants = {"segment": dict(exchange="segment"), "compact": dict(active_lanes=lanes),
+                "segment-compact": dict(exchange="segment", active_lanes=lanes)}
+    for name, kw in variants.items():
+        vcfg = dataclasses.replace(cfg, **kw)
+        out, launches, iters, wall = counted(lambda c, v=vcfg: run_until(
+            st0, end_ns, model, tables, v, rounds_per_chunk=16, counters=c))
+        got = bench_counters(out)
+        drop = shape if "compact" in name else ()
+        bad = snapshots_differ(pop_order(main_ref, drop), pop_order(state_to_host(out), drop))
+        v_ok = ((got == want or not full) and not bad
+                and (dev.type == "cpu" or launches == iters > 0))
+        info["launches"][f"planes-{name}"] = launches
+        line("planes_bench", ok=v_ok, variant=name, hosts=hosts, end_ns=end_ns,
+             active_lanes=vcfg.active_lanes, exchange=vcfg.exchange, counters=got,
+             pinned=want if full else None, mismatched_leaves_vs_main_path=bad,
+             iters=iters, kernel_launches=launches, wall_s=round(wall, 3),
+             sim_s_per_wall_s=end_ns / 1e9 / wall,
+             iters_done=int(out.iters_done.sum()), lanes_live=int(out.lanes_live.sum()))
+        del out
+        ok = ok and v_ok
+
+    # dynamic runahead: the kernel engine against the twin engine
+    dcfg = dataclasses.replace(cfg, use_dynamic_runahead=True)
+    runs = {}
+    for eng, ecfg in (("megakernel", dataclasses.replace(dcfg, engine="megakernel")),
+                      ("pump", dataclasses.replace(dcfg, engine="pump",
+                                                   pump_k=mk.resolve_stage_cfg(cfg).pump_k))):
+        out, launches, iters, wall = counted(lambda c, e=ecfg: run_until(
+            st0, end_ns, model, tables, e, rounds_per_chunk=16, counters=c))
+        runs[eng] = dict(state=out, launches=launches, iters=iters, wall_s=round(wall, 3))
+    bad, err = leaves_equal(runs["pump"]["state"], runs["megakernel"]["state"])
+    k_run = runs["megakernel"]
+    d_ok = (not bad and (dev.type == "cpu" or k_run["launches"] == k_run["iters"] > 0)
+            and runs["pump"]["launches"] == 0 and int(k_run["state"].min_used_lat) < TIME_MAX)
+    info["launches"]["planes-dynamic"] = k_run["launches"]
+    info["max_abs_err"] = max(info["max_abs_err"], err)
+    line("planes_dynamic", ok=d_ok, hosts=hosts, end_ns=end_ns, mismatched_leaves=bad,
+         min_used_lat=int(k_run["state"].min_used_lat), now=int(k_run["state"].now),
+         counters=bench_counters(k_run["state"]),
+         rounds_live=int(k_run["state"].tracker.rounds_live),
+         **{f"{e}_{k}": v for e, r in runs.items() for k, v in r.items() if k != "state"})
+    ok = ok and d_ok
+    del runs, k_run
+
+    # kernel against twin at one launch each, timed. First a compacted
+    # sub-state with sentinel lanes. The bench world's pairs run in
+    # lockstep (a window holds all of them or none), so its state is the
+    # lossy world's of the ensemble cells at full width, whose loss draws
+    # spread its hosts: the plain engine's state at the first whole ms
+    # past its burst whose next window holds some eligible rows but fewer
+    # than `lanes`
+    lcfg, lmodel, ltables, l0 = lossy_world(hosts, dev, n_nodes=ENS_TGEN_NODES)
+    lplain = dataclasses.replace(lcfg, engine="plain")
+    sentinel, st_s = None, l0
+    for t in range(LOSSY_MID_NS_SHAPED, PLANES_SENTINEL_END_NS, 1_000_000):
+        st_s = run_until(st_s, t, lmodel, ltables, lplain, rounds_per_chunk=16)
+        we_s = _next_window_end(st_s, ONION_WINDOW_CAP_NS, lcfg,
+                                equeue.next_time(st_s.queue).amin(), ltables)
+        elig = int((equeue.next_time(st_s.queue) < we_s).sum())
+        if 0 < elig < lanes:
+            sentinel = (t, st_s, we_s, elig)
+            break
+    del l0
+    if sentinel is None:
+        line("planes_kernel_vs_twin", ok=False, launch="compacted_sentinel",
+             note=f"no state to {PLANES_SENTINEL_END_NS} ns has 0 < eligible rows < {lanes}")
+        return False, info
+    t, st_s, we_s, elig = sentinel
+    sub, _, live = gather_lanes(st_s, we_s, lanes)
+    s_ok, entry, err = timed_stage("planes_kernel_vs_twin", sub, we_s, lmodel, ltables,
+                                   mk.resolve_stage_cfg(lcfg), 20, dev,
+                                   launch="compacted_sentinel", world=f"lossy-{hosts}",
+                                   at_ns=t, lanes=lanes, eligible=elig,
+                                   sentinel_lanes=int((~live).sum()))
+    info["timed"]["compacted_sentinel"] = entry
+    info["max_abs_err"] = max(info["max_abs_err"], err)
+    ok = ok and s_ok and int((~live).sum()) > 0
+    del sub, st_s
+
+    # dyn_runahead=1 at the burst, min_used reset to TIME_MAX: the launch's
+    # cross-host packets must fold into it
+    st_d = run_until(st0, BURST_NS, model, tables, dataclasses.replace(cfg, engine="plain"))
+    we = _next_window_end(st_d, end_ns, cfg, equeue.next_time(st_d.queue).amin(), tables)
+    st_d.min_used_lat.fill_(TIME_MAX)
+    dscfg = mk.resolve_stage_cfg(dcfg)
+    d_ok, entry, err = timed_stage("planes_kernel_vs_twin", st_d, we, model, tables, dscfg, 20,
+                                   dev, must_take=True, launch="dyn_runahead")
+    after = pump_stage(st_d.clone(), we, model, tables, dscfg)[0]
+    moved = int(after.min_used_lat)
+    line("planes_min_used", ok=moved < TIME_MAX, launch="dyn_runahead", before=TIME_MAX,
+         after=moved)
+    info["timed"]["dyn_runahead"] = dict(entry, min_used_after=moved)
+    info["max_abs_err"] = max(info["max_abs_err"], err)
+    ok = ok and d_ok and moved < TIME_MAX
+    del st_d, after, st0
+
+    # the ragged ensemble world with all three planes
+    r = ENS_RAGGED_REPLICAS
+    rh = hosts - RAGGED_SHORT
+    rcfg, rmodel, rtables, _ = lossy_world(rh, dev, n_nodes=ENS_TGEN_NODES)
+    rlanes = lanes  # 2 x 1,280 rows at full width
+    pcfg = dataclasses.replace(rcfg, exchange="segment", active_lanes=rlanes,
+                               use_dynamic_runahead=True)
+    bw = bw_bits_per_sec_to_refill(20_000_000)
+    ends = (LOSSY_MID_NS_SHAPED, PLANES_RAGGED_END_NS)
+    ens0 = init_ensemble_state(pcfg, rmodel, r, 1, bw, bw, device=dev)
+    (mid, out), wall, iters, launches, _ = ensemble_main_path(
+        ens0, rmodel, rtables, pcfg, "tgen", ends, dev)
+    del ens0
+    info["launches"][f"planes-ragged-{rh}x{r}"] = launches
+    singles = {}
+    for i in range(r):
+        icfg = dataclasses.replace(pcfg, seed=pcfg.seed + i)
+        s0 = bootstrap(init_state(icfg, rmodel.init(dev), bw, bw, device=dev), rmodel, icfg)
+        one, wall1, iters1, _ = single_main_path(s0, rmodel, rtables, icfg, ends, dev)
+        singles[i] = dict(bad=leaves_equal(replica_slice(out, i), one)[0],
+                          wall_s=round(wall1, 3), iters=iters1)
+        del one, s0
+    e_ok = ((dev.type == "cpu" or launches == iters > 0)
+            and not any(s["bad"] for s in singles.values())
+            and len(set(out.events_handled.sum(dim=1).tolist())) > 1)
+    line("planes_ragged_ensemble", ok=e_ok, cell=f"planes-ragged-{rh}x{r}", hosts=rh,
+         replicas=r, active_lanes=rlanes, exchange="segment", dynamic_runahead=True,
+         end_ns=PLANES_RAGGED_END_NS, wall_s=round(wall, 3), iters=iters,
+         kernel_launches=launches, events_per_replica=out.events_handled.sum(dim=1).tolist(),
+         min_used_lat=out.min_used_lat.tolist(),
+         singles={i: {k: v for k, v in s.items()} for i, s in singles.items()})
+    ok = ok and e_ok
+    del out
+
+    # a compacted sub-state of the ensemble's rows at the burst: R x lanes
+    # rows, replica-major, each row reading its replica's window end
+    rows = rows_view(mid)
+    we_r = ensemble_window(rows, pcfg, rtables)
+    sub, _, live = gather_lanes(rows, we_r, rlanes)
+    c_ok, entry, err = timed_stage(
+        "planes_kernel_vs_twin", sub, we_r, rmodel, rtables, mk.resolve_stage_cfg(pcfg), 20,
+        dev, must_take=True, launch="ensemble_compacted", rows=int(sub.num_hosts),
+        rows_per_replica=rlanes, replicas=r, sentinel_lanes=int((~live).sum()),
+        window_end=we_r.tolist())
+    info["timed"]["ensemble_compacted"] = entry
+    info["max_abs_err"] = max(info["max_abs_err"], err)
+    ok = ok and c_ok and int(sub.num_hosts) == r * rlanes
+    del sub, rows, mid
+
+    info["exponential"] = exponential_draws(dev)
+    line("exponential_ns", **info["exponential"])
+    line("planes", ok=ok, seconds=round(time.perf_counter() - t_phase, 3),
+         launches=info["launches"])
+    return ok, info
+
+
 def main(argv=None) -> int:
     try:
         return run_phases(argv)
@@ -1861,7 +2135,6 @@ def run_phases(argv=None) -> int:
     ok_c, checkpoint_launches = checkpoint_phase(args.hosts, args.end_ns, dev)
     if not ok_c:
         return 1
-    del main_final
 
     # 6. the CLI entry point on the tgen example
     if not cli_phase("tgen/shadow.yaml", TGEN_EXAMPLE_STATS, dev)[0]:
@@ -1911,6 +2184,14 @@ def run_phases(argv=None) -> int:
     if not ok9:
         return 1
 
+    # 9a. planes-10240: the segment exchange, compaction and dynamic
+    # runahead through the kernel, against the main path and the twin
+    ok_p, planes = planes_phase(args.hosts, args.end_ns, main_final, dev)
+    del main_final
+    max_err["tgen"] = max(max_err["tgen"], planes["max_abs_err"])
+    if not ok_p:
+        return 1
+
     if dev.type == "cpu":
         line("rehearsal_done", note="no result: the kernel runs only on the card")
         return 3
@@ -1942,11 +2223,16 @@ def run_phases(argv=None) -> int:
     # with that phase's launches on its main path and its timed launch
     ensemble = {"tgen": [ens_tgen["phase"], f"ensemble-ragged-{args.hosts - RAGGED_SHORT}x"
                          f"{ENS_RAGGED_REPLICAS}", f"recovery-ensemble-{args.hosts}x"
-                         f"{RECOVERY_ENS_REPLICAS}"],
+                         f"{RECOVERY_ENS_REPLICAS}", f"planes-ragged-{args.hosts - RAGGED_SHORT}x"
+                         f"{ENS_RAGGED_REPLICAS}"],
                 "onion": [ens_onion["phase"]], "tgen_wide": [], "onion_wide": []}
     ens_launch = {"tgen": ens_tgen, "onion": ens_onion, "tgen_wide": None, "onion_wide": None}
     # launches on the paths of this slice's phases, besides the main path's
-    more = {"tgen": {"recovery": recovery_launches, "checkpoint": checkpoint_launches}}
+    more = {"tgen": {"recovery": recovery_launches, "checkpoint": checkpoint_launches,
+                     **planes["launches"]}}
+    # the launches planes-10240 timed: on compacted sub-states and with
+    # dyn_runahead set
+    planes_timed = {"tgen": planes["timed"]}
     print(json.dumps({"kernels": [{
         "name": f"pump_megakernel[{m}]",
         "route": "cuda",
@@ -1960,6 +2246,7 @@ def run_phases(argv=None) -> int:
         "launched_with_replicas_by": ensemble[m],
         "ensemble": ens_launch[m],
         "launches_on_other_paths": more.get(m, {}),
+        "planes": planes_timed.get(m, {}),
     } for m in mk.INSTANCES]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

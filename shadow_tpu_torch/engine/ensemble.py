@@ -43,7 +43,6 @@ import numpy as np
 import torch
 
 from shadow_tpu_torch import equeue, rng
-from shadow_tpu_torch.config.options import NotYetPorted
 from shadow_tpu_torch.engine.round import (
     PROBE_FIELDS,
     ChunkProbe,
@@ -253,8 +252,6 @@ def run_ensemble_until(
     world's (the reference's _drive_ensemble), each patched by
     _patch_snapshot."""
     cfg = ensemble_engine_cfg(cfg)
-    if cfg.exchange == "segment":
-        raise NotYetPorted("exchange: segment")
     validate_runahead(cfg, tables)
     n = num_replicas(st)
     nt = _LANE["next_time"]

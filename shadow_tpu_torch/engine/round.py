@@ -1,5 +1,6 @@
 """The conservative-PDES round engine (port of shadow_tpu/engine/round.py,
-single-device dense path).
+single device: the dense and segment exchanges, active-set compaction,
+fixed, adaptive and dynamic runahead windows).
 
 Each round is a window [start, window_end) in which every host drains
 its own event queue; cross-host packets stage into per-host outboxes
@@ -28,10 +29,10 @@ import numpy as np
 import torch
 
 from shadow_tpu_torch import equeue, netstack, rng
-from shadow_tpu_torch.config.options import NotYetPorted
 from shadow_tpu_torch.engine.state import (
     EngineConfig,
     SimState,
+    map_host_leaves,
     per_replica,
     per_row,
     replicas_of,
@@ -59,6 +60,9 @@ class Draw:
 
     def uniform_int(self, i: int, lo, hi) -> torch.Tensor:
         return rng.uniform_int(self.key, (self.counter + i) & rng.MASK32, lo, hi)
+
+    def exponential_ns(self, i: int, mean_ns) -> torch.Tensor:
+        return rng.exponential_ns(self.key, (self.counter + i) & rng.MASK32, mean_ns)
 
 
 def _lane_seqs(valid: torch.Tensor, base: torch.Tensor):
@@ -324,9 +328,25 @@ def flush_outbox(st: SimState, cfg: "EngineConfig | None" = None) -> SimState:
     return _flush_outbox_traffic(st, cfg)
 
 
+def _fresh_outbox(ob, pool_drop=None):
+    """The outbox after a flush: no entry staged; `pool_drop` ([R], or one
+    value) counts into the overflow of each world's first row."""
+    overflow = ob.overflow
+    if pool_drop is not None:
+        overflow = overflow.clone()
+        overflow.reshape(pool_drop.numel(), -1)[:, 0] += pool_drop.reshape(-1)
+    return _replace(
+        ob,
+        valid=torch.zeros_like(ob.valid),
+        time=torch.full_like(ob.time, TIME_MAX),
+        fill=torch.zeros_like(ob.fill),
+        overflow=overflow,
+    )
+
+
 def _flush_outbox_traffic(st: SimState, cfg: "EngineConfig | None" = None) -> SimState:
     if cfg is not None and cfg.exchange == "segment":
-        raise NotYetPorted("exchange: segment")
+        return _flush_segment(st, cfg)
     ob = st.outbox
     h, o_cap = ob.valid.shape
     m = h * o_cap
@@ -357,13 +377,116 @@ def _flush_outbox_traffic(st: SimState, cfg: "EngineConfig | None" = None) -> Si
         deliver_lanes=lanes if lanes > 0 else st.queue.capacity,
         rows_per_world=h_world,
     )
-    fresh = _replace(
-        ob,
-        valid=torch.zeros_like(ob.valid),
-        time=torch.full_like(ob.time, TIME_MAX),
-        fill=torch.zeros_like(ob.fill),
+    return _replace(st, queue=queue, outbox=_fresh_outbox(ob))
+
+
+def _pool_order(key, time, tie):
+    """[W, M] permutation: each line's entries in the stable order of the
+    key triple (key, time, tie), as one stable multi-key sort orders them:
+    stable single-key sorts, least significant key first."""
+    perm = torch.arange(key.shape[1], device=key.device).expand_as(key)
+    for k in (tie, time, key):
+        _, idx = torch.sort(torch.gather(k, 1, perm), dim=1, stable=True)
+        perm = torch.gather(perm, 1, idx)
+    return perm
+
+
+def _flush_segment(st: SimState, cfg: EngineConfig) -> SimState:
+    """The segment exchange (exchange="segment", single device): each
+    world's staged entries sorted stably by (destination, time, tie),
+    valid ones first, into a pool; the pool's first pool_capacity entries
+    (0: the whole outbox, never truncating) land through
+    equeue.push_many_segment, and the valid entries cut off count into
+    the outbox overflow of the world's first row. On an ensemble's rows
+    each replica has a pool of its own, as under the reference's vmap.
+    Pop order equals the dense exchange's; slot placement differs."""
+    ob = st.outbox
+    h, o_cap = ob.valid.shape
+    worlds = replicas_of(st) or 1
+    h_world = h // worlds
+    m = h_world * o_cap
+
+    def per_world(x):
+        return x.reshape((worlds, m) + tuple(x.shape[2:]))
+
+    valid, dst = per_world(ob.valid), per_world(ob.dst)
+    key = torch.where(valid, dst.to(torch.int64), 1 << 30)
+    perm = _pool_order(key, per_world(ob.time), per_world(ob.tie))
+    e_max = min(cfg.pool_capacity or m, m)
+    perm = perm[:, :e_max]
+    pool_drop = None
+    if e_max < m:
+        pool_drop = torch.clamp(valid.sum(dim=1) - e_max, min=0).to(torch.int32)
+
+    def pool(x):
+        x = per_world(x)
+        idx = perm.reshape(perm.shape + (1,) * (x.dim() - 2)).expand(
+            (worlds, e_max) + tuple(x.shape[2:]))
+        return torch.gather(x, 1, idx).reshape((worlds * e_max,) + tuple(x.shape[2:]))
+
+    valid_p, dst_p = pool(ob.valid), pool(ob.dst).to(torch.int64)
+    mine = valid_p & (dst_p >= 0) & (dst_p < h_world)
+    first_row = torch.arange(worlds * e_max, device=dst_p.device) // e_max * h_world
+    queue = equeue.push_many_segment(
+        st.queue,
+        dst=dst_p + first_row,
+        valid=mine,
+        time=pool(ob.time),
+        tie=pool(ob.tie),
+        kind=torch.full((worlds * e_max,), KIND_PACKET, dtype=torch.int32, device=dst_p.device),
+        data=pool(ob.data),
+        aux=pool(ob.aux),
+        rows_per_world=h_world,
     )
-    return _replace(st, queue=queue, outbox=fresh)
+    return _replace(st, queue=queue, outbox=_fresh_outbox(ob, pool_drop))
+
+
+def _compact_rows(st: SimState, window_end, lanes: int):
+    """The live-lane permutation of active-set compaction: lane i of a
+    world takes the world's i-th row whose next event is inside its
+    window. Returns (rows, live): `rows` ([R * lanes], or [lanes] for one
+    world) indexes the gather, replica-major, and a sentinel lane (a
+    world with fewer eligible rows than lanes) points at the world's
+    last row; `live` marks the real lanes."""
+    worlds = replicas_of(st) or 1
+    h_world = st.num_hosts // worlds
+    elig = (equeue.next_time(st.queue) < per_row(st, window_end)).reshape(worlds, h_world)
+    pos = torch.cumsum(elig.to(torch.int64), dim=1) - 1
+    lane = torch.where(elig & (pos < lanes), pos, lanes)  # lane `lanes`: not taken
+    rows = torch.full((worlds, lanes + 1), h_world, dtype=torch.int64, device=st.device)
+    cols = torch.arange(h_world, device=st.device).expand(worlds, h_world)
+    rows = rows.scatter(1, lane, cols)[:, :lanes]
+    live = rows < h_world
+    first = torch.arange(worlds, device=st.device)[:, None] * h_world
+    return (torch.clamp(rows, max=h_world - 1) + first).reshape(-1), live.reshape(-1)
+
+
+def gather_lanes(st: SimState, window_end, lanes: int):
+    """The compacted sub-state of one iteration: `lanes` rows a world
+    (replica-major on an ensemble's rows), per-world leaves taken whole,
+    sentinel lanes' head times at TIME_MAX. Returns (sub, rows, live)
+    with _compact_rows' gather index and live mask."""
+    rows, live = _compact_rows(st, window_end, lanes)
+    sub = map_host_leaves(lambda a: a.index_select(0, rows), st)
+    q = sub.queue
+    return _replace(sub, queue=_replace(q, head_time=_W(live, q.head_time, TIME_MAX))), rows, live
+
+
+def compact_step(st: SimState, window_end, lanes: int, body) -> SimState:
+    """Active-set compaction around one drain-iteration body: gather the
+    rows of at most `lanes` hosts per world whose next event is inside
+    the window into a sub-state (per-world leaves taken whole), run
+    `body` there, and write the live lanes back. Hosts are independent
+    inside a window, so handling a subset per iteration gives each host
+    the same event sequence. A sentinel lane's head time is forced to
+    TIME_MAX, which keeps it inert in every body (the kernel gates on it
+    too), and it is never written back."""
+    sub, rows, live = gather_lanes(st, window_end, lanes)
+    sub = body(sub)
+    keep = live.nonzero()[:, 0]
+    back = rows.index_select(0, keep)
+    return map_host_leaves(lambda full, g: full.index_copy(0, back, g.index_select(0, keep)),
+                           st, sub)
 
 
 def effective_engine(cfg: EngineConfig, device) -> str:
@@ -390,9 +513,15 @@ def run_round(st: SimState, window_end, model, tables: RoutingTables,
     loop runs this round; the others' tracker marks stay as they were
     (they have no eligible event and no traffic, so nothing else of
     theirs changes)."""
-    if cfg.active_lanes > 0:
-        raise NotYetPorted("active_lanes > 0 (active-set compaction)")
+    replicas = replicas_of(st)
+    h_world = st.num_hosts // (replicas or 1)
+    lanes = cfg.active_lanes
+    compact = 0 < lanes < h_world
+    # a compacted iteration handles at most `lanes` hosts of a world, so
+    # the cap on a round's work scales by the waves it splits into
     max_iters = cfg.max_iters_per_round
+    if compact:
+        max_iters *= -(-h_world // lanes)
     eng = effective_engine(cfg, st.device)
     stage, stage_cfg = None, cfg
     if model_pump_capable(model):
@@ -408,7 +537,19 @@ def run_round(st: SimState, window_end, model, tables: RoutingTables,
 
             stage = pump_stage
 
-    replicas = replicas_of(st)
+    def body(s):
+        """One iteration over the rows `s` holds (all, or a compacted
+        sub-state): the pump stage, then the handler where some row
+        rejected its head event (on an ensemble, on the rows of the
+        replicas that rejected one); the plain handler without a stage."""
+        if stage is None:
+            return handle_one_iteration(s, window_end, model, tables, cfg)
+        s, rej = stage(s, window_end, model, tables, stage_cfg)
+        if bool(rej.any()):
+            rows = None if replicas is None else per_row(s, rej)
+            s = handle_one_iteration(s, window_end, model, tables, cfg, rows=rows)
+        return s
+
     we_rows = per_row(st, window_end)
     iters = 0
     # each replica's own iteration count (an ensemble's done-mask)
@@ -425,13 +566,7 @@ def run_round(st: SimState, window_end, model, tables: RoutingTables,
                 break
             iters_r += going.to(torch.int32)
         st = _replace(st, lanes_live=st.lanes_live + elig.to(torch.int64))
-        if stage is not None:
-            st, rej = stage(st, window_end, model, tables, stage_cfg)
-            if bool(rej.any()):
-                rows = None if replicas is None else per_row(st, rej)
-                st = handle_one_iteration(st, window_end, model, tables, cfg, rows=rows)
-        else:
-            st = handle_one_iteration(st, window_end, model, tables, cfg)
+        st = compact_step(st, window_end, lanes, body) if compact else body(st)
         iters += 1
     if counters is not None:
         counters["iters"] = counters.get("iters", 0) + iters
@@ -480,10 +615,17 @@ def _next_window_end(st: SimState, end_time: int, cfg: EngineConfig, start,
     start = torch.clamp(start, max=end_time)
     runahead = cfg.runahead_ns
     if cfg.use_dynamic_runahead:
-        raise NotYetPorted("use_dynamic_runahead")
+        # the window is the least latency a packet has used (never below
+        # the configured runahead); before any packet flew, the runahead
+        used = st.min_used_lat
+        runahead = _W(used == TIME_MAX, runahead, torch.clamp(used, min=runahead))
     floor = torch.clamp(start + runahead, max=end_time)
+    # adaptive windows are off under dynamic runahead, where the delivery
+    # clamp to the window end binds and a wider window would move
+    # delivery times
     adaptive = (
         cfg.adaptive_window
+        and not cfg.use_dynamic_runahead
         and tables is not None
         and tables.lookahead_ns is not None
         and tables.host_node is not None
@@ -884,8 +1026,6 @@ def run_until(
     checkpoints and error texts equal the reference's."""
     from shadow_tpu_torch.engine.state import state_to_host
 
-    if cfg.exchange == "segment":
-        raise NotYetPorted("exchange: segment")
     validate_runahead(cfg, tables)
     if int(equeue.next_time(st.queue).amin()) >= end_time:
         check_capacity(st)

@@ -30,12 +30,10 @@ from shadow_tpu_torch.utils.tree import tree_leaves_with_path, tree_map
 class EngineConfig:
     """Static engine parameters: the reference's EngineConfig field for
     field (shadow_tpu/engine/state.py documents each), so one config maps
-    onto both packages. The port reads all of them except the ones whose
-    planes it does not carry yet: exchange="segment", active_lanes > 0 and
-    use_dynamic_runahead raise NotYetPorted, a2a_capacity/pool_capacity/
-    megakernel_tile are multi-device or TPU-tiling knobs with no effect
-    here, and ensemble (set by engine/ensemble.py) changes nothing: the
-    engine reads the replica count from the state's shapes. engine:
+    onto both packages. The port reads all of them but a2a_capacity and
+    megakernel_tile, multi-device and TPU-tiling knobs with no effect
+    here, and ensemble (set by engine/ensemble.py), which changes nothing:
+    the engine reads the replica count from the state's shapes. engine:
     "auto" (the megakernel on the card, else pump when pump_k > 0, else
     plain), "plain", "pump" or "megakernel" (the CUDA kernel on the card,
     its twin on the CPU) — all bit-identical."""
@@ -248,15 +246,20 @@ def per_replica(st, x: torch.Tensor) -> torch.Tensor:
     return x.reshape(replicas_of(st), -1)
 
 
-def _map_host_leaves(fn, tree, prefix=""):
+def map_host_leaves(fn, tree, *rest, prefix=""):
+    """fn over the per-host leaves of one state (or, leaf by leaf, of
+    several states of one shape); each per-world leaf is taken from the
+    last state given."""
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
-            f.name: _map_host_leaves(fn, getattr(tree, f.name), f"{prefix}.{f.name}")
+            f.name: map_host_leaves(fn, getattr(tree, f.name),
+                                    *(getattr(r, f.name) for r in rest),
+                                    prefix=f"{prefix}.{f.name}")
             for f in dataclasses.fields(tree)
         })
     if tree is None or prefix in WORLD_LEAVES:
-        return tree
-    return fn(tree)
+        return rest[-1] if rest else tree
+    return fn(tree, *rest)
 
 
 def rows_view(st: SimState) -> SimState:
@@ -264,13 +267,13 @@ def rows_view(st: SimState) -> SimState:
     rows (no copy; replica r owns rows r*H .. r*H + H - 1). The engine
     computes on this view: the handler, the exchange and the kernel see
     rows, and `host_id` stays each host's id within its replica."""
-    return _map_host_leaves(lambda x: x.reshape((-1,) + tuple(x.shape[2:])), st)
+    return map_host_leaves(lambda x: x.reshape((-1,) + tuple(x.shape[2:])), st)
 
 
 def stacked_view(st: SimState) -> SimState:
     """Inverse of rows_view: per-host leaves back to [R, H, ...]."""
     r = replicas_of(st)
-    return _map_host_leaves(lambda x: x.reshape((r, -1) + tuple(x.shape[1:])), st)
+    return map_host_leaves(lambda x: x.reshape((r, -1) + tuple(x.shape[1:])), st)
 
 
 def init_state(

@@ -102,7 +102,10 @@ def peek_min(q: EventQueue, want: torch.Tensor) -> "tuple[Popped, torch.Tensor]"
 
 def clear_slot(q: EventQueue, slot: torch.Tensor, mask: torch.Tensor) -> EventQueue:
     """Tombstone q[h, slot[h]] where mask[h]; kind/data/aux keep their
-    stale contents, as in the reference."""
+    stale contents, as in the reference. Only those rows rescan their
+    head time: another row's is its minimum already, except on a
+    compacted sub-state's sentinel lane (engine/round.py::compact_step),
+    whose head is held at TIME_MAX, as the kernel holds it."""
     slot_idx = torch.arange(q.capacity, device=slot.device)[None, :]
     clear = (slot_idx == slot[:, None]) & mask[:, None]
     new_time = torch.where(clear, TIME_MAX, q.time)
@@ -111,7 +114,7 @@ def clear_slot(q: EventQueue, slot: torch.Tensor, mask: torch.Tensor) -> EventQu
         time=new_time,
         tie=torch.where(clear, I64_MAX, q.tie),
         count=q.count - mask.to(torch.int32),
-        head_time=torch.amin(new_time, dim=1),
+        head_time=torch.where(mask, torch.amin(new_time, dim=1), q.head_time),
     )
 
 
@@ -241,10 +244,74 @@ def push_many_sorted(
     g_data[gr, gl] = data[idx]
 
     q2 = push_self_lanes(q, g_valid, g_time, g_tie, g_kind, g_data, g_aux)
-    ov = q2.overflow.clone()
-    if 0 < rows_per_world < h:
-        world = torch.clamp(key1_s, max=h - 1) // rows_per_world
-        ov.reshape(-1, rows_per_world)[:, 0].index_add_(0, world, (real & ~fits).to(torch.int32))
-    else:
-        ov[0] += (real.sum() - fits.sum()).to(torch.int32)
+    ov = _add_on_first_rows(q2.overflow, key1_s, real & ~fits, rows_per_world)
     return dataclasses.replace(q2, overflow=ov)
+
+
+def _add_on_first_rows(overflow, rows, counted, rows_per_world: int):
+    """overflow plus the `counted` entries, each on row 0 of the world
+    (`rows_per_world` rows each) whose row it names; one world: row 0."""
+    h = overflow.shape[0]
+    ov = overflow.clone()
+    if 0 < rows_per_world < h:
+        world = torch.clamp(rows, 0, h - 1) // rows_per_world
+        ov.reshape(-1, rows_per_world)[:, 0].index_add_(0, world, counted.to(torch.int32))
+    else:
+        ov[0] += counted.sum().to(torch.int32)
+    return ov
+
+
+def push_many_segment(q, dst, valid, time, tie, kind, data, aux=None,
+                      rows_per_world: int = 0) -> EventQueue:
+    """The segment landing (event-exchange v2): one stable destination
+    sort, each entry's rank within its destination's segment from a
+    cummax, and the r-th arrival at row d landing in d's r-th free column
+    (one M-sized scatter per queue array) where r < the row's free-slot
+    count. Capacity is checked once per row: a row's arrivals past its
+    room count into that row's overflow. A push at TIME_MAX (the
+    free-slot marker) is rejected and counted on row 0 (on an ensemble's
+    rows, `rows_per_world` rows per replica, on the first row of its
+    replica). The slot layout is the reference's: arrivals keep their
+    order in `dst`'s stable sort."""
+    if aux is None:
+        aux = torch.zeros_like(kind)
+    m = dst.shape[0]
+    h, cap = q.num_hosts, q.capacity
+    dev = dst.device
+    sentinel = valid & (time >= TIME_MAX)
+    valid = valid & ~sentinel
+    key1 = torch.where(valid, dst.to(torch.int64), h)
+    key1_s, order = torch.sort(key1, stable=True)
+    pos = torch.arange(m, device=dev)
+    seg_start = torch.ones(m, dtype=torch.bool, device=dev)
+    seg_start[1:] = key1_s[1:] != key1_s[:-1]
+    rank = pos - torch.cummax(torch.where(seg_start, pos, -1), dim=0).values
+    real = key1_s < h
+    cnt = torch.bincount(key1_s[real], minlength=h).to(torch.int32)  # arrivals per row
+    room = (cap - q.count).to(torch.int32)  # == the row's free slots
+    fits = real & (rank < room[torch.clamp(key1_s, max=h - 1)])
+    _, col_of = _free_columns(q)
+    r, src = key1_s[fits], order[fits]
+    c = col_of[r, rank[fits]]
+
+    def land(arr, vals):
+        out = arr.clone()
+        out[r, c] = vals[src]
+        return out
+
+    head_new = torch.full((h,), TIME_MAX, dtype=torch.int64, device=dev).scatter_reduce(
+        0, r, time[src], "amin")
+    landed = torch.minimum(cnt, room)
+    ov = _add_on_first_rows(q.overflow + (cnt - landed), dst.to(torch.int64), sentinel,
+                            rows_per_world)
+    return dataclasses.replace(
+        q,
+        time=land(q.time, time),
+        tie=land(q.tie, tie),
+        kind=land(q.kind, kind),
+        data=land(q.data, data),
+        aux=land(q.aux, aux),
+        count=q.count + landed,
+        overflow=ov,
+        head_time=torch.minimum(q.head_time, head_new),
+    )

@@ -146,3 +146,15 @@ def uniform_int(keys: torch.Tensor, counters: torch.Tensor, lo, hi) -> torch.Ten
         off = ((higher % span) * mult + (lower % span)) % span
         out = lo_a + off.astype(np.int64)
     return torch.from_numpy(np.ascontiguousarray(out)).to(ks.device)
+
+
+def exponential_ns(keys: torch.Tensor, counters: torch.Tensor, mean_ns) -> torch.Tensor:
+    """[H] int64 ~ Exp(mean_ns), truncated to ns (one draw per host): the
+    f32 Exp(1) draw -log1p(-u) of uniform_f32, times mean_ns in f64.
+    f32 log1p is not bit-identical across backends (nor is the
+    reference's), so equal within a backend and within 1 ulp of the f32
+    draw across them."""
+    u = uniform_f32(keys, counters)
+    draw = -torch.log1p(-u)  # finite: u < 1
+    mean = torch.as_tensor(mean_ns, dtype=torch.float64, device=draw.device)
+    return (draw.to(torch.float64) * mean).to(torch.int64)

@@ -103,8 +103,6 @@ def _reject_unported(config: ConfigOptions) -> None:
         (g.parallelism > 1, "general.parallelism > 1 (multi-device sharding)"),
         (e.autotune, "experimental.autotune"),
         (e.scheduler != "tpu", f"scheduler {e.scheduler!r}"),
-        (e.use_dynamic_runahead, "experimental.use_dynamic_runahead"),
-        (e.active_lanes > 0, "experimental.active_lanes > 0"),
         (g.tracker or bool(g.trace_file), "the host-side tracker plane (general.tracker)"),
         (bool(g.metrics_file or g.metrics_prom), "the metrics plane"),
         (bool(e.xprof_dir), "profiler capture (experimental.xprof_dir)"),
