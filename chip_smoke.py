@@ -29,11 +29,19 @@ Phases, each printing one line; any failure exits non-zero:
      its main path to 60 ms, then kernel vs twin there, timed, and at 33
      sockets also at pump_k 40; each wide launch prints its dynamic shared
      memory; while those
-     two host-bound runs go on, the CLI runs on examples/onion (stop time
-     cut, sim-stats pinned) and on examples/fattree (graph from
-     gen_fattree.py 8: two outbox recoveries, 64 -> 128 -> 256, and the
-     reference's 88,768 events) in processes of their own, which end
-     before any kernel is timed;
+     two host-bound runs go on, the onion cell's plain-engine run (phase
+     7) and every CLI run of the smoke go on in processes of their own,
+     which end before any kernel is timed: on examples/onion (stop time cut, sim-stats pinned), on examples/fattree
+     (graph from gen_fattree.py 8: two outbox recoveries, 64 -> 128 ->
+     256, and the reference's 88,768 events), on examples/tgen
+     (sim-stats pinned), again at 8 rounds a chunk with --tracker,
+     --trace-file, --metrics-file, --metrics-prom and --xprof-dir
+     (sim-stats pinned, with `tracker`, `metrics` and `memory` sections;
+     the dispatch spans, one heartbeat line per host, the profiler's
+     trace naming the kernel; `metrics` renders its stream; `mem --json`
+     prices the example's state at 313,656 B),
+     on examples/phold (stop time cut, sim-stats pinned) and `run
+     --replicas 2` on it (replica 0 the pinned single run);
   4. the main path: run_until to 0.5 s sim with engine "auto", which must
      resolve to the kernel; bench counters equal the pinned oracle values;
   5. plain vs megakernel engines agree on host_stats at 0.1 s sim;
@@ -44,17 +52,25 @@ Phases, each printing one line; any failure exits non-zero:
      checkpoint: the main path (1 round per chunk) interrupted at 10 ms
      and resumed from its checkpoint file, leaf-equal to the
      uninterrupted run;
-  6. the CLI entry point on examples/tgen/shadow.yaml, sim-stats pinned;
+  6. observability-10240: the main path again with a Tracker (per-host
+     heartbeats every 250 ms to a file, the dispatch trace), an
+     installed FlightRecorder (metrics stream, prom file) and a
+     torch.profiler capture of chunks 1 to 3: leaf-equal to the main
+     path, its fold equal to the main path's, one sample per chunk with
+     the card's bytes in use, the profiler's trace naming the kernel, one
+     heartbeat line per host; its wall beside the main path's, and the
+     main path's wall run again once the capture has stopped;
   7. onion-10240: the onion model (4,096 clients, 6,144 relays, 17 sockets
      per host) on the bench graph and shaping: the main path to 0.1 s sim
-     with engine "auto" (the kernel's onion instance), then the plain
-     engine on the same world, whose host and model counters must agree;
-     kernel vs twin at a burst launch (60 ms) and at the plain run's end
-     (mid-run), each timed alone with its bound;
+     with engine "auto" (the kernel's onion instance), pausing at the
+     burst (60 ms); the plain engine on the same world to 0.1 s (run in a
+     process of its own during phase 3a), whose host and model counters
+     must agree with the main path's at the burst and at 0.1 s; kernel vs
+     twin at the burst launch and at the main path's end (mid-run), each
+     timed alone with its bound;
   8. phold, bulk-tcp, cdn and gossip (no pump kernel) on the card and on
      the CPU in this process, leaf-equal, at small size; phold at 10,240
-     hosts on the bench graph; the CLI on examples/phold (stop time cut),
-     sim-stats pinned;
+     hosts on the bench graph;
   9. the ensemble plane (R seeded replicas as one batch, one kernel launch
      over all R x H rows per drain iteration):
      ensemble-tgen-10240x8, the lossy tgen world (6 nodes) at 10,240 hosts x 8
@@ -66,7 +82,6 @@ Phases, each printing one line; any failure exits non-zero:
      (horizon cut to ENS_ONION_END_NS), replica 0 against a single onion
      kernel run, kernel against twin at its end; ensemble-ragged, 10,235
      hosts x 2 replicas (a warp owns rows of both), kernel against twin;
-     ensemble-cli, `run --replicas 2` on examples/phold (stop time cut);
   9a. planes-10240, the reference's other execution planes through the
      kernel: the bench world to 0.5 s with exchange "segment", with
      active_lanes 1,280 (H / 8) and with both, each at the oracle's
@@ -183,7 +198,7 @@ LOSSY_END_NS = 120_000_000
 # handler, which every relay event takes, holds the host ~66 ms per drain
 # iteration on an H100's host, so 0.6 s would take ~10 min a run); its
 # kernel is held against the twin and timed at a burst (ONION_BURST_NS)
-# and at the end of the plain run
+# and at the end of the main path
 ONION_CLIENT_SHARE = 0.4
 ONION_END_NS = 100_000_000
 ONION_BURST_NS = 60_000_000
@@ -192,8 +207,9 @@ ONION_WINDOW_CAP_NS = 1_000_000_000
 # and on the burst state's run to WIDE_RUN_NS; onion past 32 sockets, at
 # circuits_per_relay 16 and 32 (33 and 65 sockets) to its burst state at
 # ONION_BURST_NS (each run host-bound, ~85 s on the card's host: the CLI
-# runs of background_clis go on in processes of their own meanwhile, and
-# no kernel is timed until they have ended)
+# runs of background_clis and the onion cell's plain-engine run go on in
+# processes of their own meanwhile, and no kernel is timed until they
+# have ended)
 WIDE_PUMP_K = 40
 WIDE_RUN_NS = 20_000_000
 # wide_kernel's edge states on the 30 ms state's idle rows
@@ -265,6 +281,19 @@ PLANES_RAGGED_END_NS = 30_000_000
 PLANES_EXP_DRAWS = 1_000_000
 PLANES_EXP_SEED = 7
 PLANES_EXP_MEAN_NS = 1_000_000
+# observability-10240: the main path with the host-side planes attached:
+# per-host heartbeats every OBS_HEARTBEAT_NS (written to a file), the
+# dispatch trace, the flight recorder with its metrics stream and prom
+# file, and a torch.profiler capture over chunks OBS_XPROF_CHUNKS; and
+# examples/tgen's state as `mem` prices it (the reference's 313,400 B
+# and 16 B a host for the leaves the port holds as int64)
+OBS_HEARTBEAT_NS = 250_000_000
+OBS_XPROF_CHUNKS = (1, 3)
+OBS_SPANS = ("compile+launch", "chunk_launch", "probe_fetch", "host_stats_fetch")
+# the CLI part runs examples/tgen at this many rounds a chunk (the
+# config's 128 make one chunk of the whole run): 16 chunks, four heartbeats
+OBS_CLI_ROUNDS_PER_CHUNK = 8
+TGEN_EXAMPLE_STATE_BYTES = 313_656
 # H100 SXM device-memory rate (NVIDIA data sheet) for the bound column
 HBM_BYTES_PER_S = 3.35e12
 # non-tensor-core 32-bit rate (NVIDIA data sheet, FP32), the op yardstick
@@ -727,6 +756,7 @@ def profile_main_path(st0, model, tables, cfg, end_ns) -> None:
     from shadow_tpu_torch.engine.round import run_until
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")  # as flightrec: no CUPTI left on later phases
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
@@ -749,15 +779,85 @@ def profile_main_path(st0, model, tables, cfg, end_ns) -> None:
          top_host=[[k[:60], ms, n] for k, ms, n in top_cpu])
 
 
-def onion_phase(hosts: int, end_ns: int, dev) -> "tuple[bool, dict, float]":
+def onion_counts(st) -> dict:
+    """The onion model's counters the onion cell compares."""
+    m = st.model
+    return {k: int(getattr(m, k).sum()) for k in (
+        "circuits_built", "circuits_rejected", "cells_relayed", "requests_served",
+        "streams_started", "streams_done", "bytes_down")}
+
+
+def onion_plain_run(hosts: int, end_ns: int, dev, out_path: str) -> int:
+    """The onion cell's plain-engine run, for a process of its own
+    (`--onion-plain OUT`): the onion world run with the plain engine to
+    ONION_BURST_NS and on to end_ns (run_until twice, as the main path
+    runs, so that rounds are grouped into chunks alike), its host_stats
+    and model counters at both written to OUT (npz)."""
+    from shadow_tpu_torch.engine.round import host_stats, run_until
+
+    cfg, model, tables, st0 = onion_world(hosts, dev)
+    plain = dataclasses.replace(cfg, engine="plain")
+    out, t0 = {}, time.perf_counter()
+    st = st0
+    for at, until in (("burst", ONION_BURST_NS), ("end", end_ns)):
+        st = run_until(st, until, model, tables, plain, rounds_per_chunk=16)
+        sync(dev)
+        out.update({f"{at}.hs.{k}": v for k, v in host_stats(st).items()})
+        out.update({f"{at}.count.{k}": np.int64(v) for k, v in onion_counts(st).items()})
+    out["wall_s"] = np.float64(time.perf_counter() - t0)
+    np.savez(out_path, **out)
+    return 0
+
+
+def onion_plain_start(hosts: int, end_ns: int, dev) -> dict:
+    """Start onion_plain_run to end_ns in a process of its own (this
+    script with `--onion-plain`): a handle for onion_plain_finish."""
+    tmp = tempfile.TemporaryDirectory()
+    out = os.path.join(tmp.name, "onion_plain.npz")
+    cmd = [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--onion-plain", out]
+    if dev.type == "cpu":
+        cmd += ["--rehearse-cpu", "--hosts", str(hosts)]
+    err_path = os.path.join(tmp.name, "stderr.txt")
+    with open(err_path, "w") as err:
+        # one host thread for torch's CPU ops, as the CLI runs beside it
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=err, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, OMP_NUM_THREADS="1"))
+    STARTED.append(proc)
+    return dict(proc=proc, out=out, stderr=err_path, tmp=tmp, hosts=hosts, end_ns=end_ns)
+
+
+def onion_plain_finish(run) -> "dict | None":
+    """Wait for the run onion_plain_start started: {"burst"/"end": {hs,
+    counts}, "wall_s"}, or None (with a failing line) if it failed."""
+    rc = run["proc"].wait()
+    got = None
+    if rc == 0:
+        with np.load(run["out"]) as z:
+            got = {"wall_s": float(z["wall_s"])}
+            for at in ("burst", "end"):
+                got[at] = dict(
+                    hs={k.split(".", 2)[2]: z[k] for k in z.files if k.startswith(f"{at}.hs.")},
+                    counts={k.split(".", 2)[2]: int(z[k]) for k in z.files
+                            if k.startswith(f"{at}.count.")})
+    else:
+        with open(run["stderr"]) as f:
+            line("onion_plain_engine", ok=False, hosts=run["hosts"], end_ns=run["end_ns"],
+                 rc=rc, stderr_tail=f.read()[-2000:])
+    run["tmp"].cleanup()
+    return got
+
+
+def onion_phase(hosts: int, end_ns: int, plain_run: dict, dev) -> "tuple[bool, dict, float]":
     """The onion cell: the main path with engine "auto" (the kernel's
-    onion instance), then the plain engine on the same world, whose host
-    and model counters must agree; on the plain run's way, the kernel
-    against the twin at a burst launch and at the run's end (mid-run:
-    streams are still flowing), each timed alone with its bound. Both
-    runs pause at the burst (run_until twice), so that their rounds are
-    grouped into chunks alike and the per-round counters compare. Returns
-    (ok, the instance's numbers for the kernels line, largest error)."""
+    onion instance) to end_ns, pausing at the burst (ONION_BURST_NS);
+    the plain engine's run on the same world (onion_plain_run, which ran
+    in a process of its own beside the wide onion runs: `plain_run`, as
+    onion_plain_finish returns it), whose host and model counters must
+    agree with the main path's at the burst and at end_ns; the kernel
+    against the twin at the burst, on the main path's state there, and
+    at the main path's end (mid-run: streams are still flowing), each
+    timed alone with its bound. Returns (ok, the instance's numbers for
+    the kernels line, largest error)."""
     from shadow_tpu_torch import equeue
     from shadow_tpu_torch.engine import megakernel as mk
     from shadow_tpu_torch.engine.round import (
@@ -771,12 +871,7 @@ def onion_phase(hosts: int, end_ns: int, dev) -> "tuple[bool, dict, float]":
     scfg = mk.resolve_stage_cfg(cfg)
     eng = effective_engine(cfg, dev)
     reps, err, entry = 20, 0.0, {}
-
-    def counts(st):
-        m = st.model
-        return {k: int(getattr(m, k).sum()) for k in (
-            "circuits_built", "circuits_rejected", "cells_relayed", "requests_served",
-            "streams_started", "streams_done", "bytes_down")}
+    counts = onion_counts
 
     # the main path
     counters = {}
@@ -788,9 +883,16 @@ def onion_phase(hosts: int, end_ns: int, dev) -> "tuple[bool, dict, float]":
     t0 = time.perf_counter()
     out = run_until(st0, ONION_BURST_NS, model, tables, cfg, rounds_per_chunk=16,
                     counters=counters)
+    sync(dev)
+    t_b = time.perf_counter()
+    at_burst = dict(hs=host_stats(out), counts=counts(out))
+    st_b = out.clone()  # the burst launch's state (the kernel updates in place)
+    sync(dev)
+    t_b = time.perf_counter() - t_b  # the burst's fetch and copy are not the main path's time
+    del st0
     out = run_until(out, end_ns, model, tables, cfg, rounds_per_chunk=16, counters=counters)
     sync(dev)
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0 - t_b
     launches = mk.PUMP_KERNEL.launches_by_model["onion"]
     main = dict(hs=host_stats(out), counts=counts(out), events=int(out.events_handled.sum()))
     ok = (dev.type == "cpu" or (eng == "megakernel" and launches > 0)) and (
@@ -803,9 +905,20 @@ def onion_phase(hosts: int, end_ns: int, dev) -> "tuple[bool, dict, float]":
          max_memory_allocated=torch.cuda.max_memory_allocated() if dev.type == "cuda" else None,
          queue_hwm=int(out.tracker.queue_hwm.max()), outbox_hwm=int(out.tracker.outbox_hwm.max()),
          **main["counts"])
-    del out
     if not ok:
         return False, entry, err
+
+    # the plain engine's run against the main path, at the burst and at
+    # its end
+    diff = {at: [k for k in want["hs"] if k not in ("iters_done", "lanes_live")
+                 and not np.array_equal(plain_run[at]["hs"].get(k), want["hs"][k])]
+            for at, want in (("burst", at_burst), ("end", main))}
+    ok_p = (not any(diff.values()) and plain_run["burst"]["counts"] == at_burst["counts"]
+            and plain_run["end"]["counts"] == main["counts"])
+    line("onion_plain_engine", ok=ok_p, hosts=hosts, burst_ns=ONION_BURST_NS, end_ns=end_ns,
+         wall_s=round(plain_run["wall_s"], 3), beside="the wide onion runs and the CLI runs",
+         events=int(plain_run["end"]["hs"]["events_handled"].sum()), differing=diff,
+         **plain_run["end"]["counts"])
 
     def stage(name, st, at_ns):
         """Kernel vs twin on `st`, each timed: (ok, the stage's numbers,
@@ -816,26 +929,10 @@ def onion_phase(hosts: int, end_ns: int, dev) -> "tuple[bool, dict, float]":
         return timed_stage("onion_kernel_vs_twin", st, we, model, tables, scfg, reps, dev,
                            must_take=name == "burst", launch=name, at_ns=at_ns, hosts=hosts)
 
-    # the plain engine, with the burst launch on its way and the mid-run
-    # launch at its end; comparison launches do not count
-    plain = dataclasses.replace(cfg, engine="plain")
-    t0 = time.perf_counter()
-    st_b = run_until(st0, ONION_BURST_NS, model, tables, plain, rounds_per_chunk=16)
-    sync(dev)
-    wall_b = time.perf_counter() - t0
-    ok_b, entry, err_b = stage("burst", st_b, ONION_BURST_NS)
-    t0 = time.perf_counter()
-    out = run_until(st_b, end_ns, model, tables, plain, rounds_per_chunk=16)
-    sync(dev)
-    wall_p = wall_b + time.perf_counter() - t0
-    del st_b
+    # comparison launches do not count
     ok_m, _, err_m = stage("mid", out, end_ns)
-    hs = host_stats(out)
-    diff = [k for k in hs if k not in ("iters_done", "lanes_live")
-            and not np.array_equal(hs[k], main["hs"][k])]
-    ok_p = not diff and counts(out) == main["counts"]
-    line("onion_plain_engine", ok=ok_p, hosts=hosts, end_ns=end_ns, wall_s=round(wall_p, 3),
-         events=int(out.events_handled.sum()), differing=diff, **counts(out))
+    del out
+    ok_b, entry, err_b = stage("burst", st_b, ONION_BURST_NS)
     entry["launches"] = launches
     return ok_b and ok_m and ok_p, entry, max(err_b, err_m)
 
@@ -1161,6 +1258,131 @@ def checkpoint_phase(hosts: int, end_ns: int, dev) -> "tuple[bool, int]":
     return ok, launches
 
 
+def observability_phase(world, end_ns: int, main_final: dict, main_wall: float,
+                        dev) -> "tuple[bool, int]":
+    """observability-10240: the bench main path to end_ns through the
+    kernel with the host-side planes attached: a Tracker (per-host
+    heartbeats every OBS_HEARTBEAT_NS written through shadow_log to a
+    file, a Chrome trace of the dispatch spans), an installed
+    FlightRecorder with a metrics JSONL stream and a prom file, and a
+    torch.profiler capture over chunks OBS_XPROF_CHUNKS. The final state
+    must equal the untracked main path's, leaf for leaf, and reach the
+    oracle's counters; the tracker's fold (without phases) must equal a
+    fold of the main path's host_stats; the trace must hold OBS_SPANS;
+    the stream one sample per chunk, each with the card's bytes in use;
+    the profiler's trace must name pump_megakernel; the heartbeat file
+    one line per host for each heartbeat. Prints the wall beside the main
+    path's, and the wall of the main path run again after the capture has
+    stopped, with nothing attached. `world` is the main path's (cfg,
+    model, tables, initial state). Returns (ok, the kernel's launches)."""
+    from shadow_tpu_torch.engine import megakernel as mk
+    from shadow_tpu_torch.engine.round import host_stats, run_until
+    from shadow_tpu_torch.engine.state import state_from_host
+    from shadow_tpu_torch.runtime import flightrec
+    from shadow_tpu_torch.runtime.flightrec import FlightRecorder
+    from shadow_tpu_torch.utils import shadow_log
+    from shadow_tpu_torch.utils.tracker import Tracker
+
+    cfg, model, tables, st0 = world
+    hosts = cfg.num_hosts
+    names = [f"host{i}" for i in range(hosts)]
+    hb_ns = min(OBS_HEARTBEAT_NS, end_ns // 2)  # a rehearsal's short run beats too
+    with tempfile.TemporaryDirectory() as tmp:
+        files = {k: os.path.join(tmp, k) for k in ("trace.json", "metrics.jsonl",
+                                                   "metrics.prom", "xprof", "heartbeats.log")}
+        tracker = Tracker(host_names=names, heartbeat_ns=hb_ns, trace_path=files["trace.json"])
+        rec = FlightRecorder(num_hosts=hosts, metrics_path=files["metrics.jsonl"],
+                             prom_path=files["metrics.prom"], heartbeat_ns=hb_ns,
+                             tracker=tracker, xprof_dir=files["xprof"],
+                             xprof_chunks=OBS_XPROF_CHUNKS, device=dev)
+        sync(dev)
+        mk.PUMP_KERNEL.launches_by_model["tgen"] = 0
+        with open(files["heartbeats.log"], "w") as sink:
+            shadow_log.set_sink(sink)
+            t0 = time.perf_counter()
+            try:
+                with flightrec.installed(rec):
+                    final = run_until(st0, end_ns, model, tables, cfg, rounds_per_chunk=16,
+                                      tracker=tracker)
+                sync(dev)
+                wall = time.perf_counter() - t0
+            finally:
+                rec.close()
+                shadow_log.flush()
+                shadow_log.set_sink(None)
+        launches = mk.PUMP_KERNEL.launches_by_model["tgen"]
+        tracker.write_trace()
+        bad = host_leaves_equal(main_final, final)
+        got = bench_counters(final)
+        want = dict(events=BENCH_EVENTS, streams_done=BENCH_STREAMS_DONE,
+                    bytes_down=BENCH_BYTES_DOWN)
+        full = hosts == BENCH_HOSTS and end_ns == BENCH_END_NS
+        tracker.finalize(host_stats(final))
+        fold = tracker.stats_dict()
+        phases = fold.pop("phases")
+        ref = Tracker(host_names=names)
+        ref.finalize(host_stats(state_from_host(main_final, final)))
+        ref_fold = ref.stats_dict()
+        ref_fold.pop("phases")
+        del final
+        with open(files["trace.json"]) as f:
+            spans = {e["name"] for e in json.load(f)["traceEvents"] if e.get("ph") == "X"}
+        with open(files["metrics.jsonl"]) as f:
+            samples = [s for s in map(json.loads, f) if s["type"] == "sample"]
+        in_use = [s.get("device_bytes_in_use", 0) for s in samples]
+        xprof = sorted(os.listdir(files["xprof"])) if os.path.isdir(files["xprof"]) else []
+        xprof_bytes = names_kernel = 0
+        for name in xprof:
+            path = os.path.join(files["xprof"], name)
+            xprof_bytes += os.path.getsize(path)
+            with open(path) as f:
+                names_kernel = names_kernel or "pump_megakernel" in f.read()
+        with open(files["heartbeats.log"]) as f:
+            hb = [ln for ln in f if " tracker: " in ln]
+        beats = len(hb) // hosts if hosts else 0
+        one_per_host = bool(hb) and len(hb) == beats * hosts and all(
+            len({ln.split("] [", 2)[2].split("]", 1)[0] for ln in hb[b * hosts:(b + 1) * hosts]})
+            == hosts for b in range(beats))
+        prom = os.path.getsize(files["metrics.prom"])
+    # the main path once more, nothing attached: what the capture leaves on
+    # the process's later launches once it has stopped
+    sync(dev)
+    t0 = time.perf_counter()
+    after = run_until(st0, end_ns, model, tables, cfg, rounds_per_chunk=16)
+    sync(dev)
+    wall_after = time.perf_counter() - t0
+    got_after = bench_counters(after)
+    del after
+    on_card = dev.type == "cuda"
+    checks = {
+        "leaf_equal_to_main_path": not bad,
+        "oracle_counters": got == want or not full,
+        "fold_equals_main_path_fold": fold == ref_fold,
+        # (a run of one chunk, as a small rehearsal may be, has no chunk_launch)
+        "trace_spans": set(OBS_SPANS) - ({"chunk_launch"} if len(samples) == 1 else set())
+        <= spans,
+        "one_sample_per_chunk": len(samples) == phases["probe_fetch"]["count"] > 0,
+        "device_bytes_in_use": all(b > 0 for b in in_use) or not on_card,
+        "profiler_names_kernel": bool(names_kernel) or not on_card,
+        "heartbeats_one_line_per_host": one_per_host,
+        "kernel_launched": launches > 0 or not on_card,
+        "main_path_after_at_oracle": got_after == got,
+    }
+    ok = all(checks.values())
+    line("observability", ok=ok, cell=f"observability-{hosts}", checks=checks,
+         mismatched_leaves_vs_main_path=bad, counters=got, wall_s=round(wall, 3),
+         main_path_wall_s=round(main_wall, 3), overhead_s=round(wall - main_wall, 3),
+         main_path_after_wall_s=round(wall_after, 3), kernel_launches=launches,
+         chunks=len(samples), heartbeats=beats,
+         heartbeat_lines=len(hb), spans=sorted(spans),
+         phase_totals_s={k: v["total_s"] for k, v in phases.items()},
+         phase_counts={k: v["count"] for k, v in phases.items()},
+         device_bytes_in_use_max=max(in_use) if in_use else None,
+         xprof_files=xprof, xprof_bytes=xprof_bytes, prom_bytes=prom,
+         fold={k: fold[k] for k in ("events_by_kind", "drops", "high_water", "rounds")})
+    return ok, launches
+
+
 def fattree_cli_start(dev) -> dict:
     """Start the CLI on examples/fattree, its graph from gen_fattree.py 8
     in a temporary directory (cli_start)."""
@@ -1189,13 +1411,122 @@ def fattree_cli_finish(run) -> bool:
     return ok
 
 
+def observability_cli_start(dev) -> dict:
+    """Start the CLI on examples/tgen at OBS_CLI_ROUNDS_PER_CHUNK rounds a
+    chunk (so that the run has the chunks --xprof-dir's default window
+    captures, and heartbeats fall inside it) with every host-side
+    observability flag (--tracker, --trace-file, --metrics-file,
+    --metrics-prom, --xprof-dir; their files in a temporary directory),
+    and `mem --json` on the same example, each in a process of its own."""
+    out_dir = tempfile.TemporaryDirectory()
+    files = {k: os.path.join(out_dir.name, name) for k, name in (
+        ("trace", "trace.json"), ("metrics", "metrics.jsonl"), ("prom", "metrics.prom"),
+        ("xprof", "xprof"))}
+    run = cli_start("tgen/shadow.yaml", dev, extra=(
+        "--tracker", "--trace-file", files["trace"], "--metrics-file", files["metrics"],
+        "--metrics-prom", files["prom"], "--xprof-dir", files["xprof"]),
+        subs=(("rounds_per_chunk: 128", f"rounds_per_chunk: {OBS_CLI_ROUNDS_PER_CHUNK}"),))
+    run["tmps"].append(out_dir)
+    run["files"] = files
+    run["on_card"] = dev.type == "cuda"
+    mem_out = os.path.join(out_dir.name, "mem.json")
+    with open(mem_out, "w") as f:
+        run["mem"] = subprocess.Popen(
+            [sys.executable, "-m", "shadow_tpu_torch", "mem",
+             os.path.join(HERE, "examples", "tgen", "shadow.yaml"), "--json"],
+            cwd=HERE, stdout=f, stderr=subprocess.STDOUT)
+    STARTED.append(run["mem"])
+    run["mem_out"] = mem_out
+    return run
+
+
+def observability_cli_finish(run) -> bool:
+    """The run started by observability_cli_start: the pinned stats, and
+    sim-stats carrying `tracker` (events by kind summing to the events),
+    `metrics` (a sample a chunk) and `memory` (groups, dominant grid, the
+    card's allocator block); the trace holds OBS_SPANS; the profiler's
+    trace names pump_megakernel (on the card); the per-host heartbeats
+    name each host once a heartbeat; `metrics FILE` renders the stream;
+    `mem --json` prices the example's state at TGEN_EXAMPLE_STATE_BYTES.
+    Reads the files before cli_finish removes them."""
+    files = run["files"]
+    rc = run["proc"].wait()
+    spans, xprof_names_kernel = [], False
+    with open(run["stderr"]) as f:
+        hb = [ln for ln in f if " tracker: " in ln]
+    hosts = TGEN_EXAMPLE_STATS["num_hosts"]
+    beats = len(hb) // hosts
+    one_per_host = bool(hb) and len(hb) == beats * hosts and all(
+        len({ln.split("] [", 2)[2].split("]", 1)[0] for ln in hb[b * hosts:(b + 1) * hosts]})
+        == hosts for b in range(beats))
+    if rc == 0:
+        with open(files["trace"]) as f:
+            spans = sorted({e["name"] for e in json.load(f)["traceEvents"] if e.get("ph") == "X"})
+        for path in sorted(os.listdir(files["xprof"])) if os.path.isdir(files["xprof"]) else []:
+            with open(os.path.join(files["xprof"], path)) as f:
+                xprof_names_kernel = xprof_names_kernel or "pump_megakernel" in f.read()
+    shown = subprocess.run([sys.executable, "-m", "shadow_tpu_torch", "metrics", files["metrics"]],
+                           cwd=HERE, capture_output=True, text=True)
+    run["mem"].wait()
+    with open(run["mem_out"]) as f:
+        mem_text = f.read()
+    try:
+        mem_total = json.loads(mem_text)["total_bytes"]
+    except ValueError:
+        mem_total = None
+    ok, stats = cli_finish(run, TGEN_EXAMPLE_STATS)
+    tr, met, memo = (stats.get(k) or {} for k in ("tracker", "metrics", "memory"))
+    by_kind = tr.get("events_by_kind") or {}
+    ok = (ok and sum(by_kind.values()) == stats.get("events_handled") and "phases" in tr
+          and met.get("samples", 0) > max(OBS_XPROF_CHUNKS) and "file" in met and "prom" in met
+          and set(OBS_SPANS) <= set(spans) and (xprof_names_kernel or not run["on_card"])
+          and one_per_host
+          and {"groups", "dominant"} <= set(memo) and ("device" in memo or not run["on_card"])
+          and shown.returncode == 0 and "samples" in shown.stdout
+          and run["mem"].returncode == 0 and mem_total == TGEN_EXAMPLE_STATE_BYTES)
+    line("observability_cli", ok=ok, example="tgen/shadow.yaml",
+         rounds_per_chunk=OBS_CLI_ROUNDS_PER_CHUNK, tracker_events_by_kind=by_kind,
+         spans=spans, heartbeats=beats, heartbeat_lines=len(hb), metrics=met,
+         memory_device=memo.get("device"),
+         memory_total_bytes=memo.get("total_bytes"), xprof_names_kernel=xprof_names_kernel,
+         metrics_cmd_rc=shown.returncode, metrics_cmd_head=shown.stdout.splitlines()[:1],
+         mem_cmd_total_bytes=mem_total,
+         mem_cmd_tail=mem_text[-500:] if mem_total is None else "")
+    return ok
+
+
+def ensemble_cli_finish(run) -> bool:
+    """`run --replicas 2` on the phold example (stop time cut): the
+    ensemble's sim-stats, whose replica 0 runs the config's own seed and
+    so is the single run PHOLD_EXAMPLE_STATS pins."""
+    ok, stats = cli_finish(
+        run, {k: PHOLD_EXAMPLE_STATS[k] for k in ("sim_seconds", "num_hosts")})
+    per = (stats.get("ensemble") or {}).get("per_replica") or [{}, {}]
+    first = {k: per[0].get(k) for k in ("events_handled", "packets_sent")}
+    ok = (ok and stats.get("scheduler") == "tpu-ensemble" and len(per) == 2
+          and first == {k: PHOLD_EXAMPLE_STATS[k] for k in first}
+          and per[0]["events_handled"] != per[1].get("events_handled")
+          and stats.get("events_handled") == sum(p["events_handled"] for p in per))
+    line("ensemble_cli", ok=ok, per_replica=per)
+    return ok
+
+
 def background_clis(dev):
-    """Start the CLI runs on the onion example (stop time cut) and on
-    examples/fattree, each in a process of its own: a callable that waits
-    for both and says whether both passed."""
+    """Start every CLI run of the smoke, each in a process of its own: on
+    the onion example (stop time cut), on examples/fattree, on
+    examples/tgen (plain, and with the observability flags, `mem`
+    beside it), on the phold example (stop time cut) and `run --replicas
+    2` on it. A callable that waits for all and says whether all
+    passed."""
     runs = [(cli_start("onion/onion.yaml", dev, ONION_EXAMPLE_STOP),
              lambda r: cli_finish(r, ONION_EXAMPLE_STATS)[0]),
-            (fattree_cli_start(dev), fattree_cli_finish)]
+            (fattree_cli_start(dev), fattree_cli_finish),
+            (cli_start("tgen/shadow.yaml", dev), lambda r: cli_finish(r, TGEN_EXAMPLE_STATS)[0]),
+            (cli_start("phold/shadow.yaml", dev, PHOLD_EXAMPLE_STOP),
+             lambda r: cli_finish(r, PHOLD_EXAMPLE_STATS)[0]),
+            (cli_start("phold/shadow.yaml", dev, PHOLD_EXAMPLE_STOP, extra=("--replicas", "2")),
+             ensemble_cli_finish),
+            (observability_cli_start(dev), observability_cli_finish)]
     return lambda: all([finish(r) for r, finish in runs])
 
 
@@ -1325,7 +1656,10 @@ def cli_start(example: str, dev, stop=None, extra=(), subs=()) -> dict:
     err_path = os.path.join(tmp.name, "stderr.txt")
     with open(os.path.join(tmp.name, "stdout.txt"), "w") as out, open(err_path, "w") as err:
         t0 = time.perf_counter()
-        proc = subprocess.Popen(cmd, cwd=HERE, stdout=out, stderr=err)
+        # one host thread for torch's CPU ops: these processes run beside
+        # the smoke's own host-bound runs
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=out, stderr=err,
+                                env=dict(os.environ, OMP_NUM_THREADS="1"))
     STARTED.append(proc)
     return dict(example=example, extra=list(extra), proc=proc, t0=t0, data=data,
                 stderr=err_path, tmps=[tmp])
@@ -1349,12 +1683,6 @@ def cli_finish(run: dict, pinned: dict) -> "tuple[bool, dict]":
     for tmp in run["tmps"]:
         tmp.cleanup()
     return ok, stats
-
-
-def cli_phase(example: str, pinned: dict, dev, stop=None, extra=(), subs=()) -> "tuple[bool, dict]":
-    """The CLI on an example config, run to its end (cli_start, then
-    cli_finish)."""
-    return cli_finish(cli_start(example, dev, stop, extra, subs), pinned)
 
 
 def ensemble_window(rows, cfg, tables):
@@ -1874,6 +2202,11 @@ def run_phases(argv=None) -> int:
         help="rehearse the phases on the CPU with the kernel's plain twin "
         "(no build, no kernel; never prints a result)",
     )
+    ap.add_argument(
+        "--onion-plain", metavar="OUT",
+        help="only run the onion cell's plain-engine run and write its "
+        "counters to OUT (the smoke starts this in a process of its own)",
+    )
     args = ap.parse_args(argv)
     full = args.hosts == BENCH_HOSTS and args.end_ns == BENCH_END_NS
     if not full and not args.rehearse_cpu:
@@ -1894,6 +2227,9 @@ def run_phases(argv=None) -> int:
         run_until,
     )
 
+    if args.onion_plain:
+        dev = torch.device("cpu") if args.rehearse_cpu else torch.device("cuda", 0)
+        return onion_plain_run(args.hosts, ONION_END_NS, dev, args.onion_plain)
     if args.rehearse_cpu:
         dev, smi = torch.device("cpu"), "cpu rehearsal"
     else:
@@ -2025,10 +2361,23 @@ def run_phases(argv=None) -> int:
 
     # 3a. wide_kernel: the wide instances (pump_k past MAX_K, onion past 32
     # sockets), each held against the twin and timed, and their main paths;
-    # the CLI on the onion and fattree examples meanwhile
+    # every CLI run and the onion cell's plain-engine run meanwhile
+    onion_plain = {}
+
+    def meanwhile():
+        plain_run = onion_plain_start(args.hosts, ONION_END_NS, dev)
+        clis = background_clis(dev)
+
+        def finish():
+            ok_clis = clis()
+            got = onion_plain_finish(plain_run)
+            onion_plain.update(got or {})
+            return ok_clis and got is not None
+        return finish
+
     t0 = time.perf_counter()
     ok_w, wide, err_w = wide_kernel_phase(st_b, we, cfg, model, tables, args.hosts, dev,
-                                          meanwhile=lambda: background_clis(dev))
+                                          meanwhile=meanwhile)
     line("wide_kernel", ok=ok_w, seconds=round(time.perf_counter() - t0, 3),
          instances={k: dict(v) for k, v in wide.items()})
     if not ok_w:
@@ -2104,6 +2453,7 @@ def run_phases(argv=None) -> int:
     from shadow_tpu_torch.engine.state import state_to_host
 
     main_final = state_to_host(final)  # the recovery phase ends here
+    main_wall = wall
     del final
 
     # 5. engines agree on the card
@@ -2135,29 +2485,28 @@ def run_phases(argv=None) -> int:
     ok_c, checkpoint_launches = checkpoint_phase(args.hosts, args.end_ns, dev)
     if not ok_c:
         return 1
-
-    # 6. the CLI entry point on the tgen example
-    if not cli_phase("tgen/shadow.yaml", TGEN_EXAMPLE_STATS, dev)[0]:
+    # 6. observability-10240: the main path with the tracker, the flight
+    # recorder and a profiler capture attached
+    ok_o, observability_launches = observability_phase((cfg, model, tables, st0), args.end_ns,
+                                                       main_final, main_wall, dev)
+    if not ok_o:
         return 1
 
     # 7. the onion cell through its kernel instance, at full width
     launches_by_model = {"tgen": main_launches}
-    ok8, onion_entry, err = onion_phase(
-        args.hosts, ONION_END_NS, dev)
+    ok8, onion_entry, err = onion_phase(args.hosts, ONION_END_NS, onion_plain, dev)
     if not ok8:
         return 1
     launches_by_model["onion"] = onion_entry.pop("launches")
     max_err = {"tgen": max_abs_err, "onion": err}
 
     # 8. the models without a pump kernel, card against CPU; phold at
-    # full width; the CLI on the phold example
+    # full width
     if not models_phase(dev, args.hosts):
-        return 1
-    if not cli_phase("phold/shadow.yaml", PHOLD_EXAMPLE_STATS, dev, PHOLD_EXAMPLE_STOP)[0]:
         return 1
 
     # 9. the ensemble plane: tgen and onion replicas through the kernel,
-    # a ragged batch, the CLI's --replicas
+    # a ragged batch
     ok9, ens_tgen, err = ensemble_tgen_phase(args.hosts, ENS_TGEN_END_NS, dev)
     max_err["tgen"] = max(max_err["tgen"], err)
     if not ok9:
@@ -2168,19 +2517,6 @@ def run_phases(argv=None) -> int:
         return 1
     ok9, ens_onion, err = ensemble_onion_phase(args.hosts, ENS_ONION_END_NS, dev)
     max_err["onion"] = max(max_err["onion"], err)
-    if not ok9:
-        return 1
-    ok9, stats = cli_phase(
-        "phold/shadow.yaml", {k: PHOLD_EXAMPLE_STATS[k] for k in ("sim_seconds", "num_hosts")},
-        dev, PHOLD_EXAMPLE_STOP, extra=("--replicas", "2"))
-    # replica 0 runs the config's own seed: it is the single run pinned above
-    per = (stats.get("ensemble") or {}).get("per_replica") or [{}, {}]
-    first = {k: per[0].get(k) for k in ("events_handled", "packets_sent")}
-    ok9 = (ok9 and stats.get("scheduler") == "tpu-ensemble" and len(per) == 2
-           and first == {k: PHOLD_EXAMPLE_STATS[k] for k in first}
-           and per[0]["events_handled"] != per[1].get("events_handled")
-           and stats.get("events_handled") == sum(p["events_handled"] for p in per))
-    line("ensemble_cli", ok=ok9, per_replica=per)
     if not ok9:
         return 1
 
@@ -2229,7 +2565,7 @@ def run_phases(argv=None) -> int:
     ens_launch = {"tgen": ens_tgen, "onion": ens_onion, "tgen_wide": None, "onion_wide": None}
     # launches on the paths of this slice's phases, besides the main path's
     more = {"tgen": {"recovery": recovery_launches, "checkpoint": checkpoint_launches,
-                     **planes["launches"]}}
+                     "observability": observability_launches, **planes["launches"]}}
     # the launches planes-10240 timed: on compacted sub-states and with
     # dyn_runahead set
     planes_timed = {"tgen": planes["timed"]}

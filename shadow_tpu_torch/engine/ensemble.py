@@ -49,6 +49,7 @@ from shadow_tpu_torch.engine.round import (
     _capacity_error,
     _next_window_end,
     _replace,
+    _tspan,
     attach_capacity_bytes,
     bootstrap,
     check_capacity,
@@ -68,12 +69,13 @@ from shadow_tpu_torch.engine.state import (
     state_to_host,
 )
 from shadow_tpu_torch.graph.routing import RoutingTables
+from shadow_tpu_torch.runtime import flightrec
 from shadow_tpu_torch.utils.tree import tree_map
 
 _LANE = {name: i for i, name in enumerate(PROBE_FIELDS)}
 # probe lanes that aggregate across replicas by min or max; the rest sum
 _MIN_LANES = ("next_time", "now")
-_MAX_LANES = ("rounds_live", "rounds_idle", "queue_hwm", "outbox_hwm", "exch_hwm")
+_MAX_LANES = ("rounds_live", "rounds_idle", "queue_hwm", "outbox_hwm", "exch_hwm", "win_ns_sum")
 
 
 def ensemble_engine_cfg(cfg: EngineConfig) -> EngineConfig:
@@ -237,6 +239,7 @@ def run_ensemble_until(
     counters=None,
     on_rows=None,
     on_state=None,
+    tracker=None,
 ) -> SimState:
     """Host-side ensemble driver: chunks of `rounds_per_chunk` rounds over
     the whole batch until no replica has work left before end_time. `st`
@@ -250,7 +253,10 @@ def run_ensemble_until(
     the batch's drain iterations. `on_state` taps
     chunk-boundary snapshots of the [R, ...] stack as run_until taps a
     world's (the reference's _drive_ensemble), each patched by
-    _patch_snapshot."""
+    _patch_snapshot. `tracker` records run_until's dispatch spans (no
+    per-host heartbeats: a line per host cannot name its replica), and the
+    installed flight recorder observes each chunk's aggregate probe
+    before its overflow check."""
     cfg = ensemble_engine_cfg(cfg)
     validate_runahead(cfg, tables)
     n = num_replicas(st)
@@ -261,7 +267,9 @@ def run_ensemble_until(
         return st
     # replicas quiescent at entry keep the entry state's values
     final_rows = {r: entry[r] for r in range(n) if int(entry[r, nt]) >= end_time}
-    st = rows_view(st.clone())
+    with _tspan(tracker, "donate_copy"):
+        st = rows_view(st.clone())
+    flightrec.begin_segment()
     end_t = torch.tensor(end_time, dtype=torch.int64, device=st.device)
 
     def launch(st):
@@ -291,14 +299,19 @@ def run_ensemble_until(
         return st
 
     def snapshot(st):
-        return _patch_snapshot(state_to_host(stacked_view(st)), final_rows)
+        with _tspan(tracker, "state_snapshot", chunk=chunks):
+            return _patch_snapshot(state_to_host(stacked_view(st)), final_rows)
 
     chunks = 0
     pending = False  # a due snapshot of this chunk's state (see run_until)
     while True:
-        st = launch(st)
+        with _tspan(tracker, "chunk_launch" if chunks else "compile+launch", chunk=chunks):
+            st = launch(st)
         chunks += 1
-        rows = state_probe(st).cpu().numpy()
+        with _tspan(tracker, "probe_fetch", chunk=chunks - 1):
+            rows = state_probe(st).cpu().numpy()
+        probe = _aggregate_probe(rows)
+        flightrec.observe_probe(probe, chunk=chunks - 1)
         ahead = chunks < max_chunks
         if rows[:, _LANE["overflow"]].any():
             err = _replica_capacity_error(rows)
@@ -306,7 +319,6 @@ def run_ensemble_until(
             raise err
         if on_rows is not None:
             on_rows(rows)
-        probe = _aggregate_probe(rows)
         if on_chunk is not None:
             on_chunk(probe)
         for r in range(n):

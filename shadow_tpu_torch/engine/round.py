@@ -23,6 +23,7 @@ vmap over the replica axis gives them (engine/ensemble.py).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -40,6 +41,7 @@ from shadow_tpu_torch.engine.state import (
 from shadow_tpu_torch.events import KIND_PACKET, pack_tie
 from shadow_tpu_torch.graph.routing import RoutingTables
 from shadow_tpu_torch.netstack import AUX_SHAPED_BIT, AUX_SIZE_MASK
+from shadow_tpu_torch.runtime import flightrec
 from shadow_tpu_torch.simtime import TIME_MAX
 
 _W = torch.where
@@ -650,40 +652,62 @@ def validate_runahead(cfg: EngineConfig, tables: RoutingTables) -> None:
 
 PROBE_FIELDS = (
     "next_time", "overflow", "now", "events_handled", "packets_sent",
-    "queue_overflow", "outbox_overflow", "rounds_live", "rounds_idle",
-    "queue_hwm", "outbox_hwm", "exch_hwm",
+    "queue_overflow", "outbox_overflow", "ev_local", "ev_tcp", "drop_loss",
+    "drop_codel", "drop_unroutable", "bytes_ctrl", "bytes_data", "retrans_segs",
+    "queue_hwm", "outbox_hwm", "rounds_live", "rounds_idle", "iters", "lanes_live",
+    "win_ns_sum", "exch_hwm",
 )
 
 
 def state_probe(st: SimState) -> torch.Tensor:
-    """[12] i64 summary the chunk loop reads (one fetch per chunk): min
-    pending time, total/queue/outbox overflow, now, events, packets, the
-    round counters and the tracker's queue, outbox and exchange
-    high-water marks (0 without cfg.tracker), which a capacity error
-    reports. An ensemble state (stacked or rows view) gives [R, 12], one
-    line per replica."""
+    """[23] i64 summary the chunk loop reads (one fetch per chunk), the
+    reference's lanes in its order: min pending time, total/queue/outbox
+    overflow, now, events, packets, the tracker's per-kind events, the
+    drop reasons, the tracker's byte classes and retransmissions, its
+    queue and outbox high-water marks, the round counters, the drain
+    iterations, the live lanes, the summed window widths and the
+    exchange high-water mark (the tracker's lanes are 0 without
+    cfg.tracker). An ensemble state (stacked or rows view) gives [R, 23],
+    one line per replica."""
     single = replicas_of(st) is None
 
     def red(x, fn):
         return fn(x) if single else fn(per_replica(st, x), dim=1)
 
+    def total(x):
+        return red(x, torch.sum).to(torch.int64)
+
+    def peak(x):
+        return red(x, torch.amax).to(torch.int64)
+
     tr = st.tracker
-    qov = red(st.queue.overflow, torch.sum).to(torch.int64)
-    oov = red(st.outbox.overflow, torch.sum).to(torch.int64)
+    qov = total(st.queue.overflow)
+    oov = total(st.outbox.overflow)
     return torch.stack(
         [
             red(equeue.next_time(st.queue), torch.amin),
             qov + oov,
             st.now,
-            red(st.events_handled, torch.sum),
-            red(st.packets_sent, torch.sum),
+            total(st.events_handled),
+            total(st.packets_sent),
             qov,
             oov,
+            total(tr.ev_local),
+            total(tr.ev_tcp),
+            total(st.packets_dropped),
+            total(st.net.codel_dropped),
+            total(st.packets_unroutable),
+            total(tr.bytes_ctrl),
+            total(tr.bytes_data),
+            total(tr.retrans_segs),
+            peak(tr.queue_hwm),
+            peak(tr.outbox_hwm),
             tr.rounds_live,
             tr.rounds_idle,
-            red(tr.queue_hwm, torch.amax).to(torch.int64),
-            red(tr.outbox_hwm, torch.amax).to(torch.int64),
-            red(tr.exch_hwm, torch.amax).to(torch.int64),
+            total(st.iters_done),
+            total(st.lanes_live),
+            st.win_ns_sum,
+            peak(tr.exch_hwm),
         ],
         dim=-1,
     )
@@ -692,10 +716,10 @@ def state_probe(st: SimState) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class ChunkProbe:
     """Host-side view of one fetched probe (plain ints), one field per
-    PROBE_FIELDS lane. This is what `on_chunk` callbacks and the state
-    tap (runtime/checkpoint.py StateTap) receive: progress, heartbeat and
-    checkpoint cadence read these fields instead of syncing on the
-    state."""
+    PROBE_FIELDS lane. This is what `on_chunk` callbacks, the tracker,
+    the flight recorder and the state tap (runtime/checkpoint.py
+    StateTap) receive: progress, heartbeat, metrics and checkpoint
+    cadence read these fields instead of syncing on the state."""
 
     next_time: int
     overflow: int
@@ -704,11 +728,41 @@ class ChunkProbe:
     packets_sent: int
     queue_overflow: int
     outbox_overflow: int
-    rounds_live: int
-    rounds_idle: int
+    ev_local: int
+    ev_tcp: int
+    drop_loss: int
+    drop_codel: int
+    drop_unroutable: int
+    bytes_ctrl: int
+    bytes_data: int
+    retrans_segs: int
     queue_hwm: int
     outbox_hwm: int
+    rounds_live: int
+    rounds_idle: int
+    iters: int
+    lanes_live: int
+    win_ns_sum: int
     exch_hwm: int
+
+    @property
+    def ev_packet(self) -> int:
+        """Packet events handled (total minus the local/tcp classes)."""
+        return self.events_handled - self.ev_local - self.ev_tcp
+
+    @property
+    def window_ns_mean(self) -> float:
+        """Mean simulated width of the live windows drained so far (0.0
+        without cfg.tracker, whose rounds_live is the denominator)."""
+        return self.win_ns_sum / self.rounds_live if self.rounds_live else 0.0
+
+    def occupancy(self, num_hosts: int, num_shards: int = 1) -> float:
+        """Mean fraction of host lanes holding an eligible event per drain
+        iteration. `iters` sums the loop counts of `num_shards` planes
+        (the replicas of an ensemble), each scanning num_hosts/num_shards
+        lanes."""
+        denom = self.iters * (num_hosts // max(num_shards, 1))
+        return self.lanes_live / denom if denom else 0.0
 
     @classmethod
     def from_array(cls, arr) -> "ChunkProbe":
@@ -990,6 +1044,14 @@ def tap_chunk(on_state, probe: ChunkProbe, chunk: int, st, launch, snapshot,
     return pending
 
 
+def _tspan(tracker, name, **args):
+    """A tracker span, or a no-op when no tracker is attached (the hot
+    path pays one `if`)."""
+    if tracker is None:
+        return contextlib.nullcontext()
+    return tracker.span(name, **args)
+
+
 def run_until(
     st: SimState,
     end_time: int,
@@ -1001,6 +1063,7 @@ def run_until(
     on_chunk=None,
     counters=None,
     on_state=None,
+    tracker=None,
 ) -> SimState:
     """Host-side driver: chunks of `rounds_per_chunk` rounds until no work
     remains before end_time. The caller's state is never modified (the
@@ -1023,24 +1086,56 @@ def run_until(
     loop runs chunks one at a time and takes those same states: the next
     chunk's state once its probe passed, and one chunk more on the error
     and interrupt paths (the error's only when its text is read). So
-    checkpoints and error texts equal the reference's."""
+    checkpoints and error texts equal the reference's.
+
+    `tracker` (utils/tracker.py) records the reference's dispatch spans
+    (donate_copy, compile+launch on chunk 0, where the kernel's first use
+    builds it, chunk_launch, probe_fetch, host_stats_fetch,
+    state_snapshot) and renders per-host heartbeat lines when it says one
+    is due, deciding from the already-read probe. The reference renders
+    the heartbeat of probe N from the chunk it has in flight, N + 1: this
+    loop renders it after chunk N + 1 has run, stamped with probe N's
+    `now` (from chunk N itself when no chunk follows, where the
+    reference's extra chunk is idle). The installed flight recorder
+    (runtime/flightrec.py) observes every probe before its overflow
+    check, so a post-mortem's last sample is the failing chunk."""
     from shadow_tpu_torch.engine.state import state_to_host
 
     validate_runahead(cfg, tables)
     if int(equeue.next_time(st.queue).amin()) >= end_time:
         check_capacity(st)
         return st
-    st = st.clone()
+    with _tspan(tracker, "donate_copy"):
+        st = st.clone()
+    flightrec.begin_segment()
+
+    def heartbeat(probe, src):
+        with _tspan(tracker, "host_stats_fetch"):
+            tracker.emit_host_heartbeat(probe, host_stats(src))
+
+    hb_probe = None  # a heartbeat decided at the last probe, due from this chunk
 
     def launch(s):
-        return _run_chunk(s, end_time, model, tables, cfg, rounds_per_chunk, counters)
+        out = _run_chunk(s, end_time, model, tables, cfg, rounds_per_chunk, counters)
+        nonlocal hb_probe
+        if hb_probe is not None:
+            heartbeat(hb_probe, out)
+            hb_probe = None
+        return out
+
+    def snapshot(s):
+        with _tspan(tracker, "state_snapshot", chunk=chunks):
+            return state_to_host(s)
 
     chunks = 0
     pending = False  # a due snapshot of this chunk's state, verified by its probe
     while True:
-        st = launch(st)
+        with _tspan(tracker, "chunk_launch" if chunks else "compile+launch", chunk=chunks):
+            st = launch(st)
         chunks += 1
-        probe = ChunkProbe.from_array(state_probe(st).tolist())
+        with _tspan(tracker, "probe_fetch", chunk=chunks - 1):
+            probe = ChunkProbe.from_array(state_probe(st).tolist())
+        flightrec.observe_probe(probe, chunk=chunks - 1)
         # the reference's chunk loop has the next chunk in flight at this probe
         ahead = chunks < max_chunks
         if probe.overflow:
@@ -1050,8 +1145,13 @@ def run_until(
             raise err
         if on_chunk is not None:
             on_chunk(probe)
+        if tracker is not None and tracker.host_heartbeat_due(probe.now):
+            if ahead and probe.next_time < end_time:
+                hb_probe = probe  # rendered by the next launch
+            else:
+                heartbeat(probe, st)
         if on_state is not None:
-            pending = tap_chunk(on_state, probe, chunks - 1, st, launch, state_to_host,
+            pending = tap_chunk(on_state, probe, chunks - 1, st, launch, snapshot,
                                 pending, ahead)
         if probe.next_time >= end_time:
             return st

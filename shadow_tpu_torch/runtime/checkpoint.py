@@ -37,6 +37,7 @@ import json
 import os
 import signal
 import threading
+import time
 
 import numpy as np
 
@@ -45,6 +46,7 @@ from shadow_tpu_torch.config.fingerprint import (  # noqa: F401
     fingerprint_diff,
 )
 from shadow_tpu_torch.engine.state import SimState, state_from_host
+from shadow_tpu_torch.runtime import flightrec
 from shadow_tpu_torch.utils.shadow_log import slog
 
 CHECKPOINT_VERSION = 1
@@ -262,7 +264,14 @@ class CheckpointManager:
             meta["deliver_lanes"] = self.engine_cfg.deliver_lanes
             meta["a2a_capacity"] = self.engine_cfg.a2a_capacity
             meta["pool_capacity"] = self.engine_cfg.pool_capacity
+        t0 = time.perf_counter()
         save_checkpoint(path, host_state, meta)
+        # checkpoint walls are part of the metrics stream (a run stalling
+        # on serialization must be visible there)
+        flightrec.record_event(
+            "checkpoint", wall_s=round(time.perf_counter() - t0, 4),
+            now_ns=now, final=final, path=path,
+        )
         self.written.append(path)
         slog("info", now, "checkpoint",
              f"wrote {'final ' if final else ''}checkpoint {path}")

@@ -7,10 +7,10 @@ same run() surface as TpuScheduler. ensemble_stats folds the final state
 into sim-stats.json's `ensemble` section: one block per replica and
 mean/stddev/min/max/95% CI across replicas.
 
-run() carries the reference runner's checkpoint, interrupt and recovery
-seams (a regrow widens the whole batch). Not carried yet: its
-compile-cache seam, and flatten_host_stats (it feeds the host-side
-tracker fold, which the port does not have yet).
+run() carries the reference runner's checkpoint, interrupt, recovery
+and tracker seams (a regrow widens the whole batch); flatten_host_stats
+folds the batch's per-host tensors for the tracker. Not carried yet:
+its compile-cache seam.
 """
 
 from __future__ import annotations
@@ -75,13 +75,14 @@ class EnsembleRunner:
             device=self.device,
         )
 
-    def _runner_factory(self, end_time_ns: int, on_chunk, max_chunks):
+    def _runner_factory(self, end_time_ns: int, on_chunk, max_chunks, tracker=None):
         def factory(cfg):
             def run(st, on_state=None):
                 return run_ensemble_until(
                     st, end_time_ns, self.model, self.tables, cfg,
                     rounds_per_chunk=self.rounds_per_chunk, max_chunks=max_chunks,
                     on_chunk=on_chunk, on_rows=self.on_rows, on_state=on_state,
+                    tracker=tracker,
                 )
 
             return run
@@ -89,7 +90,7 @@ class EnsembleRunner:
         return factory
 
     def run(self, end_time_ns: int, on_chunk=None, max_chunks: int = 100_000,
-            start_state=None, checkpoints=None, guard=None, recovery=None):
+            start_state=None, checkpoints=None, guard=None, recovery=None, tracker=None):
         """Run the whole batch to end_time_ns (the driver stops when the
         slowest replica quiesces). Mirrors TpuScheduler.run, with the
         regrow step on the whole [R, ...] batch (grow_ensemble_state)."""
@@ -97,12 +98,16 @@ class EnsembleRunner:
 
         st = start_state if start_state is not None else self.initial_state()
         self.recovery_report = []
+        factory = self._runner_factory(end_time_ns, on_chunk, max_chunks, tracker)
         try:
+            if recovery is None and checkpoints is None and guard is None:
+                # the plain path: no taps, no recovery wrapper
+                return factory(self.cfg)(st)
             final, self.recovery_report = run_until_recovering(
                 st, end_time_ns, cfg=self.cfg,
                 policy=recovery or RecoveryPolicy(max_recoveries=0),
-                checkpoints=checkpoints, guard=guard,
-                runner_factory=self._runner_factory(end_time_ns, on_chunk, max_chunks),
+                checkpoints=checkpoints, guard=guard, tracker=tracker,
+                runner_factory=factory,
                 grow_fn=grow_ensemble_state,
             )
         except Exception as err:
@@ -184,3 +189,26 @@ def ensemble_stats(
             else None,
         },
     }
+
+
+def flatten_host_stats(hs: dict) -> dict:
+    """Collapse the [R, H] per-host tensors of an ensemble host_stats
+    fetch into the flat shape the host-side tracker fold expects
+    (utils/tracker.py sums/maxes over one axis): per-host arrays flatten
+    to [R*H]; the per-replica round scalars reduce to their max (exact
+    per-replica rounds live in the `ensemble` stats block instead). The
+    window-width pair is the exception: mean_ns = win_ns_sum /
+    rounds_live must take both from the same population, so the fold
+    gets the across-replica totals (win_rounds_live carries the summed
+    denominator)."""
+    out = {}
+    for k, v in hs.items():
+        a = np.asarray(v)
+        if k == "win_ns_sum":
+            out[k] = int(a.sum())
+        elif k in ("rounds_live", "rounds_idle"):
+            out[k] = int(a.max())
+        else:
+            out[k] = a.reshape(-1)
+    out["win_rounds_live"] = int(np.asarray(hs["rounds_live"]).sum())
+    return out

@@ -1,0 +1,802 @@
+"""Flight recorder + streaming metrics plane (port of
+shadow_tpu/runtime/flightrec.py).
+
+The tracker plane answers "what happened in total" and the
+dispatch trace answers "where did the wall-clock go", but every question
+the perf work actually asks — *when* did throughput collapse, what did
+the adaptive window look like in the chunks before the watchdog fired,
+which sweep job was starving the queue — needs a **time series**, and
+every failure the chaos plane injects needs forensics richer than
+end-of-run totals. The reference simulator ships exactly this as its
+per-interval heartbeat log; our equivalent rides the per-chunk probe the
+drivers already fetch:
+
+  * **FlightRecorder** — accumulates one sample per device chunk from
+    the already-fetched ChunkProbe (deltas of the cumulative lanes:
+    sim-time advance, events/packets, drain iterations, live lanes,
+    window-width mean, occupancy, drops) into a bounded ring buffer.
+    Zero extra device syncs *by construction*: every input is a probe
+    the driver fetched anyway (pinned by tests/test_flightrec.py).
+  * **Metrics stream** (`--metrics-file`) — samples and events stream
+    as JSONL while the run is live (flushed at heartbeat cadence), so a
+    long run can be tailed or post-processed without waiting for it.
+  * **Black-box dump** (`flight-recorder.json`) — on every failure path
+    (CapacityError, WatchdogExpired, engine-ladder fallback, worker
+    crash, sweep quarantine, plain exceptions) the recorder writes the
+    last N samples + recent events + the resolved config + recent
+    tracker spans + a structured failure record. The drivers record the
+    FAILING chunk's probe before raising (engine/round.py run_until,
+    engine/ensemble.py run_ensemble_until), so the last sample in the
+    dump is the chunk that died, not the one before it.
+  * **Prometheus textfile** (`--metrics-prom`) — a node-exporter
+    textfile-collector snapshot rewritten at heartbeat cadence, so a
+    long-lived run or sweep service is scrapeable.
+  * **profiler windows** (`--xprof-dir`, `--xprof-chunks A:B`) — an
+    optional torch.profiler capture (host and, on the card, CUDA
+    activity) bracketing a chosen chunk range, written into the
+    directory as a Chrome trace.
+
+Installation mirrors the reference's chaos plane: one recorder per
+process installed around a run; every seam consults it through
+module-level hooks that cost a single global ``is None`` check when no
+recorder is installed. Device memory is read from the CUDA caching
+allocator's counters (runtime/memtrack.py device_memory): host reads,
+no device sync; a CPU run reports none, as the reference's CPU backend
+does. `python -m shadow_tpu_torch metrics <file>` renders a recorded
+series as a summary table with per-metric percentiles and sparklines.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import json
+import os
+import time
+
+from shadow_tpu_torch.runtime.memtrack import device_memory
+
+DEFAULT_RING = 512
+
+# event kinds folded into the cumulative counters every sample carries
+_COUNTER_BY_KIND = {
+    "recovery": "recoveries",
+    "engine_fallback": "engine_fallbacks",
+    "worker_respawn": "worker_respawns",
+    "checkpoint": "checkpoints",
+}
+
+# sample fields the metrics CLI summarizes (in table order)
+SUMMARY_FIELDS = (
+    "dt_ns",
+    "events",
+    "packets",
+    "iters",
+    "lanes_live",
+    "win_ns_mean",
+    "occupancy",
+    "drops",
+    "queue_hwm",
+    "outbox_hwm",
+    "device_bytes_in_use",
+    "device_peak_bytes",
+)
+
+
+def failure_record(err: BaseException, **extra) -> dict:
+    """A structured failure record from any exception the runtime can
+    die with — keyed by class NAME so this module never imports the
+    engine (the drivers import us). Carries the capacity split / chunk
+    site / injected flag when the exception has them."""
+    kind = {
+        "CapacityError": "capacity",
+        "WatchdogExpired": "watchdog",
+        "EngineCompileError": "compile",
+        "WorkerCrashed": "worker-crash",
+        "CheckpointError": "checkpoint",
+        "RunInterrupted": "interrupted",
+        "DeviceLossError": "device-loss",
+    }.get(type(err).__name__, type(err).__name__)
+    rec: dict = {"kind": kind, "error": str(err)[:500]}
+    for attr in (
+        "queue_overflow",
+        "outbox_overflow",
+        "queue_hwm",
+        "outbox_hwm",
+        "replica",
+        "shard",
+        "chunk",
+        "deadline_s",
+        "engine",
+        "device_id",
+        "bytes_current",
+        "bytes_regrown",
+    ):
+        # present-but-zero is information (chunk 0, replica 0, a zero
+        # half of the overflow split); only an absent attribute is
+        # dropped
+        v = getattr(err, attr, None)
+        if v is not None:
+            rec[attr] = v
+    if getattr(err, "injected", False):
+        rec["injected"] = True
+    # degradation history riding the terminal exception
+    # (runtime/recovery.py attaches the survived recoveries): the final
+    # catch-all dump must not lose what the run lived through
+    recs = getattr(err, "recoveries", None)
+    if recs is not None:
+        rec["recoveries"] = recs if isinstance(recs, int) else len(recs)
+    rec.update(extra)
+    return rec
+
+
+class FlightRecorder:
+    """One per run (or per sweep service). Subscribes to the per-chunk
+    probe stream the drivers fetch anyway; never touches the device."""
+
+    def __init__(
+        self,
+        *,
+        num_hosts: int = 0,
+        num_shards: int = 1,
+        ring: int = DEFAULT_RING,
+        metrics_path: "str | None" = None,
+        metrics_max_bytes: int = 0,
+        metrics_keep: int = 3,
+        prom_path: "str | None" = None,
+        blackbox_path: "str | None" = None,
+        heartbeat_ns: int = 0,
+        config_dict: "dict | None" = None,
+        tracker=None,
+        xprof_dir: "str | None" = None,
+        xprof_chunks: "tuple[int, int] | None" = None,
+        device=None,
+    ):
+        self.num_hosts = int(num_hosts)
+        # the run's device; None = the current CUDA device when this
+        # process has initialised CUDA
+        self.device = device
+        self.num_shards = max(1, int(num_shards))
+        self.metrics_path = metrics_path
+        # rolling retention (general.metrics_max_mb / metrics_keep): the
+        # JSONL stream rotates at the byte cap, keeping `metrics_keep`
+        # numbered segments — a week-long daemon cannot fill the disk
+        self.metrics_max_bytes = int(metrics_max_bytes or 0)
+        self.metrics_keep = max(1, int(metrics_keep))
+        self.rotations = 0
+        self._stream_bytes = 0
+        self.prom_path = prom_path
+        self.blackbox_path = blackbox_path
+        self.heartbeat_ns = int(heartbeat_ns or 0)
+        self.config_dict = config_dict
+        self.tracker = tracker
+        self.xprof_dir = xprof_dir
+        self.xprof_start, self.xprof_end = xprof_chunks or (1, 3)
+        self._xprof_active = False
+        self._prof = None  # the live torch.profiler.profile of the window
+        self._t0 = time.perf_counter()
+        self.samples: "collections.deque[dict]" = collections.deque(maxlen=ring)
+        self.events: "collections.deque[dict]" = collections.deque(maxlen=ring)
+        self.counters = {
+            "recoveries": 0,
+            "engine_fallbacks": 0,
+            "worker_respawns": 0,
+            "checkpoints": 0,
+            "cache_hits": 0,
+            "cache_misses": 0,
+        }
+        self.chunks = 0
+        self.dumps_written = 0
+        self._prev = None  # previous ChunkProbe (cumulative lanes)
+        self.segment = 0  # driver (re-)entries: fallback/replay/batch
+        self._stream = None
+        self._next_flush_ns = 0
+        self._next_prom_ns = 0
+        # memory observatory: allocator sampling, turned off at the first
+        # sample the run's device cannot give (CPU)
+        self._sample_memory = True
+        if metrics_path:
+            d = os.path.dirname(os.path.abspath(metrics_path))
+            os.makedirs(d, exist_ok=True)
+            self._stream = open(metrics_path, "w")
+
+    # --- the per-chunk sample ------------------------------------------
+
+    def _device_memory_sample(self) -> "dict | None":
+        """Fold the CUDA allocator's counters into the chunk sample: bytes
+        in use and the peak. A pure host read (memtrack.device_memory) —
+        no device sync rides on it, so the zero-added-fetches pin of the
+        metrics stream holds by construction. A run on the CPU reports
+        nothing, and sampling is disabled after the first try so steady-
+        state chunks pay nothing."""
+        if not self._sample_memory:
+            return None
+        dev = device_memory(self.device, limit=False)
+        if dev is None:
+            self._sample_memory = False
+            return None
+        return {"device_bytes_in_use": dev["bytes_in_use"],
+                "device_peak_bytes": dev["peak_bytes_in_use"]}
+
+    def observe(self, probe, chunk: "int | None" = None) -> dict:
+        """Fold one fetched ChunkProbe into the ring: per-chunk deltas of
+        the cumulative probe lanes, plus the cumulative totals the
+        black-box matcher needs. Called by the drivers right after the
+        probe fetch — including for the chunk whose capacity check is
+        about to fail, so a post-mortem's last sample IS the failing
+        chunk."""
+        p, prev = probe, self._prev
+
+        def d(field: str) -> int:
+            return getattr(p, field) - (getattr(prev, field) if prev else 0)
+
+        di, dl = d("iters"), d("lanes_live")
+        dr, dw = d("rounds_live"), d("win_ns_sum")
+        sample = {
+            "type": "sample",
+            "chunk": self.chunks if chunk is None else int(chunk),
+            "wall_s": round(time.perf_counter() - self._t0, 4),
+            "now_ns": p.now,
+            "dt_ns": d("now"),
+            "events": d("events_handled"),
+            "packets": d("packets_sent"),
+            "iters": di,
+            "lanes_live": dl,
+            "rounds_live": dr,
+            "rounds_idle": d("rounds_idle"),
+            "win_ns_mean": round(dw / dr, 1) if dr else 0.0,
+            "drops": d("drop_loss") + d("drop_codel") + d("drop_unroutable"),
+            "queue_hwm": p.queue_hwm,
+            "outbox_hwm": p.outbox_hwm,
+            "events_total": p.events_handled,
+            "packets_total": p.packets_sent,
+            "recoveries": self.counters["recoveries"],
+            "engine_fallbacks": self.counters["engine_fallbacks"],
+            "segment": self.segment,
+        }
+        if self.num_hosts:
+            lanes = self.num_hosts // self.num_shards
+            sample["occupancy"] = (
+                round(dl / (di * lanes), 4) if di and lanes else 0.0
+            )
+        mem = self._device_memory_sample()
+        if mem:
+            sample.update(mem)
+        self._prev = p
+        self.chunks += 1
+        self.samples.append(sample)
+        self._stream_line(sample, now_ns=p.now)
+        self._maybe_prom(p.now)
+        self._xprof_step(sample["chunk"])
+        return sample
+
+    def begin_segment(self) -> None:
+        """A driver is (re-)entering its chunk loop: an engine-ladder
+        fallback, a recovery replay, a sweep batch, or the autotuner's
+        probe each restart the cumulative probe lanes, so the delta base
+        must reset or the first sample of the new segment computes
+        against an unrelated stream (negative dt_ns/events). Samples
+        carry the segment index so restarted chunk numbering stays
+        unambiguous."""
+        self._prev = None
+        self.segment += 1
+
+    def event(self, _kind: str, **data) -> dict:
+        """Record a discrete event (recovery, engine fallback, autotune
+        decision, checkpoint wall, compile-cache hit/miss, worker
+        respawn, preemption...). Events are rare: they stream and flush
+        immediately. A `kind` key inside the payload (e.g. a recovery
+        record's own kind) is kept as `detail_kind` — the event's kind
+        names the event class."""
+        counter = _COUNTER_BY_KIND.get(_kind)
+        if counter is not None:
+            self.counters[counter] += 1
+        elif _kind == "compile_cache":
+            self.counters["cache_hits" if data.get("hit") else "cache_misses"] += 1
+        ev = {
+            "type": "event",
+            "kind": _kind,
+            "wall_s": round(time.perf_counter() - self._t0, 4),
+            **{("detail_kind" if k == "kind" else k): v
+               for k, v in data.items()},
+        }
+        self.events.append(ev)
+        self._stream_line(ev, flush=True)
+        return ev
+
+    def _stream_line(self, obj: dict, now_ns: "int | None" = None,
+                     flush: bool = False) -> None:
+        if self._stream is None:
+            return
+        try:
+            line = json.dumps(obj, default=str) + "\n"
+            self._stream.write(line)
+            self._stream_bytes += len(line)
+            if (
+                self.metrics_max_bytes > 0
+                and self._stream_bytes >= self.metrics_max_bytes
+            ):
+                self._rotate_stream()
+            # flushed at heartbeat cadence so the file can be tailed live
+            # without paying an fsync-ish flush on every chunk of a tight
+            # dispatch loop; no cadence configured = flush every line
+            if flush or self.heartbeat_ns <= 0:
+                self._stream.flush()
+            elif now_ns is not None and now_ns >= self._next_flush_ns:
+                self._stream.flush()
+                hb = self.heartbeat_ns
+                self._next_flush_ns = (now_ns // hb + 1) * hb
+        except (OSError, ValueError):
+            self._stream = None  # a broken stream must never kill the run
+
+    def _rotate_stream(self) -> None:
+        """logrotate-style shift: file -> file.1 -> ... -> file.N, N =
+        metrics_keep, oldest dropped. The live path always holds the
+        newest samples, so `metrics --follow` keeps working
+        across a rotation (it re-reads the whole live file)."""
+        p = self.metrics_path
+        self._stream.flush()
+        self._stream.close()
+        self._stream = None
+        for i in range(self.metrics_keep - 1, 0, -1):
+            src = f"{p}.{i}"
+            if os.path.exists(src):
+                os.replace(src, f"{p}.{i + 1}")
+        os.replace(p, f"{p}.1")
+        self._stream = open(p, "w")
+        self._stream_bytes = 0
+        self.rotations += 1
+        self.event("metrics_rotate", segment=self.rotations,
+                   keep=self.metrics_keep)
+
+    def _maybe_prom(self, now_ns: int) -> None:
+        """Prometheus snapshot cadence — independent of the JSONL stream,
+        so --metrics-prom alone still rewrites at heartbeat cadence (or
+        every 64 chunks when no cadence is configured)."""
+        if not self.prom_path:
+            return
+        if self.heartbeat_ns > 0:
+            if now_ns < self._next_prom_ns:
+                return
+            hb = self.heartbeat_ns
+            self._next_prom_ns = (now_ns // hb + 1) * hb
+        elif self.chunks % 64:
+            return
+        self.write_prom()
+
+    # --- black box ------------------------------------------------------
+
+    def dump(self, failure: "dict | None" = None,
+             path: "str | None" = None) -> "str | None":
+        """Write the post-mortem black box: the last N samples, recent
+        events, counters, the resolved config, and recent tracker spans.
+        Atomic (tmp + rename) and exception-free — forensics must never
+        mask the error being reported."""
+        path = path or self.blackbox_path
+        if not path:
+            return None
+        doc = {
+            "format": "shadow-tpu-flight-recorder-v1",
+            "written_at": time.strftime("%Y-%m-%dT%H:%M:%S"),
+            "wall_s": round(time.perf_counter() - self._t0, 4),
+            "chunks": self.chunks,
+            "counters": dict(self.counters),
+            "failure": failure,
+            "last_sample": self.samples[-1] if self.samples else None,
+            "samples": list(self.samples),
+            "events": list(self.events),
+        }
+        if self.config_dict is not None:
+            doc["config"] = self.config_dict
+        if self.tracker is not None:
+            doc["tracker_spans"] = self.tracker.spans()[-200:]
+            doc["phase_totals"] = self.tracker.phase_totals()
+        try:
+            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+            tmp = f"{path}.tmp.{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump(doc, f, indent=2, default=str)
+            os.replace(tmp, path)
+            self.dumps_written += 1
+            return path
+        except (OSError, TypeError, ValueError):
+            return None
+
+    # --- prometheus textfile -------------------------------------------
+
+    def render_prom(self, extra_gauges: "dict | None" = None) -> str:
+        """Render the Prometheus snapshot as text — the body write_prom
+        persists, and what `GET /v1/metrics` serves straight off the
+        daemon (runtime/httpapi.py) without touching the textfile."""
+        p = self._prev
+        gauges = {
+            "shadow_tpu_sim_time_ns": p.now if p else 0,
+            "shadow_tpu_events_total": p.events_handled if p else 0,
+            "shadow_tpu_packets_total": p.packets_sent if p else 0,
+            "shadow_tpu_drops_total": (
+                p.drop_loss + p.drop_codel + p.drop_unroutable if p else 0
+            ),
+            "shadow_tpu_chunks_total": self.chunks,
+            "shadow_tpu_queue_hwm": p.queue_hwm if p else 0,
+            "shadow_tpu_outbox_hwm": p.outbox_hwm if p else 0,
+            "shadow_tpu_window_ns_mean": round(p.window_ns_mean, 1) if p else 0,
+            "shadow_tpu_recoveries_total": self.counters["recoveries"],
+            "shadow_tpu_engine_fallbacks_total": self.counters["engine_fallbacks"],
+            "shadow_tpu_worker_respawns_total": self.counters["worker_respawns"],
+            "shadow_tpu_checkpoints_total": self.counters["checkpoints"],
+            "shadow_tpu_compile_cache_hits_total": self.counters["cache_hits"],
+            "shadow_tpu_compile_cache_misses_total": self.counters["cache_misses"],
+        }
+        if p is not None and self.num_hosts:
+            gauges["shadow_tpu_occupancy"] = round(
+                p.occupancy(self.num_hosts, self.num_shards), 4
+            )
+        # device memory telemetry (absent on backends without
+        # memory_stats — CPU — so the gauge family only appears where it
+        # means something)
+        last = self.samples[-1] if self.samples else None
+        if last and "device_bytes_in_use" in last:
+            gauges["shadow_tpu_device_bytes_in_use"] = last["device_bytes_in_use"]
+            gauges["shadow_tpu_device_peak_bytes"] = last["device_peak_bytes"]
+        if extra_gauges:
+            gauges.update(extra_gauges)
+        # a gauge key may carry prometheus labels (e.g.
+        # shadow_tpu_tenant_queue_depth{tenant="alice"}); the TYPE line
+        # names the bare family, emitted once per family
+        lines = []
+        typed = set()
+        for name in sorted(gauges):
+            family = name.split("{", 1)[0]
+            if family not in typed:
+                typed.add(family)
+                lines.append(f"# TYPE {family} gauge")
+            lines.append(f"{name} {gauges[name]}")
+        return "\n".join(lines) + "\n"
+
+    def write_prom(self, path: "str | None" = None,
+                   extra_gauges: "dict | None" = None) -> "str | None":
+        """Rewrite the Prometheus textfile snapshot (node-exporter
+        textfile-collector format: atomic rename, so a scrape never sees
+        a partial file)."""
+        path = path or self.prom_path
+        if not path:
+            return None
+        text = self.render_prom(extra_gauges)
+        try:
+            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+            tmp = f"{path}.tmp.{os.getpid()}"
+            with open(tmp, "w") as f:
+                f.write(text)
+            os.replace(tmp, path)
+            return path
+        except OSError:
+            return None
+
+    # --- profiler capture window --------------------------------------
+
+    def _xprof_step(self, chunk: int) -> None:
+        """Bracket [xprof_start, xprof_end) chunk dispatches in a
+        torch.profiler capture (CPU activity, and CUDA activity where the
+        card is present, with CUPTI torn down when it stops), written into
+        xprof_dir as a Chrome trace when the window closes. Best-effort: a
+        profiler that cannot start records an event and disables itself."""
+        if not self.xprof_dir:
+            return
+        try:
+            if not self._xprof_active and chunk + 1 >= self.xprof_start:
+                import torch
+                from torch.profiler import ProfilerActivity, profile
+
+                acts = [ProfilerActivity.CPU]
+                if torch.cuda.is_available():
+                    acts.append(ProfilerActivity.CUDA)
+                    # unless the profiler tears CUPTI down at stop, CUPTI
+                    # stays attached and every later kernel launch of the
+                    # process costs more host time (the rest of the run);
+                    # a caller's own TEARDOWN_CUPTI (0 under CUDA graphs)
+                    # is kept
+                    os.environ.setdefault("TEARDOWN_CUPTI", "1")
+                self._prof = profile(activities=acts)
+                self._prof.start()
+                self._xprof_active = True
+                self.event("xprof_start", chunk=chunk, dir=self.xprof_dir)
+            elif self._xprof_active and chunk + 1 >= self.xprof_end:
+                self._stop_xprof()
+                self.event("xprof_stop", chunk=chunk)
+                self.xprof_dir = None  # one window per run
+        except Exception as e:  # noqa: BLE001 — profiling is optional
+            self.event("xprof_error", error=str(e)[:200])
+            self._xprof_active = False
+            self._prof = None
+            self.xprof_dir = None
+
+    def _stop_xprof(self) -> None:
+        """Stop the live capture and write its Chrome trace,
+        `<xprof_dir>/chunks-<start>-<end>.pt.trace.json`."""
+        prof, self._prof = self._prof, None
+        self._xprof_active = False
+        prof.stop()
+        os.makedirs(self.xprof_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            self.xprof_dir, f"chunks-{self.xprof_start}-{self.xprof_end}.pt.trace.json"))
+
+    def series_tail(self, n: int = 32) -> "list[dict]":
+        """The newest n samples (bench publishes these per trial)."""
+        return list(self.samples)[-n:]
+
+    def close(self) -> None:
+        """End of run: stop a live profiler window, final prom snapshot,
+        flush + close the metrics stream."""
+        if self._xprof_active:
+            try:
+                self._stop_xprof()
+            except Exception:  # noqa: BLE001
+                pass
+            self._xprof_active = False
+        self.write_prom()
+        if self._stream is not None:
+            try:
+                self._stream.flush()
+                self._stream.close()
+            except OSError:
+                pass
+            self._stream = None
+
+
+# --- installation (mirrors the reference's chaos plane) ------------------
+
+_REC: "FlightRecorder | None" = None
+
+
+def install(rec: "FlightRecorder | None") -> None:
+    global _REC
+    _REC = rec
+
+
+def uninstall() -> None:
+    install(None)
+
+
+def active() -> "FlightRecorder | None":
+    return _REC
+
+
+@contextlib.contextmanager
+def installed(rec: "FlightRecorder | None"):
+    prev = _REC
+    install(rec)
+    try:
+        yield rec
+    finally:
+        install(prev)
+
+
+def observe_probe(probe, chunk: "int | None" = None) -> None:
+    """The driver seam (engine/round.py run_until, engine/ensemble.py
+    run_ensemble_until): fold a fetched probe into the installed recorder.
+    No recorder = one global read."""
+    if _REC is not None:
+        _REC.observe(probe, chunk=chunk)
+
+
+def begin_segment() -> None:
+    """The drivers call this on entry to their chunk loop: every fresh
+    run_until/run_ensemble_until invocation (first attempt, fallback rung,
+    recovery replay, sweep batch) is a new delta segment."""
+    if _REC is not None:
+        _REC.begin_segment()
+
+
+@contextlib.contextmanager
+def suspended():
+    """Temporarily uninstall the recorder — for throwaway runs whose
+    probes must NOT enter the stream (the autotuner's tiny compile probe
+    drives a disposable state through the real driver)."""
+    prev = _REC
+    install(None)
+    try:
+        yield
+    finally:
+        install(prev)
+
+
+def record_event(_kind: str, **data) -> None:
+    if _REC is not None:
+        _REC.event(_kind, **data)
+
+
+def post_mortem(err: "BaseException | None" = None,
+                failure: "dict | None" = None, **extra) -> "str | None":
+    """Write the installed recorder's black box for a failure (an
+    exception, or an explicit failure dict for survivable degradations
+    like an engine fallback). No recorder = no-op."""
+    if _REC is None:
+        return None
+    if failure is None:
+        failure = failure_record(err, **extra) if err is not None else extra
+    return _REC.dump(failure=failure)
+
+
+# --- the `metrics` subcommand's renderer ---------------------------------
+
+_SPARK = "▁▂▃▄▅▆▇█"
+
+
+def _pct(sorted_vals, q: float):
+    if not sorted_vals:
+        return 0
+    idx = min(len(sorted_vals) - 1,
+              max(0, int(round(q * (len(sorted_vals) - 1)))))
+    return sorted_vals[idx]
+
+
+def _sparkline(vals, width: int = 24) -> str:
+    if not vals:
+        return ""
+    if len(vals) > width:
+        # bucket-mean resample to `width` columns
+        step = len(vals) / width
+        vals = [
+            sum(vals[int(i * step):max(int(i * step) + 1, int((i + 1) * step))])
+            / max(1, len(vals[int(i * step):max(int(i * step) + 1, int((i + 1) * step))]))
+            for i in range(width)
+        ]
+    lo, hi = min(vals), max(vals)
+    if hi <= lo:
+        return _SPARK[0] * len(vals)
+    return "".join(
+        _SPARK[min(len(_SPARK) - 1, int((v - lo) / (hi - lo) * (len(_SPARK) - 1)))]
+        for v in vals
+    )
+
+
+def load_series(path: str) -> "tuple[list[dict], list[dict], dict]":
+    """Load a recorded series: a `--metrics-file` JSONL stream, or a
+    `flight-recorder.json` black box. Returns (samples, events, meta)."""
+    with open(path) as f:
+        first = f.readline()
+        try:
+            obj = json.loads(first)
+            # a stream line is one complete sample/event per line; the
+            # black box is one (pretty-printed) document
+            is_jsonl = isinstance(obj, dict) and obj.get("type") in (
+                "sample", "event",
+            )
+        except ValueError:
+            is_jsonl = False
+        f.seek(0)
+        if not is_jsonl:
+            doc = json.load(f)
+            if "samples" not in doc:
+                raise ValueError(
+                    f"{path}: not a flight-recorder dump (no 'samples' key)"
+                )
+            meta = {
+                k: doc.get(k)
+                for k in ("format", "written_at", "chunks", "counters", "failure")
+                if doc.get(k) is not None
+            }
+            return list(doc["samples"]), list(doc.get("events", [])), meta
+        samples, events = [], []
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                obj = json.loads(line)
+            except ValueError:
+                continue  # a torn tail line from a live run
+            (events if obj.get("type") == "event" else samples).append(obj)
+        return samples, events, {}
+
+
+def render_summary(samples: "list[dict]", events: "list[dict]",
+                   meta: "dict | None" = None) -> str:
+    """The `metrics` subcommand's output: run summary, one percentile +
+    sparkline row per metric, recent events, and the failure record when
+    the input is a black box."""
+    meta = meta or {}
+    lines = []
+    if samples:
+        sim_ns = samples[-1].get("now_ns", 0) - (
+            samples[0].get("now_ns", 0) - samples[0].get("dt_ns", 0)
+        )
+        wall = samples[-1].get("wall_s", 0) - samples[0].get("wall_s", 0)
+        ev_total = samples[-1].get("events_total", sum(
+            s.get("events", 0) for s in samples))
+        lines.append(
+            f"{len(samples)} samples, {len(events)} events: "
+            f"{ev_total} events handled over {sim_ns / 1e9:.4g} sim-s "
+            f"in {wall:.4g} wall-s"
+        )
+    else:
+        lines.append(f"0 samples, {len(events)} events")
+    if meta.get("failure"):
+        f = meta["failure"]
+        lines.append(
+            f"FAILURE: kind={f.get('kind', '?')} "
+            + " ".join(
+                f"{k}={v}" for k, v in f.items()
+                if k not in ("kind", "error")
+            )
+        )
+        if f.get("error"):
+            lines.append(f"  error: {f['error'][:160]}")
+    if samples:
+        hdr = (
+            f"{'metric':<12} {'count':>6} {'min':>12} {'p50':>12} "
+            f"{'p90':>12} {'p99':>12} {'max':>12}  trend"
+        )
+        lines.append(hdr)
+        for field in SUMMARY_FIELDS:
+            vals = [s[field] for s in samples if field in s]
+            if not vals or not any(vals):
+                continue
+            sv = sorted(vals)
+
+            def fmt(v):
+                return f"{v:,.4g}" if isinstance(v, float) else f"{v:,}"
+
+            lines.append(
+                f"{field:<12} {len(vals):>6} {fmt(sv[0]):>12} "
+                f"{fmt(_pct(sv, 0.50)):>12} {fmt(_pct(sv, 0.90)):>12} "
+                f"{fmt(_pct(sv, 0.99)):>12} {fmt(sv[-1]):>12}  "
+                f"{_sparkline(vals)}"
+            )
+    if events:
+        lines.append(f"events (last {min(len(events), 20)}):")
+        for ev in events[-20:]:
+            detail = " ".join(
+                f"{k}={v}" for k, v in ev.items()
+                if k not in ("type", "kind", "wall_s")
+            )
+            lines.append(
+                f"  [{ev.get('wall_s', 0):>9.3f}s] {ev.get('kind', '?')} {detail}"
+            )
+    return "\n".join(lines)
+
+
+def render_summary_file(path: str) -> str:
+    samples, events, meta = load_series(path)
+    return render_summary(samples, events, meta)
+
+
+def follow_file(path: str, interval_s: float = 2.0,
+                max_updates: "int | None" = None, out=None) -> int:
+    """`metrics --follow`: tail a live metrics stream,
+    re-rendering the summary whenever the file grows (or appears) — an
+    operator watches a running daemon without restarting the renderer.
+    The whole file is re-read per update; rolling retention
+    (general.metrics_max_mb) bounds its size, and a shrink (rotation)
+    re-renders too. `max_updates` bounds the loop (tests; the CLI's
+    default None follows until Ctrl-C). Returns updates rendered."""
+    import sys
+
+    out = out or sys.stdout
+    clear = "\x1b[2J\x1b[H" if getattr(out, "isatty", lambda: False)() else ""
+    last_size = None
+    updates = 0
+    while max_updates is None or updates < max_updates:
+        try:
+            size = os.path.getsize(path)
+        except OSError:
+            size = -1  # not written yet (daemon still starting)
+        if size != last_size:
+            last_size = size
+            if size >= 0:
+                try:
+                    text = render_summary_file(path)
+                except (OSError, ValueError) as e:
+                    text = f"(waiting for a readable series: {e})"
+            else:
+                text = f"(waiting for {path} to appear)"
+            out.write(f"{clear}{text}\n")
+            try:
+                out.flush()
+            except OSError:
+                pass
+            updates += 1
+            if max_updates is not None and updates >= max_updates:
+                break
+        time.sleep(interval_s)
+    return updates

@@ -22,7 +22,7 @@ import numpy as np
 from shadow_tpu_torch.config import ConfigOptions
 from shadow_tpu_torch.config.options import NotYetPorted
 from shadow_tpu_torch.device import resolve_device
-from shadow_tpu_torch.engine.state import EngineConfig, tree_nbytes
+from shadow_tpu_torch.engine.state import EngineConfig
 from shadow_tpu_torch.graph import IpAssignment, NetworkGraph, compute_routing
 from shadow_tpu_torch.graph.network_graph import ONE_GBIT_SWITCH_GML
 from shadow_tpu_torch.models.registry import _NOT_YET_PORTED, _REGISTRY, build_model
@@ -103,9 +103,6 @@ def _reject_unported(config: ConfigOptions) -> None:
         (g.parallelism > 1, "general.parallelism > 1 (multi-device sharding)"),
         (e.autotune, "experimental.autotune"),
         (e.scheduler != "tpu", f"scheduler {e.scheduler!r}"),
-        (g.tracker or bool(g.trace_file), "the host-side tracker plane (general.tracker)"),
-        (bool(g.metrics_file or g.metrics_prom), "the metrics plane"),
-        (bool(e.xprof_dir), "profiler capture (experimental.xprof_dir)"),
         (e.chunk_watchdog_s > 0, "the chunk watchdog"),
     ]
     for bad, what in checks:
@@ -304,14 +301,35 @@ class Manager:
         return ecfg, ckpt, InterruptGuard(), resume_path
 
     def run(self) -> SimResults:
+        from shadow_tpu_torch.runtime import flightrec
+
+        try:
+            return self._run()
+        finally:
+            # belt-and-braces: _run uninstalls the flight recorder, but an
+            # exception between its install and the run (a world
+            # construction error) must never leak a recorder into the
+            # next run of this process
+            flightrec.uninstall()
+
+    def _run(self) -> SimResults:
         from shadow_tpu_torch.engine.megakernel import PUMP_KERNEL
         from shadow_tpu_torch.engine.round import RunInterrupted
+        from shadow_tpu_torch.runtime import flightrec
         from shadow_tpu_torch.utils.progress import ProgressLine
 
         cfgo = self.config
         world = self.build_world()
         ecfg, ckpt, guard, resume_path = self._setup_checkpointing(world.ecfg)
         replicas = cfgo.general.replicas
+        progress = ProgressLine(cfgo.general.progress)
+        tracker = self._build_tracker(progress)
+        # the flight recorder is always on: the bounded ring costs nothing
+        # per chunk (it reads the probe the chunk loop already read), and
+        # the black box must exist on every failure path, not only when
+        # --metrics-file was passed
+        recorder = self._build_recorder(tracker)
+        flightrec.install(recorder)
         common = dict(
             rounds_per_chunk=cfgo.experimental.rounds_per_chunk,
             tx_bytes_per_interval=world.tx_refill,
@@ -330,19 +348,36 @@ class Manager:
             sched = TpuScheduler(world.model, world.tables, ecfg, **common)
         end = cfgo.general.stop_time_ns
         hb_ns = cfgo.general.heartbeat_interval_ns
-        progress = ProgressLine(cfgo.general.progress)
         last_hb = [0]
+        # occupancy denominator, set before the run so heartbeat lines and
+        # mid-run metrics divide correctly: an ensemble's iteration count
+        # sums R drain loops of H lanes each
+        num_shards = replicas if replicas > 1 else 1
+        if tracker is not None:
+            tracker.num_shards = num_shards
+        recorder.num_shards = num_shards
 
         def on_chunk(probe):
             progress.update(probe.now, end, events=probe.events_handled)
+            if tracker is not None:
+                tracker.record_probe(probe)
             if hb_ns > 0 and probe.now - last_hb[0] >= hb_ns:
                 last_hb[0] = probe.now
                 progress.clear()
+                extra = ""
+                if tracker is not None:
+                    # the probe's tracker lanes: aggregate drop detail on
+                    # the manager heartbeat, still sync-free
+                    extra = (
+                        f", drops loss={probe.drop_loss} "
+                        f"codel={probe.drop_codel} "
+                        f"unroutable={probe.drop_unroutable}"
+                    )
                 slog(
                     "info", probe.now, "manager",
                     f"heartbeat: {probe.events_handled} events, "
                     f"{probe.packets_sent} packets, sim time "
-                    f"{fmt_time_ns(probe.now)}",
+                    f"{fmt_time_ns(probe.now)}{extra}",
                 )
 
         rep_note = f"{replicas} replicas, " if replicas > 1 else ""
@@ -352,43 +387,55 @@ class Manager:
              f"runahead={world.runahead_ns}ns, stop={fmt_time_ns(end)}")
         launches0 = PUMP_KERNEL.launches
         t0 = time.perf_counter()
-        resume_state = None
-        if resume_path is not None:
-            from shadow_tpu_torch.runtime.checkpoint import load_checkpoint
-
-            # resume_path came from latest_path, which verified the sha-256
-            # digest moments ago: skip the second full hash
-            resume_state, meta = load_checkpoint(
-                resume_path, sched.initial_state(), ckpt.fingerprint,
-                check_digest=False, detail=ckpt.detail,
-            )
-            slog("info", meta["now_ns"], "manager",
-                 f"resuming from checkpoint {resume_path} "
-                 f"(sim time {fmt_time_ns(meta['now_ns'])})")
-        recovery = None
-        if cfgo.experimental.recover:
-            from shadow_tpu_torch.runtime.recovery import RecoveryPolicy
-
-            recovery = RecoveryPolicy(
-                max_recoveries=cfgo.experimental.recovery_max_retries,
-                snapshot_interval_chunks=cfgo.experimental.recovery_snapshot_chunks,
-            )
         try:
-            with guard if guard is not None else contextlib.nullcontext():
-                final = sched.run(
-                    end, on_chunk=on_chunk, start_state=resume_state,
-                    checkpoints=ckpt, guard=guard, recovery=recovery,
-                )
-        except RunInterrupted:
-            progress.clear()
-            slog("info", 0, "manager",
-                 f"interrupted; checkpoints are in {cfgo.general.checkpoint_dir} — "
-                 "rerun with --resume to continue to a bit-identical final state")
-            raise
-        if self.device.type == "cuda":
-            import torch
+            resume_state = None
+            if resume_path is not None:
+                from shadow_tpu_torch.runtime.checkpoint import load_checkpoint
 
-            torch.cuda.synchronize(self.device)
+                # resume_path came from latest_path, which verified the
+                # sha-256 digest moments ago: skip the second full hash
+                resume_state, meta = load_checkpoint(
+                    resume_path, sched.initial_state(), ckpt.fingerprint,
+                    check_digest=False, detail=ckpt.detail,
+                )
+                slog("info", meta["now_ns"], "manager",
+                     f"resuming from checkpoint {resume_path} "
+                     f"(sim time {fmt_time_ns(meta['now_ns'])})")
+            recovery = None
+            if cfgo.experimental.recover:
+                from shadow_tpu_torch.runtime.recovery import RecoveryPolicy
+
+                recovery = RecoveryPolicy(
+                    max_recoveries=cfgo.experimental.recovery_max_retries,
+                    snapshot_interval_chunks=cfgo.experimental.recovery_snapshot_chunks,
+                )
+            try:
+                with guard if guard is not None else contextlib.nullcontext():
+                    final = sched.run(
+                        end, on_chunk=on_chunk, start_state=resume_state,
+                        checkpoints=ckpt, guard=guard, recovery=recovery,
+                        tracker=tracker,
+                    )
+            except RunInterrupted:
+                progress.clear()
+                slog("info", 0, "manager",
+                     f"interrupted; checkpoints are in {cfgo.general.checkpoint_dir} — "
+                     "rerun with --resume to continue to a bit-identical final state")
+                raise
+            if self.device.type == "cuda":
+                import torch
+
+                torch.cuda.synchronize(self.device)
+        except RunInterrupted:
+            raise  # not a failure: a final checkpoint was committed
+        except Exception as err:
+            # the black box on every failure path, plain exceptions
+            # included: the ring already holds the failing chunk's sample
+            recorder.dump(failure=flightrec.failure_record(err))
+            raise
+        finally:
+            recorder.close()
+            flightrec.uninstall()
         wall = time.perf_counter() - t0
         progress.finish(end)
 
@@ -406,21 +453,38 @@ class Manager:
         if report:
             # rollback-and-regrow happened: surface it in sim-stats.json
             results.extra_stats["recovery"] = {"count": len(report), "events": report}
+        host_tensors = None
         if replicas > 1:
-            # per-replica sections and the aggregate mean/stddev/CI block
+            # per-replica sections and the aggregate mean/stddev/CI block,
+            # folded from one bulk host_stats fetch shared with the
+            # tracker fold below
+            from shadow_tpu_torch.engine.round import host_stats
             from shadow_tpu_torch.runtime.ensemble import ensemble_stats
 
+            host_tensors = host_stats(final)
             results.extra_stats["ensemble"] = ensemble_stats(
                 final, sched.seeds, wall, end / NS_PER_SEC,
                 seed_stride=cfgo.general.replica_seed_stride,
+                host_tensors=host_tensors,
             )
-        total = tree_nbytes(final)
-        results.extra_stats["memory"] = {
-            "num_hosts": len(self.hosts),
-            "replicas": replicas,
-            "total_bytes": total,
-            "bytes_per_host": total / max(len(self.hosts), 1),
-        }
+        # the memory observatory: the final state prices the run's device
+        # footprint (after any regrow), with the allocator's numbers on
+        # the card. Best-effort: sim-stats never fails over telemetry.
+        try:
+            from shadow_tpu_torch.runtime import memtrack
+
+            results.extra_stats["memory"] = memtrack.memory_section(final, ecfg)
+        except Exception:  # noqa: BLE001
+            pass
+        if recorder.metrics_path or recorder.prom_path:
+            # a metrics-streamed run names its outputs in sim-stats
+            results.extra_stats["metrics"] = {
+                "samples": len(recorder.samples),
+                "events": len(recorder.events),
+                **({"file": recorder.metrics_path} if recorder.metrics_path else {}),
+                **({"prom": recorder.prom_path} if recorder.prom_path else {}),
+            }
+        self._fold_tracker(tracker, results, end, final, host_tensors)
         # how the trajectory was executed (like `memory`, not the trajectory)
         results.extra_stats["execution"] = {
             "package": "shadow_tpu_torch",
@@ -433,6 +497,87 @@ class Manager:
              f"({results.sim_sec_per_wall_sec:.2f} sim-s/wall-s)")
         self._write_outputs(results)
         return results
+
+    def _fold_tracker(self, tracker, results, end, final_state, host_tensors=None):
+        """Fold the tracker registry into sim-stats' `tracker` section and
+        write the dispatch trace. With the device counters on, this is
+        the run's one bulk per-host fetch (heartbeats fetch only at their
+        cadence); `host_tensors` passes the ensemble fold's fetch, so the
+        run never pays it twice. A span-only tracker (--trace-file
+        without --tracker) publishes phases only."""
+        if tracker is None:
+            return
+        if tracker.counters:
+            from shadow_tpu_torch.engine.round import host_stats
+
+            hs = host_tensors if host_tensors is not None else host_stats(final_state)
+            if self.config.general.replicas > 1:
+                # an ensemble's [R, H] tensors, flattened for the fold
+                # (exact per-replica splits are in the `ensemble` block)
+                from shadow_tpu_torch.runtime.ensemble import flatten_host_stats
+
+                hs = flatten_host_stats(hs)
+            tracker.finalize(hs)
+        results.extra_stats["tracker"] = tracker.stats_dict()
+        trace_path = tracker.write_trace()
+        if trace_path:
+            slog("info", end, "manager", f"wrote dispatch trace: {trace_path}")
+
+    def _build_tracker(self, progress=None):
+        """The host-side tracker registry (utils/tracker.py), or None when
+        neither general.tracker nor general.trace_file asks for it.
+        trace_file alone records dispatch spans; per-host heartbeats and
+        the sim-stats fold need the device counters (general.tracker)."""
+        g = self.config.general
+        if not (g.tracker or g.trace_file):
+            return None
+        from shadow_tpu_torch.utils.tracker import Tracker
+
+        return Tracker(
+            host_names=[h.name for h in self.hosts],
+            heartbeat_ns=g.heartbeat_interval_ns if g.tracker else 0,
+            trace_path=g.trace_file,
+            clear_line=progress.clear if progress is not None else None,
+            # per-host heartbeat lines name one host per row; an
+            # ensemble's per-host tensors are [R, H], so heartbeats stay
+            # off there (aggregates still ride the probe)
+            host_heartbeats=g.tracker and g.replicas <= 1,
+            counters=g.tracker,
+        )
+
+    def _build_recorder(self, tracker=None):
+        """The flight recorder (runtime/flightrec.py): always built — the
+        bounded ring is free and the black-box dump must exist on every
+        failure path — with the streaming, scrape and profiler outputs
+        wired only when the config asks for them (--metrics-file,
+        --metrics-prom, --xprof-dir)."""
+        from shadow_tpu_torch.runtime.flightrec import FlightRecorder
+
+        g = self.config.general
+        e = self.config.experimental
+        blackbox = (
+            os.path.join(g.data_directory, "flight-recorder.json")
+            if g.data_directory
+            else None
+        )
+        xprof_chunks = None
+        if e.xprof_chunks:
+            a, _, b = e.xprof_chunks.partition(":")
+            xprof_chunks = (int(a), int(b))
+        return FlightRecorder(
+            num_hosts=len(self.hosts),
+            metrics_path=g.metrics_file,
+            metrics_max_bytes=int(g.metrics_max_mb * 1_000_000),
+            metrics_keep=g.metrics_keep,
+            prom_path=g.metrics_prom,
+            blackbox_path=blackbox,
+            heartbeat_ns=g.heartbeat_interval_ns,
+            config_dict=self.config.to_dict(),
+            tracker=tracker,
+            xprof_dir=e.xprof_dir,
+            xprof_chunks=xprof_chunks,
+            device=self.device,
+        )
 
     def _write_outputs(self, results: SimResults) -> None:
         data_dir = self.config.general.data_directory

@@ -30,7 +30,6 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
-import torch
 
 from shadow_tpu_torch.engine.round import CapacityError, run_until
 from shadow_tpu_torch.engine.state import (
@@ -41,6 +40,7 @@ from shadow_tpu_torch.engine.state import (
     state_from_host,
     state_to_host,
 )
+from shadow_tpu_torch.runtime import flightrec, memtrack
 from shadow_tpu_torch.runtime.checkpoint import StateTap
 from shadow_tpu_torch.utils.shadow_log import slog
 
@@ -103,15 +103,6 @@ def grown_cfg(cfg, err: CapacityError, growth: int):
     return dataclasses.replace(cfg, **changes)
 
 
-def _device_limit(st) -> "int | None":
-    """The device memory a state could grow into: the card's total, or
-    None on the CPU (no limit is known there)."""
-    dev = st.now.device
-    if dev.type != "cuda":
-        return None
-    return int(torch.cuda.get_device_properties(dev).total_memory)
-
-
 def run_until_recovering(
     st,
     end_time: int,
@@ -122,6 +113,7 @@ def run_until_recovering(
     rounds_per_chunk: int = 64,
     max_chunks: int = 10_000,
     on_chunk=None,
+    tracker=None,
     policy: "RecoveryPolicy | None" = None,
     checkpoints=None,
     guard=None,
@@ -136,7 +128,10 @@ def run_until_recovering(
     `checkpoints`/`guard` ride the same StateTap (one shared snapshot per
     due point). `grow_fn` overrides the regrow step (default grow_state; the ensemble runner
     passes grow_ensemble_state, so the whole [R, ...] batch widens
-    together)."""
+    together). Each recovery is a record for `tracker` (utils/tracker.py)
+    and an event and a survivable black box for the installed flight
+    recorder (runtime/flightrec.py); a terminal error writes the black
+    box with what the run survived."""
     policy = policy or RecoveryPolicy()
     grow = grow_fn or grow_state
 
@@ -147,7 +142,7 @@ def run_until_recovering(
                 return run_until(
                     run_st, end_time, model, tables, run_cfg,
                     rounds_per_chunk=rounds_per_chunk, max_chunks=max_chunks,
-                    on_chunk=on_chunk, on_state=on_state,
+                    on_chunk=on_chunk, on_state=on_state, tracker=tracker,
                 )
 
             return run
@@ -174,18 +169,47 @@ def run_until_recovering(
         except CapacityError as err:
             if len(recoveries) >= policy.max_recoveries:
                 # terminal: what the run survived before it died rides the
-                # exception
+                # exception, and the black box is written (its last sample
+                # is the failing chunk's probe: the chunk loops record it
+                # before raising)
                 err.recoveries = list(recoveries)
+                flightrec.post_mortem(err, recoveries=len(recoveries))
                 raise
             if retainer is not None and retainer.host_state is not None:
                 base_host = retainer.host_state
-                base = state_from_host(base_host, cur_st)
+                try:
+                    base = state_from_host(base_host, cur_st)
+                except Exception as mat_err:  # noqa: BLE001
+                    # the snapshot cannot be put back on the device (out of
+                    # memory, or the device failed): a structured terminal
+                    # error with its black box, never a raw crash of this
+                    # handler
+                    err.recoveries = list(recoveries)
+                    err.args = (
+                        f"{err.args[0]} — and the retained snapshot cannot be "
+                        f"materialized ({type(mat_err).__name__}); resume from "
+                        "the checkpoint directory",
+                    )
+                    flightrec.post_mortem(err, recoveries=len(recoveries))
+                    raise err from mat_err
                 from_ns = int(np.min(np.asarray(base_host[".now"])))
             else:
                 base = cur_st  # the caller's entry state
                 # ensemble states carry a [R] `now`: the rollback point is
                 # the slowest replica's window (the batch replays together)
-                from_ns = int(base.now.min())
+                try:
+                    from_ns = int(base.now.min())
+                except Exception as fetch_err:  # noqa: BLE001
+                    # the entry state is unreadable (the device failed): no
+                    # replay is possible
+                    err.recoveries = list(recoveries)
+                    err.args = (
+                        f"{err.args[0]} — and the rollback state is unreadable "
+                        f"({type(fetch_err).__name__}); recovery needs a "
+                        "retained snapshot or --checkpoint-dir",
+                    )
+                    flightrec.post_mortem(err, recoveries=len(recoveries))
+                    raise err from fetch_err
             new_cfg = grown_cfg(cur_cfg, err, policy.growth)
             # price the regrown state before allocating it: the one moment
             # the regrow can still warn that it will not fit the device.
@@ -203,7 +227,7 @@ def run_until_recovering(
                     f"; state {fmt_bytes(headroom['bytes_current'])}"
                     f" -> {fmt_bytes(headroom['bytes_regrown'])}"
                 )
-                limit = _device_limit(base)
+                limit = (memtrack.device_memory(base.now.device) or {}).get("bytes_limit")
                 if limit and headroom["bytes_regrown"] > limit:
                     headroom["would_exceed_hbm"] = True
                     mem_note += f" WOULD EXCEED the {fmt_bytes(limit)} device limit"
@@ -238,6 +262,15 @@ def run_until_recovering(
                 f"queue_capacity={new_cfg.queue_capacity}, "
                 f"outbox_capacity={new_cfg.outbox_capacity}{mem_note} "
                 f"(recovery {len(recoveries)}/{policy.max_recoveries})",
+            )
+            if tracker is not None:
+                tracker.record_recovery(record)
+            # the recovery is an event in the metrics stream and a
+            # survivable black box (overwritten by a later, terminal dump
+            # if the run dies after all)
+            flightrec.record_event("recovery", **record)
+            flightrec.post_mortem(
+                failure={"kind": f"recovery:{record['kind']}", "recovered": True, **record},
             )
             cur_st, cur_cfg = grown, new_cfg
             if retainer is None:

@@ -47,7 +47,7 @@ class TpuScheduler:
         )
         return bootstrap(st, self.model, self.cfg)
 
-    def _runner_factory(self, end_time_ns: int, on_chunk, max_chunks):
+    def _runner_factory(self, end_time_ns: int, on_chunk, max_chunks, tracker=None):
         """run(st, on_state=...) per engine config: the seam
         rollback-and-regrow replays through at a regrown capacity."""
 
@@ -57,6 +57,7 @@ class TpuScheduler:
                     st, end_time_ns, self.model, self.tables, cfg,
                     rounds_per_chunk=self.rounds_per_chunk, max_chunks=max_chunks,
                     on_chunk=on_chunk, on_state=on_state,
+                    tracker=tracker,
                 )
 
             return run
@@ -64,7 +65,7 @@ class TpuScheduler:
         return factory
 
     def run(self, end_time_ns: int, on_chunk=None, max_chunks: int = 100_000,
-            start_state=None, checkpoints=None, guard=None, recovery=None):
+            start_state=None, checkpoints=None, guard=None, recovery=None, tracker=None):
         """Run to end_time_ns. `start_state` (a restored checkpoint)
         replaces the bootstrapped t=0 state; `checkpoints`/`guard` tap
         chunk-boundary states (runtime/checkpoint.py); `recovery` (a
@@ -75,12 +76,16 @@ class TpuScheduler:
 
         st = start_state if start_state is not None else self.initial_state()
         self.recovery_report = []
+        factory = self._runner_factory(end_time_ns, on_chunk, max_chunks, tracker)
         try:
+            if recovery is None and checkpoints is None and guard is None:
+                # the plain path: no taps, no recovery wrapper
+                return factory(self.cfg)(st)
             final, self.recovery_report = run_until_recovering(
                 st, end_time_ns, cfg=self.cfg,
                 policy=recovery or RecoveryPolicy(max_recoveries=0),
-                checkpoints=checkpoints, guard=guard,
-                runner_factory=self._runner_factory(end_time_ns, on_chunk, max_chunks),
+                checkpoints=checkpoints, guard=guard, tracker=tracker,
+                runner_factory=factory,
             )
         except Exception as err:
             self.recovery_report = list(getattr(err, "recoveries", []))

@@ -1,0 +1,405 @@
+"""Host-side tracker registry: heartbeats, dispatch spans, stats folding
+(port of shadow_tpu/utils/tracker.py, the same module: no device code).
+
+The device half of the tracker plane lives in `engine/state.py`
+(TrackerState, accumulated by the round engines when
+EngineConfig.tracker is set) and rides the per-chunk probe as sync-free
+aggregate lanes (engine/round.py PROBE_*). This module is the host half
+(the analogue of the reference's per-host Tracker, src/main/host/
+tracker.c:407-430, and the worker-local SimStats fold, sim_stats.rs):
+
+  * per-host heartbeat lines — rendered at `general.heartbeat_interval`
+    cadence from ONE bulk fetch of the per-host counter tensors
+    (engine/round.py host_stats; the per-chunk path never fetches
+    [H]-shaped state), written through shadow_log so the \r progress
+    status line never interleaves. The leading four key=value fields
+    keep the exact format tools/parse_shadow.py already parses for the
+    managed kernel's tracker lines; the tracker plane appends its
+    per-kind/per-class counters after them.
+
+  * dispatch-pipeline spans — `span(name, **args)` context managers
+    recording wall-time intervals (compile+launch, chunk_launch,
+    probe_fetch, donate_copy, the hybrid pass/upload/drain phases,
+    worker round-trips). Spans nest by construction (a stack of context
+    managers per thread), which is what makes the emitted Chrome trace
+    well-formed.
+
+  * a Chrome-trace JSON (`write_trace`) loadable in chrome://tracing or
+    Perfetto: one "X" (complete) event per span with microsecond
+    ts/dur relative to tracker construction.
+
+  * a stats fold (`stats_dict`) for sim-stats.json: per-kind event
+    counts, drop reasons, byte classes, high-water marks, round
+    live/idle split, and per-phase wall-time percentiles — the
+    breakdown every perf round is tuned against (bench.py publishes the
+    same fold per trial).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import threading
+import time
+
+import numpy as np
+
+
+# Span-list bound: beyond this many recorded events new spans fold into
+# the running per-phase totals only (the Chrome trace and percentiles
+# cover the first _MAX_EVENTS spans). Keeps a million-chunk bench run at
+# bounded memory while every progress line still shows true totals.
+_MAX_EVENTS = 200_000
+
+
+def _pct(sorted_ms: "list[float]", q: float) -> float:
+    """Nearest-rank percentile of an ascending list (no numpy needed for
+    a handful of spans)."""
+    if not sorted_ms:
+        return 0.0
+    idx = min(len(sorted_ms) - 1, max(0, int(round(q * (len(sorted_ms) - 1)))))
+    return sorted_ms[idx]
+
+
+class Tracker:
+    """One per run. Thread-safe for span recording (the hybrid parallel
+    scheduler records worker round-trips from the parent thread while
+    dispatch spans land from the driver)."""
+
+    def __init__(
+        self,
+        host_names: "list[str] | None" = None,
+        heartbeat_ns: int = 0,
+        trace_path: "str | None" = None,
+        clear_line=None,
+        host_heartbeats: bool = True,
+        counters: bool = True,
+    ):
+        self.host_names = list(host_names) if host_names else None
+        self.heartbeat_ns = heartbeat_ns
+        self.trace_path = trace_path
+        self.clear_line = clear_line  # erases the \r status line first
+        self.host_heartbeats = host_heartbeats
+        # counters=False: span-only mode (--trace-file without --tracker):
+        # the device-side TrackerState was never accumulated, so the
+        # stats fold must publish phases only — zeros from an
+        # unaccumulated plane would be indistinguishable from real
+        # measurements
+        self.counters = counters
+        self._t0 = time.perf_counter()
+        self._lock = threading.Lock()
+        self.events: "list[dict]" = []  # chrome-trace events, append-only
+        # running per-phase wall totals (seconds), updated on every span
+        # append — phase_totals() is O(phases), never O(spans), so it is
+        # safe to call once per chunk inside a dispatch loop
+        self._totals: "dict[str, float]" = {}
+        self._next_hb = heartbeat_ns if heartbeat_ns > 0 else None
+        self.last_probe = None  # latest ChunkProbe seen (aggregates)
+        self._final_hosts: "dict | None" = None  # last bulk host_stats
+        # independent iteration planes behind the folded host tensors:
+        # iters_done sums PER-PLANE drain-loop counts (one count per
+        # shard's row 0, or per replica after the ensemble flatten) while
+        # each such iteration scans only H/planes lanes — the occupancy
+        # denominator must shrink by the same factor or a sharded run
+        # under-reports occupancy by exactly the shard count. The manager
+        # sets this to num_devices (sharded) or replicas (ensemble).
+        self.num_shards = 1
+        # rollback-and-regrow recovery records (runtime/recovery.py):
+        # folded into stats_dict and marked in the trace as instants
+        self.recoveries: "list[dict]" = []
+        # the autotune decision (runtime/autotune.py AutotunePlan
+        # as_dict, set by the manager): the probe's measured wall and the
+        # chosen rounds_per_chunk surface in stats_dict alongside the
+        # `autotune_probe` span — not only in sim-stats' own block
+        self.autotune: "dict | None" = None
+
+    # --- spans -----------------------------------------------------------
+
+    def _now_us(self) -> float:
+        return (time.perf_counter() - self._t0) * 1e6
+
+    @contextlib.contextmanager
+    def span(self, name: str, **args):
+        ts = self._now_us()
+        try:
+            yield
+        finally:
+            dur = self._now_us() - ts
+            ev = {
+                "name": name,
+                "cat": "dispatch",
+                "ph": "X",
+                "ts": ts,
+                "dur": dur,
+                "pid": 0,
+                "tid": threading.get_ident() % (1 << 31),
+            }
+            if args:
+                ev["args"] = args
+            with self._lock:
+                if len(self.events) < _MAX_EVENTS:
+                    self.events.append(ev)
+                self._totals[name] = self._totals.get(name, 0.0) + dur / 1e6
+
+    def add_span(self, name: str, t_start: float, t_end: float, **args) -> None:
+        """Record an already-measured interval (time.perf_counter
+        timestamps) — for callers that keep their own phase clocks, like
+        the parallel hybrid scheduler's phase_wall accounting."""
+        ev = {
+            "name": name,
+            "cat": "dispatch",
+            "ph": "X",
+            "ts": (t_start - self._t0) * 1e6,
+            "dur": max(0.0, (t_end - t_start) * 1e6),
+            "pid": 0,
+            "tid": threading.get_ident() % (1 << 31),
+        }
+        if args:
+            ev["args"] = args
+        with self._lock:
+            if len(self.events) < _MAX_EVENTS:
+                self.events.append(ev)
+            self._totals[name] = self._totals.get(name, 0.0) + ev["dur"] / 1e6
+
+    def instant(self, name: str, **args) -> None:
+        ev = {
+            "name": name,
+            "cat": "dispatch",
+            "ph": "i",
+            "ts": self._now_us(),
+            "s": "g",
+            "pid": 0,
+            "tid": threading.get_ident() % (1 << 31),
+        }
+        if args:
+            ev["args"] = args
+        with self._lock:
+            self.events.append(ev)
+
+    def spans(self, name: "str | None" = None) -> "list[dict]":
+        """Recorded complete-spans (optionally filtered by name), in
+        record order — tools/profile_kernels.py reads dispatch timing
+        from these instead of keeping its own stopwatch."""
+        with self._lock:
+            evs = list(self.events)
+        return [
+            e for e in evs if e["ph"] == "X" and (name is None or e["name"] == name)
+        ]
+
+    # --- heartbeats ------------------------------------------------------
+
+    def host_heartbeat_due(self, now_ns: int) -> bool:
+        """Per-host heartbeat cadence test on the already-fetched probe
+        `now` — deciding costs no device sync; only an affirmative answer
+        triggers the one bulk host_stats fetch."""
+        if (
+            not self.host_heartbeats
+            or self._next_hb is None
+            or self.host_names is None
+        ):
+            return False
+        return now_ns >= self._next_hb
+
+    def emit_host_heartbeat(self, probe, stats: dict) -> None:
+        """Render one reference-style tracker line per host from a bulk
+        host_stats dict (engine/round.py). The leading four fields match
+        the managed kernel's tracker lines (tools/parse_shadow.py); the
+        tracker plane's per-kind/per-class counters follow."""
+        from shadow_tpu_torch.utils.shadow_log import slog
+
+        self.record_probe(probe)
+        self._final_hosts = stats
+        hb = self.heartbeat_ns
+        self._next_hb = (probe.now // hb + 1) * hb
+        if self.clear_line is not None:
+            self.clear_line()
+        names = self.host_names
+        n = len(stats["events_handled"])
+        # run-wide adaptivity figures from the probe (its window and live-lane fields):
+        # appended to every line so parse_shadow-compatible consumers see
+        # the window-width/occupancy data next to the per-host counters —
+        # the leading fields keep the exact parsed format (the parser
+        # ignores trailing keys it does not know)
+        win_mean = probe.window_ns_mean
+        occ = probe.occupancy(n, self.num_shards)
+        for i in range(n):
+            ev = int(stats["events_handled"][i])
+            evl = int(stats["ev_local"][i])
+            evt = int(stats["ev_tcp"][i])
+            slog(
+                "info",
+                probe.now,
+                names[i] if names and i < len(names) else f"host{i}",
+                "tracker: "
+                f"bytes_sent={int(stats['bytes_sent'][i])} "
+                f"bytes_recv={int(stats['bytes_recv'][i])} "
+                f"packets_sent={int(stats['packets_sent'][i])} "
+                f"packets_dropped={int(stats['packets_dropped'][i])} "
+                f"events={ev} ev_local={evl} ev_tcp={evt} "
+                f"ev_packet={ev - evl - evt} "
+                f"drop_codel={int(stats['codel_dropped'][i])} "
+                f"drop_unroutable={int(stats['packets_unroutable'][i])} "
+                f"bytes_ctrl={int(stats['bytes_ctrl'][i])} "
+                f"bytes_data={int(stats['bytes_data'][i])} "
+                f"retrans={int(stats['retrans_segs'][i])} "
+                f"queue_hwm={int(stats['queue_hwm'][i])} "
+                f"outbox_hwm={int(stats['outbox_hwm'][i])} "
+                f"lanes_live={int(stats['lanes_live'][i])} "
+                f"win_mean_ns={win_mean:.0f} occupancy={occ:.4f}",
+            )
+
+    def record_probe(self, probe) -> None:
+        self.last_probe = probe
+
+    def record_recovery(self, record: dict) -> None:
+        """One rollback-and-regrow recovery happened (runtime/recovery.py):
+        keep the record for the stats fold and drop an instant marker into
+        the dispatch trace at the wall time it occurred."""
+        self.recoveries.append(dict(record))
+        self.instant("capacity_recovery", **record)
+
+    # --- folding ---------------------------------------------------------
+
+    def finalize(self, host_stats: "dict | None" = None, probe=None) -> None:
+        """Fold the end-of-run per-host tensors (one bulk fetch,
+        done by the caller via engine/round.py host_stats) and/or the
+        final probe into the registry for stats_dict()."""
+        if host_stats is not None:
+            self._final_hosts = host_stats
+        if probe is not None:
+            self.last_probe = probe
+
+    def phase_totals(self) -> dict:
+        """{span name: total wall seconds} — the compact per-phase view
+        bench.py prints on every progress line. Served from the running
+        totals (O(phases), not O(spans)): emitting it once per chunk in
+        a million-chunk dispatch loop costs nothing."""
+        with self._lock:
+            return {k: round(v, 4) for k, v in self._totals.items()}
+
+    def phase_stats(self) -> dict:
+        """{span name: {count, total_s, p50_ms, p90_ms, p99_ms, max_ms}}
+        — the per-chunk timing percentiles for sim-stats.json/BENCH."""
+        by_name: "dict[str, list[float]]" = {}
+        for e in self.spans():
+            by_name.setdefault(e["name"], []).append(e["dur"] / 1e3)
+        out = {}
+        for name, ms in sorted(by_name.items()):
+            ms.sort()
+            out[name] = {
+                "count": len(ms),
+                "total_s": round(sum(ms) / 1e3, 4),
+                "p50_ms": round(_pct(ms, 0.50), 3),
+                "p90_ms": round(_pct(ms, 0.90), 3),
+                "p99_ms": round(_pct(ms, 0.99), 3),
+                "max_ms": round(ms[-1], 3),
+            }
+        return out
+
+    def stats_dict(self) -> dict:
+        """The tracker section of sim-stats.json (reference
+        sim_stats.rs:110 write_stats_to_file, with the per-kind split
+        tracker.c keeps per host). Span-only trackers report only the
+        phase breakdown."""
+        out: dict = {"phases": self.phase_stats()}
+        if self.recoveries:
+            out["recoveries"] = list(self.recoveries)
+        if self.autotune:
+            out["autotune"] = dict(self.autotune)
+        if not self.counters:
+            return out
+        hs = self._final_hosts
+        if hs is not None:
+            ev = int(sum(hs["events_handled"]))
+            evl = int(sum(hs["ev_local"]))
+            evt = int(sum(hs["ev_tcp"]))
+            out["events_by_kind"] = {
+                "local": evl,
+                "tcp": evt,
+                "packet": ev - evl - evt,
+            }
+            out["drops"] = {
+                "loss": int(sum(hs["packets_dropped"])),
+                "codel": int(sum(hs["codel_dropped"])),
+                "unroutable": int(sum(hs["packets_unroutable"])),
+            }
+            out["bytes"] = {
+                "ctrl": int(sum(hs["bytes_ctrl"])),
+                "data": int(sum(hs["bytes_data"])),
+                "retrans_segments": int(sum(hs["retrans_segs"])),
+            }
+            out["high_water"] = {
+                "queue": int(max(hs["queue_hwm"])),
+                "outbox": int(max(hs["outbox_hwm"])),
+            }
+            out["rounds"] = {
+                "live": int(hs["rounds_live"]),
+                "idle": int(hs["rounds_idle"]),
+            }
+            # adaptivity: window widths + live-lane occupancy (the levers
+            # of the adaptive-window/compaction round, docs/architecture.md
+            # "Lookahead & compaction")
+            # mean width must pair win_ns_sum with the SAME population's
+            # live-round count: the ensemble flatten sums win_ns_sum
+            # across replicas and supplies the summed denominator as
+            # win_rounds_live (runtime/ensemble.py flatten_host_stats);
+            # single runs fall back to the run's own rounds_live
+            live = int(hs.get("win_rounds_live", hs["rounds_live"]))
+            iters = int(np.asarray(hs["iters_done"]).sum())
+            lanes = int(np.asarray(hs["lanes_live"]).sum())
+            # lanes scanned per iteration: the full row count divided by
+            # the iteration planes (shards / flattened replicas) whose
+            # loop counts iters sums — see num_shards in __init__
+            h = int(np.asarray(hs["lanes_live"]).size) // max(self.num_shards, 1)
+            out["window"] = {
+                "win_ns_sum": int(hs["win_ns_sum"]),
+                "mean_ns": round(int(hs["win_ns_sum"]) / live, 1) if live else 0,
+                "iters": iters,
+                "lanes_live": lanes,
+                "occupancy": round(lanes / (iters * h), 4) if iters and h else 0,
+            }
+        elif self.last_probe is not None:
+            p = self.last_probe
+            out["events_by_kind"] = {
+                "local": p.ev_local,
+                "tcp": p.ev_tcp,
+                "packet": p.ev_packet,
+            }
+            out["drops"] = {
+                "loss": p.drop_loss,
+                "codel": p.drop_codel,
+                "unroutable": p.drop_unroutable,
+            }
+            out["bytes"] = {
+                "ctrl": p.bytes_ctrl,
+                "data": p.bytes_data,
+                "retrans_segments": p.retrans_segs,
+            }
+            out["high_water"] = {"queue": p.queue_hwm, "outbox": p.outbox_hwm}
+            out["rounds"] = {"live": p.rounds_live, "idle": p.rounds_idle}
+        return out
+
+    # --- chrome trace ----------------------------------------------------
+
+    def write_trace(self, path: "str | None" = None) -> "str | None":
+        """Write the recorded spans as Chrome-trace JSON (the format
+        chrome://tracing and Perfetto load directly). Returns the path
+        written, or None when no path is configured."""
+        path = path or self.trace_path
+        if not path:
+            return None
+        with self._lock:
+            events = list(self.events)
+        meta = [
+            {
+                "name": "process_name",
+                "ph": "M",
+                "pid": 0,
+                "args": {"name": "shadow-tpu dispatch"},
+            }
+        ]
+        with open(path, "w") as f:
+            json.dump(
+                {"traceEvents": meta + events, "displayTimeUnit": "ms"}, f
+            )
+        return path

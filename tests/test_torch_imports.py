@@ -1,6 +1,9 @@
 """The PyTorch port imports no JAX: shadow_tpu_torch/ and chip_smoke.py
 never import jax, flax or the JAX package (importing any shadow_tpu.*
-module runs shadow_tpu/__init__.py, which imports jax)."""
+module runs shadow_tpu/__init__.py, which imports jax). The host-side
+observability modules (OBSERVABILITY: the tracker registry, the flight
+recorder, the memory observatory) are named on their own: each is
+imported alone in a fresh interpreter, and each is in the source scan."""
 
 import ast
 import pathlib
@@ -12,6 +15,11 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "shadow_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "shadow_tpu")
+OBSERVABILITY = (
+    "shadow_tpu_torch.utils.tracker",
+    "shadow_tpu_torch.runtime.flightrec",
+    "shadow_tpu_torch.runtime.memtrack",
+)
 
 
 def _forbidden(module: str) -> bool:
@@ -53,6 +61,26 @@ def test_source_imports_no_jax(path):
             if _forbidden(node.module):
                 bad.append(node.module)
     assert not bad, f"{path}: imports {bad}"
+
+
+@pytest.mark.parametrize("module", OBSERVABILITY)
+def test_observability_module_imports_no_jax(module):
+    """A fresh interpreter imports the module alone (and through it what
+    it needs of the port): no jax, flax or shadow_tpu module loads, and
+    the module's file is one the source scan covers."""
+    code = (
+        "import importlib, sys\n"
+        f"m = importlib.import_module({module!r})\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'shadow_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(m.__file__)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert pathlib.Path(out.stdout.strip()).resolve() in {p.resolve() for p in PORT_FILES}
 
 
 def test_forbidden_names_are_exact():
