@@ -60,6 +60,25 @@ Phases, each printing one line; any failure exits non-zero:
      the card's bytes in use, the profiler's trace naming the kernel, one
      heartbeat line per host; its wall beside the main path's, and the
      main path's wall run again once the capture has stopped;
+  6a. guards-10240: the main path through TpuScheduler.run under the
+     run-loop guards: a chaos plan at 8 rounds a chunk (an injected
+     capacity error at chunk 1, a stall in chunk 2's probe read under a
+     chunk watchdog of 1.5 times the main path's wall, at least 5 s, the
+     stall 1 s longer: two recoveries, capacity then watchdog), as long a
+     device-side stall (torch.cuda._sleep) on the stream at chunk 2's
+     launch under the same watchdog and no chaos plan (one watchdog
+     recovery), an injected compile fault on
+     the megakernel (one fallback, megakernel -> pump; the pump twin
+     finishes the run), and the autotuner walking 64 rounds a chunk down
+     to 16 from a cached probe wall; each run leaf-equal to the main
+     path's, its launches counted; in the background, beside the wide
+     onion runs (phase 3a): examples/tgen with `--autotune` (a real
+     probe), with checkpoints under a ckpt-corrupt fault, interrupted and
+     resumed past the damaged file, and with `scheduler: cpu-ref` (sim-
+     stats and hosts file equal to the card run's), and the cpu-ref
+     oracles against the engine on the card on the reference tests' small
+     tgen, bulk-tcp and phold worlds (`--cpu-ref OUT`, a process of its
+     own), every TCP field, counter and leftover queue entry equal;
   7. onion-10240: the onion model (4,096 clients, 6,144 relays, 17 sockets
      per host) on the bench graph and shaping: the main path to 0.1 s sim
      with engine "auto" (the kernel's onion instance), pausing at the
@@ -112,9 +131,11 @@ import json
 import os
 import random
 import re
+import shlex
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -294,6 +315,61 @@ OBS_SPANS = ("compile+launch", "chunk_launch", "probe_fetch", "host_stats_fetch"
 # config's 128 make one chunk of the whole run): 16 chunks, four heartbeats
 OBS_CLI_ROUNDS_PER_CHUNK = 8
 TGEN_EXAMPLE_STATE_BYTES = 313_656
+# guards-10240: the main path under the run-loop guards, through
+# TpuScheduler.run with recovery on: (a) a chaos plan with an injected
+# capacity error at chunk GUARD_CAPACITY_AT and a stall in chunk
+# GUARD_STALL_AT's probe read under the chunk watchdog; (d) the same
+# watchdog against as long a stall of device time spun on the stream
+# (torch.cuda._sleep) at chunk GUARD_STALL_AT's launch. The watchdog's
+# region is a chunk's launch and probe read, so its deadline is
+# GUARD_WATCHDOG_OVER_MAIN times this run's main-path wall (which holds
+# every chunk; 4.06-4.67 s on an H100 at 700 W, varying with the host),
+# at least GUARD_WATCHDOG_FLOOR_S, and only the stall, GUARD_STALL_PAST_S
+# longer, expires it;
+# (b) an injected compile fault on the megakernel, which falls to the pump
+# twin; (c) the autotuner walking GUARD_REQUESTED_RPC down from a cached
+# probe wall (GUARD_PROBE_WALL_S projects 160, 80 and 40 s for 64, 32 and
+# 16 rounds a chunk against a GUARD_BUDGET_S budget: 16, the main path's)
+GUARD_CAPACITY_AT = 1
+GUARD_STALL_AT = 2
+# (a) runs at 8 rounds a chunk: the main path's 18 live rounds make 2
+# chunks of 16 (no chunk 2 to stall in) and 3 of 8. Its idle rounds (the
+# tail of the last chunk) are then 6 where the main path's are 14, so
+# `.tracker.rounds_idle` is the one leaf (a) does not hold equal.
+GUARD_CHAOS_RPC = 8
+GUARD_WATCHDOG_OVER_MAIN = 1.5
+GUARD_WATCHDOG_FLOOR_S = 5.0
+GUARD_STALL_PAST_S = 1.0
+GUARD_REQUESTED_RPC = 64
+GUARD_BUDGET_S = 60.0
+GUARD_PROBE_WALL_S = 10.0
+GUARD_RPC = 16
+# the guards' CLI runs of examples/tgen in the background: a real autotune
+# probe under a budget of GUARD_CLI_AUTOTUNE_S seconds; checkpoints every
+# GUARD_CKPT_INTERVAL with the run interrupted at GUARD_INTERRUPT_NS (the
+# interrupt guard's sim-time knob), its final checkpoint (write 1)
+# corrupted by the chaos plane, then resumed
+GUARD_CLI_AUTOTUNE_S = 5
+GUARD_CKPT_INTERVAL = "1 s"
+GUARD_INTERRUPT_NS = 1_500_000_000
+GUARD_CKPT_FAULT = "ckpt-corrupt@1"
+GUARD_RESUME_INTERVAL = "10 s"  # past the example's 4 s: the resumed run writes none
+INTERRUPT_ENV = "SHADOW_TPU_TEST_INTERRUPT_AT_NS"
+# the cpu-ref oracles against the engine on the card, on the reference
+# tests' small worlds (tests/test_cpu_ref_tgen.py, test_cpu_ref_bulk.py,
+# test_engine_phold.py): (loss, shaped, end ms[, active lanes])
+ORACLE_TGEN = ((0.0, False, 250, 0), (0.05, False, 400, 0), (0.02, True, 400, 0),
+               (0.02, True, 400, 3))
+ORACLE_BULK = ((0.0, False, 60), (0.05, False, 200), (0.02, True, 200))
+ORACLE_PHOLD_LOSS = (0.0, 0.2)
+ORACLE_PHOLD_END_NS = 60_000_000
+TCP_FIELDS = (
+    "st", "lport", "rport", "rhost", "snd_una", "snd_nxt", "snd_max",
+    "snd_end", "fin_pending", "fin_sent", "peer_wnd", "rcv_nxt", "rcv_fin",
+    "delivered", "ooo", "sacked", "rtx_mark", "cwnd", "ssthresh", "dupacks", "recover",
+    "in_rec", "srtt", "rttvar", "rto", "rtt_pending", "rtt_seq", "rtt_ts",
+    "rto_expire", "backoff", "tev_time", "retransmits", "segs_in", "segs_out",
+)
 # H100 SXM device-memory rate (NVIDIA data sheet) for the bound column
 HBM_BYTES_PER_S = 3.35e12
 # non-tensor-core 32-bit rate (NVIDIA data sheet, FP32), the op yardstick
@@ -1383,6 +1459,392 @@ def observability_phase(world, end_ns: int, main_final: dict, main_wall: float,
     return ok, launches
 
 
+def grown_leaves_differ(want: dict, got: dict) -> "list[str]":
+    """The leaves of a host snapshot `got`, whose queue a recovery regrew,
+    that differ from `want`'s: the queue rows compared in pop order up to
+    want's width (the grown slots past it must all be dead), every other
+    leaf as it is."""
+    a, b = pop_order(want), pop_order(got)
+    width = want[".queue.time"].shape[1]
+    bad = []
+    for k, v in a.items():
+        w = b.get(k)
+        if w is not None and k.startswith(".queue.") and w.ndim >= 2 and k != ".queue.count":
+            if k == ".queue.time" and not (w[:, width:] >= (1 << 62) - 1).all():
+                bad.append(k + "[grown slots]")
+            w = w[:, :width]
+        if w is None or w.dtype != v.dtype or w.shape != v.shape or not np.array_equal(v, w):
+            bad.append(k)
+    return bad
+
+
+def guards_phase(world, end_ns: int, main_final: dict, main_launches: int,
+                 main_wall: float, dev) -> "tuple[bool, int]":
+    """guards-10240: the bench main path to end_ns through TpuScheduler.run
+    (recovery on, the CLI's default policy) under the run-loop guards,
+    each run against the main path's final state:
+      (a) chaos: an injected capacity error at chunk GUARD_CAPACITY_AT
+          (the queue regrows, the run replays) and a stall of
+          stall_s in chunk GUARD_STALL_AT's probe read under a watchdog
+          of watchdog_s (both from `main_wall`; the chunk is abandoned and
+          re-dispatched), at GUARD_CHAOS_RPC rounds a chunk: two recovery
+          records, capacity then watchdog, one watchdog re-dispatch, and
+          every leaf equal (the queue in pop order, up to the main path's
+          width) but the idle-round count, which follows the chunking;
+      (b) compile: an injected compile fault on the megakernel: one
+          engine fallback, megakernel -> pump, and the run ends on the
+          pump twin, no kernel launched, leaf-equal;
+      (c) autotune: plan_rounds_per_chunk from an autotune.json holding
+          GUARD_PROBE_WALL_S (source "cache"), GUARD_REQUESTED_RPC walked
+          down to GUARD_RPC; run there, the kernel's launches equal the
+          main path's and every leaf too;
+      (d) a device-side stall: chunk GUARD_STALL_AT's launch first puts
+          stall_s of spinning (torch.cuda._sleep; a host sleep off
+          the card) on the stream, no chaos plan, at GUARD_CHAOS_RPC rounds
+          a chunk under the watchdog of (a): the launch's first wait on
+          the device blocks, the watchdog expires in the caller's thread,
+          one watchdog recovery at that chunk, leaf-equal as in (a). The
+          replay starts from the run's start (no snapshot is verified
+          before chunk 2's probe) while the rest of the spin and the
+          abandoned chunk still hold the stream and the host.
+    Launch counts are set to 0 just before each run and read just after
+    (in (d) they include the abandoned chunk's, which runs on).
+    Returns (ok, the kernel's launches over the four runs)."""
+    from shadow_tpu_torch.engine import megakernel as mk
+    from shadow_tpu_torch.engine import round as rnd
+    from shadow_tpu_torch.engine.round import host_stats
+    from shadow_tpu_torch.engine.state import state_from_host, state_to_numpy
+    from shadow_tpu_torch.runtime import autotune, chaos
+    from shadow_tpu_torch.runtime.recovery import RecoveryPolicy
+    from shadow_tpu_torch.runtime.scheduler import TpuScheduler
+
+    cfg, model, tables, st0 = world
+    hosts = cfg.num_hosts
+    full = hosts == BENCH_HOSTS and end_ns == BENCH_END_NS
+    want = dict(events=BENCH_EVENTS, streams_done=BENCH_STREAMS_DONE, bytes_down=BENCH_BYTES_DOWN)
+    main_hs = host_stats(state_from_host(main_final, st0))
+    on_card = dev.type == "cuda"
+    watchdog_s = max(GUARD_WATCHDOG_FLOOR_S, GUARD_WATCHDOG_OVER_MAIN * main_wall)
+    stall_s = watchdog_s + GUARD_STALL_PAST_S
+
+    def guarded(faults, rounds_per_chunk=GUARD_RPC, watchdog_s=0.0, before_count=None):
+        sched = TpuScheduler(model, tables, cfg, rounds_per_chunk=rounds_per_chunk,
+                             watchdog_s=watchdog_s, device=dev)
+        plan = chaos.FaultPlan(faults=faults)
+        sync(dev)
+        mk.PUMP_KERNEL.launches_by_model["tgen"] = 0
+        t0 = time.perf_counter()
+        with chaos.installed(plan):
+            final = sched.run(end_ns, start_state=st0, recovery=RecoveryPolicy())
+        sync(dev)
+        wall = time.perf_counter() - t0
+        if before_count is not None:
+            before_count()
+        hs = host_stats(final)
+        if rounds_per_chunk != GUARD_RPC:
+            hs["rounds_idle"] = main_hs["rounds_idle"]  # follows the chunking
+        report = sched.recovery_report
+        out = dict(
+            wall_s=round(wall, 3), kernel_launches=mk.PUMP_KERNEL.launches_by_model["tgen"],
+            recoveries=report, engine_fallbacks=sched.engine_fallbacks,
+            watchdog_redispatches=sum(r["kind"] == "watchdog" for r in report),
+            chaos=plan.report(), counters=bench_counters(final),
+            host_stats_equal=all(np.array_equal(main_hs[k], hs[k]) for k in main_hs),
+            queue_capacity=int(final.queue.time.shape[1]))
+        return out, state_to_numpy(final)
+
+    # (a) capacity, then a stall under the watchdog
+    a, host = guarded([{"kind": "capacity", "at": GUARD_CAPACITY_AT},
+                       {"kind": "stall", "at": GUARD_STALL_AT, "stall_s": stall_s}],
+                      rounds_per_chunk=GUARD_CHAOS_RPC, watchdog_s=watchdog_s)
+    a["rounds_idle"] = [int(main_final[".tracker.rounds_idle"]),
+                        int(host[".tracker.rounds_idle"])]
+    a["mismatched_leaves"] = [k for k in grown_leaves_differ(main_final, host)
+                              if k != ".tracker.rounds_idle"]
+    del host
+    a_ok = ([r["kind"] for r in a["recoveries"]] == ["capacity", "watchdog"]
+            and a["recoveries"][0].get("injected") is True
+            and a["recoveries"][1]["chunk"] == GUARD_STALL_AT
+            and a["watchdog_redispatches"] == 1 and not a["engine_fallbacks"]
+            and a["chaos"]["fired"] == [{"kind": "capacity", "at": GUARD_CAPACITY_AT},
+                                        {"kind": "stall", "at": GUARD_STALL_AT}]
+            and a["host_stats_equal"] and not a["mismatched_leaves"]
+            and (a["counters"] == want or not full)
+            and (a["kernel_launches"] > 0 or not on_card))
+
+    # (b) an injected compile fault on the megakernel: the pump twin runs
+    b, host = guarded([{"kind": "compile", "target": "megakernel"}])
+    b["mismatched_leaves"] = snapshots_differ(main_final, host)
+    del host
+    fell = [(f["from"], f["to"]) for f in b["engine_fallbacks"]]
+    b_ok = ((fell == [("megakernel", "pump")] or not on_card)
+            and b["kernel_launches"] == 0 and not b["recoveries"]
+            and b["chaos"]["fired"] == ([{"kind": "compile", "at": None, "target": "megakernel"}]
+                                        if on_card else [])
+            and not b["mismatched_leaves"] and (b["counters"] == want or not full))
+
+    # (c) the autotuner from a cached probe wall
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "autotune.json")
+        key = autotune._cache_key(cfg, autotune.PROBE_RPC, autotune.backend_name(dev))
+        with open(cache, "w") as f:
+            json.dump({key: {"probe_wall_s": GUARD_PROBE_WALL_S}}, f)
+
+        def no_probe():
+            raise AssertionError("autotune built a probe state despite its cache")
+
+        plan = autotune.plan_rounds_per_chunk(no_probe, model, tables, cfg,
+                                              requested=GUARD_REQUESTED_RPC,
+                                              budget_s=GUARD_BUDGET_S, cache_path=cache,
+                                              device=dev)
+    c, host = guarded([], rounds_per_chunk=plan.rounds_per_chunk)
+    c["plan"] = plan.as_dict()
+    c["mismatched_leaves"] = snapshots_differ(main_final, host)
+    del host
+    c_ok = (plan.source == "cache" and plan.rounds_per_chunk == GUARD_RPC
+            and (c["kernel_launches"] == main_launches or not on_card)
+            and not c["mismatched_leaves"] and (c["counters"] == want or not full))
+
+    # (d) a stall on the device at chunk GUARD_STALL_AT's launch
+    if on_card:
+        t = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t[0].record()
+        torch.cuda._sleep(10**8)
+        t[1].record()
+        t[1].synchronize()
+        cycles = int(stall_s * 10**8 / (t[0].elapsed_time(t[1]) / 1e3))
+    real_run_chunk, chunk_calls = rnd._run_chunk, []
+
+    def stalled_run_chunk(st, *args, **kwargs):
+        if len(chunk_calls) == GUARD_STALL_AT:
+            if on_card:
+                torch.cuda._sleep(cycles)
+            else:
+                time.sleep(stall_s)
+        chunk_calls.append(None)
+        return real_run_chunk(st, *args, **kwargs)
+
+    def abandoned_chunks_done():
+        # the abandoned chunk's helper thread runs on after the replay
+        # has begun; its launches are (d)'s, not a later phase's
+        for t in threading.enumerate():
+            if t.name.startswith("chunk-watchdog"):
+                t.join()
+        sync(dev)
+
+    rnd._run_chunk = stalled_run_chunk
+    try:
+        d, host = guarded([], rounds_per_chunk=GUARD_CHAOS_RPC, watchdog_s=watchdog_s,
+                          before_count=abandoned_chunks_done)
+    finally:
+        rnd._run_chunk = real_run_chunk
+    d["device_stall_cycles"] = cycles if on_card else None
+    d["mismatched_leaves"] = [k for k in grown_leaves_differ(main_final, host)
+                              if k != ".tracker.rounds_idle"]
+    del host
+    d_ok = ([(r["kind"], r["chunk"]) for r in d["recoveries"]]
+            == [("watchdog", GUARD_STALL_AT)]
+            and d["watchdog_redispatches"] == 1 and not d["engine_fallbacks"]
+            and d["chaos"]["fired"] == [] and d["wall_s"] >= watchdog_s
+            and d["host_stats_equal"] and not d["mismatched_leaves"]
+            and (d["counters"] == want or not full)
+            and (d["kernel_launches"] > 0 or not on_card))
+
+    ok = a_ok and b_ok and c_ok and d_ok
+    line("guards", ok=ok, cell=f"guards-{hosts}", end_ns=end_ns,
+         watchdog_s=round(watchdog_s, 3), stall_s=round(stall_s, 3),
+         ok_by_run={"chaos": a_ok, "compile": b_ok, "autotune": c_ok, "device_stall": d_ok},
+         chaos=a, compile=b, autotune=c, device_stall=d, main_path_launches=main_launches)
+    return ok, sum(r["kernel_launches"] for r in (a, b, c, d))
+
+
+def oracle_tcp_world(model_name: str, loss: float, shaped: bool, lanes: int, device):
+    """tests/test_cpu_ref_{tgen,bulk}.py's _world, written against the
+    port: 8 hosts on a seeded 4-node graph (1 ms self-loops, 2-5 ms links
+    at `loss`), 20 Mbit shaping when `shaped`. (cfg, model, tables,
+    host_node, per-host refill)."""
+    from shadow_tpu_torch.engine.state import EngineConfig
+    from shadow_tpu_torch.graph import NetworkGraph, compute_routing
+    from shadow_tpu_torch.models.bulk import BulkTcpModel
+    from shadow_tpu_torch.models.tgen import TgenModel
+    from shadow_tpu_torch.netstack import bw_bits_per_sec_to_refill
+    from shadow_tpu_torch.simtime import NS_PER_MS
+
+    hosts, n_nodes = 8, 4
+    rng_py = random.Random(13 if model_name == "tgen" else 11)
+    lines = ["graph [", "  directed 0"]
+    for i in range(n_nodes):
+        lines.append(f"  node [ id {i} ]")
+        lines.append(f'  edge [ source {i} target {i} latency "1 ms" ]')
+    for i in range(n_nodes):
+        for j in range(i + 1, n_nodes):
+            lines.append(f'  edge [ source {i} target {j} latency '
+                         f'"{rng_py.randrange(2, 6)} ms" packet_loss {loss} ]')
+    lines.append("]")
+    graph = NetworkGraph.from_gml("\n".join(lines))
+    host_node = [i % n_nodes for i in range(hosts)]
+    tables = compute_routing(graph, block=4, device=device).with_hosts(host_node)
+    cfg = EngineConfig(num_hosts=hosts, queue_capacity=128 if model_name == "tgen" else 96,
+                       outbox_capacity=16, runahead_ns=graph.min_latency_ns(),
+                       seed=13 if model_name == "tgen" else 11, use_netstack=shaped,
+                       active_lanes=lanes)
+    if model_name == "tgen":
+        model = TgenModel(num_hosts=hosts, num_clients=hosts // 2,
+                          num_servers=hosts - hosts // 2, resp_bytes=25_000,
+                          pause_ns=40 * NS_PER_MS)
+    else:
+        model = BulkTcpModel(num_hosts=hosts, num_pairs=hosts // 2, total_bytes=30_000)
+    bw = bw_bits_per_sec_to_refill(20_000_000) if shaped else None
+    return cfg, model, tables, host_node, bw
+
+
+def oracle_phold_world(loss: float, device):
+    """tests/test_engine_phold.py's _setup, written against the port: 6
+    phold hosts on a seeded 3-node mesh (500 us self-loops, 1-8 ms links
+    at `loss`)."""
+    from shadow_tpu_torch.engine.state import EngineConfig
+    from shadow_tpu_torch.graph import NetworkGraph, compute_routing
+    from shadow_tpu_torch.models.phold import PholdModel
+    from shadow_tpu_torch.simtime import NS_PER_MS
+
+    hosts, n_nodes, seed = 6, 3, 11
+    rng_py = random.Random(seed)
+    lines = ["graph [", "  directed 0"]
+    for i in range(n_nodes):
+        lines.append(f'  node [ id {i} host_bandwidth_up "1 Gbit" host_bandwidth_down "1 Gbit" ]')
+        lines.append(f'  edge [ source {i} target {i} latency "500 us" packet_loss {loss} ]')
+    for i in range(n_nodes):
+        for j in range(i + 1, n_nodes):
+            if rng_py.random() < 0.7 or j == i + 1:
+                lines.append(f'  edge [ source {i} target {j} latency '
+                             f'"{rng_py.randrange(1, 9)} ms" packet_loss {loss} ]')
+    lines.append("]")
+    graph = NetworkGraph.from_gml("\n".join(lines))
+    host_node = [i % n_nodes for i in range(hosts)]
+    tables = compute_routing(graph, block=8, device=device).with_hosts(host_node)
+    cfg = EngineConfig(num_hosts=hosts, queue_capacity=64, outbox_capacity=8,
+                       runahead_ns=graph.min_latency_ns(), seed=seed)
+    model = PholdModel(num_hosts=hosts, min_delay_ns=1 * NS_PER_MS, max_delay_ns=8 * NS_PER_MS)
+    return cfg, model, tables, host_node, None
+
+
+def queue_entries(q, host: int) -> list:
+    """A host's live queue entries in pop order, as the oracles list them."""
+    from shadow_tpu_torch.simtime import TIME_MAX
+
+    time_, tie, kind, data = (x[host].tolist() for x in (q.time, q.tie, q.kind, q.data))
+    return sorted((time_[i], tie[i], kind[i], tuple(data[i]))
+                  for i in range(len(time_)) if time_[i] != TIME_MAX)
+
+
+def oracle_differs(st, ref, counters, shaped: bool) -> "list[str]":
+    """What of an engine run's final state differs from the oracle's: every
+    TCP field (for the TCP models), the model's counters, the engine's
+    counters and every leftover queue entry."""
+    bad = []
+    if hasattr(st.model, "tcp"):
+        for f in TCP_FIELDS:
+            got = getattr(st.model.tcp, f).cpu().numpy()
+            if not np.array_equal(got, ref.tcp_field(f).astype(got.dtype)):
+                bad.append(f"tcp.{f}")
+    pairs = [(f"model.{n}", getattr(st.model, n), getattr(ref, r)) for n, r in counters]
+    pairs += [(n, getattr(st, n), getattr(ref, n)) for n in ("packets_sent", "packets_dropped")]
+    pairs += [("seq", st.seq, ref.seq), ("rng_counter", st.rng_counter, ref.ctr)]
+    if hasattr(ref, "events_handled"):
+        pairs.append(("events_handled", st.events_handled, ref.events_handled))
+    if shaped:
+        pairs += [(f"net.{n}", getattr(st.net, n), getattr(ref, n))
+                  for n in ("codel_dropped", "bytes_sent", "bytes_recv")]
+    bad += [name for name, got, want in pairs if got.tolist() != list(want)]
+    bad += [f"queue[{h}]" for h in range(st.num_hosts)
+            if queue_entries(st.queue, h) != ref.queue_contents(h)]
+    return bad
+
+
+def cpu_ref_run(dev, out_path: str) -> int:
+    """The cpu-ref oracles (CpuRefTgen, CpuRefBulk, CpuRefPhold), run on
+    the host, against the port's engine on `dev` (engine "auto": the
+    kernel for tgen, the plain engine for the models without a kernel
+    instance) on the reference tests' small worlds (ORACLE_*), for a
+    process of its own (`--cpu-ref OUT`): one record per world, with what
+    differs, written to OUT as JSON."""
+    from shadow_tpu_torch.cpu_ref import CpuRefBulk, CpuRefPhold, CpuRefTgen
+    from shadow_tpu_torch.engine import megakernel as mk
+    from shadow_tpu_torch.engine.round import bootstrap, run_until
+    from shadow_tpu_torch.engine.state import init_state
+    from shadow_tpu_torch.simtime import NS_PER_MS
+
+    worlds = [(f"tgen-{loss}-{'shaped' if shaped else 'unshaped'}-lanes{lanes}", CpuRefTgen,
+               oracle_tcp_world("tgen", loss, shaped, lanes, dev), end_ms * NS_PER_MS, shaped,
+               (("streams_started", "streams_started"), ("streams_done", "streams_done"),
+                ("bytes_down", "bytes_down"), ("resets", "resets")))
+              for loss, shaped, end_ms, lanes in ORACLE_TGEN]
+    worlds += [(f"bulk-{loss}-{'shaped' if shaped else 'unshaped'}", CpuRefBulk,
+                oracle_tcp_world("bulk", loss, shaped, 0, dev), end_ms * NS_PER_MS, shaped,
+                (("conns_established", "conns_established"), ("conns_closed", "conns_closed"),
+                 ("resets", "resets")))
+               for loss, shaped, end_ms in ORACLE_BULK]
+    worlds += [(f"phold-{loss}", CpuRefPhold, oracle_phold_world(loss, dev),
+                ORACLE_PHOLD_END_NS, False, (("recv_count", "recv"), ("send_count", "send")))
+               for loss in ORACLE_PHOLD_LOSS]
+    records = []
+    for name, cls, (cfg, model, tables, host_node, bw), end, shaped, counters in worlds:
+        t0 = time.perf_counter()
+        ref = cls(cfg, model, tables, host_node, tx_bytes_per_interval=bw,
+                  rx_bytes_per_interval=bw)
+        ref.bootstrap()
+        ref.run_until(end)
+        oracle_s = time.perf_counter() - t0
+        st = bootstrap(init_state(cfg, model.init(dev), bw, bw, device=dev), model, cfg)
+        mk.PUMP_KERNEL.launches = 0
+        t0 = time.perf_counter()
+        st = run_until(st, end, model, tables, cfg, rounds_per_chunk=16)
+        sync(dev)
+        records.append(dict(
+            world=name, mismatched=oracle_differs(st, ref, counters, shaped),
+            events=len(ref.trace), kernel_launches=mk.PUMP_KERNEL.launches,
+            oracle_s=round(oracle_s, 3), engine_s=round(time.perf_counter() - t0, 3)))
+    with open(out_path, "w") as f:
+        json.dump(records, f)
+    return 0
+
+
+def cpu_ref_start(dev) -> dict:
+    """Start cpu_ref_run in a process of its own (this script with
+    `--cpu-ref`): a handle for cpu_ref_finish_oracles."""
+    tmp = tempfile.TemporaryDirectory()
+    out = os.path.join(tmp.name, "cpu_ref.json")
+    cmd = [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--cpu-ref", out]
+    if dev.type == "cpu":
+        cmd += ["--rehearse-cpu"]
+    err_path = os.path.join(tmp.name, "stderr.txt")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=err, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, OMP_NUM_THREADS="1"))
+    STARTED.append(proc)
+    return dict(proc=proc, out=out, stderr=err_path, tmp=tmp, on_card=dev.type == "cuda")
+
+
+def cpu_ref_finish_oracles(run) -> bool:
+    """Wait for the run cpu_ref_start started: every world equal, every
+    oracle run non-trivial, the kernel launched on the tgen worlds (on
+    the card)."""
+    rc = run["proc"].wait()
+    records = []
+    if rc == 0:
+        with open(run["out"]) as f:
+            records = json.load(f)
+    with open(run["stderr"]) as f:
+        tail = f.read()[-2000:]
+    run["tmp"].cleanup()
+    ok = rc == 0 and len(records) == len(ORACLE_TGEN) + len(ORACLE_BULK) + len(ORACLE_PHOLD_LOSS)
+    ok = ok and all(not r["mismatched"] and r["events"] > 20 for r in records)
+    ok = ok and all(r["kernel_launches"] > 0 or not run["on_card"]
+                    for r in records if r["world"].startswith("tgen"))
+    line("cpu_ref_oracles", ok=ok, rc=rc, worlds=records, stderr_tail=tail if not ok else "")
+    return ok
+
+
 def fattree_cli_start(dev) -> dict:
     """Start the CLI on examples/fattree, its graph from gen_fattree.py 8
     in a temporary directory (cli_start)."""
@@ -1511,22 +1973,113 @@ def ensemble_cli_finish(run) -> bool:
     return ok
 
 
+def trajectory_stats(stats: dict, drop=()) -> dict:
+    """sim-stats without the wall clock, the execution shape (`memory`,
+    `execution`) and the keys in `drop`."""
+    return {k: v for k, v in stats.items()
+            if k not in ("wall_seconds", "memory", "execution", *drop)}
+
+
+def guards_cli_runs(dev) -> list:
+    """The guards' CLI runs of examples/tgen, each in a process of its own
+    (started by background_clis after its plain tgen run, whose sim-stats
+    and hosts file `ref` receives): `--autotune` with a real probe;
+    checkpoints under a ckpt-corrupt fault, interrupted and resumed;
+    `scheduler: cpu-ref`. (handle, finish) pairs."""
+    from shadow_tpu_torch.runtime.autotune import candidate_ladder
+    from shadow_tpu_torch.runtime.checkpoint import CheckpointManager, verify_checkpoint
+
+    on_card = dev.type == "cuda"
+
+    def autotune_finish(run, ref):
+        ok, stats = cli_finish(run, TGEN_EXAMPLE_STATS)
+        plan = stats.get("autotune") or {}
+        ok = (ok and trajectory_stats(stats, ("autotune",)) == trajectory_stats(ref["stats"])
+              and plan.get("source") == "probe"
+              and plan.get("backend") == ("gpu" if on_card else "cpu")
+              and plan.get("rounds_per_chunk") in candidate_ladder(plan.get("requested", 0))
+              and (plan.get("peak_hbm_bytes", 0) > 0 or not on_card))
+        line("guards_cli_autotune", ok=ok, example="tgen/shadow.yaml", autotune=plan)
+        return ok
+
+    ckpt_dir = tempfile.TemporaryDirectory()
+
+    def ckpt_finish(run, ref):
+        run["proc"].wait()
+        rc_interrupted = -1
+        if os.path.exists(run["rc_path"]):
+            with open(run["rc_path"]) as f:
+                rc_interrupted = int(f.read().strip() or -1)
+        ok, stats = cli_finish(run, TGEN_EXAMPLE_STATS)
+        files = sorted(p for p in os.listdir(ckpt_dir.name) if p.startswith("ckpt-"))
+        valid = [verify_checkpoint(os.path.join(ckpt_dir.name, p)) is None for p in files]
+        newest_valid = CheckpointManager.latest_path(ckpt_dir.name)
+        resumed = newest_valid is not None and (
+            f"resuming from checkpoint {newest_valid}" in run["stderr_text"])
+        ok = (ok and rc_interrupted == 130 and len(files) >= 2 and not valid[-1]
+              and all(valid[:-1]) and resumed
+              and trajectory_stats(stats) == trajectory_stats(ref["stats"]))
+        line("guards_cli_checkpoint", ok=ok, example="tgen/shadow.yaml",
+             fault=GUARD_CKPT_FAULT, interrupted_rc=rc_interrupted, files=files, valid=valid,
+             resumed_from=os.path.basename(newest_valid or ""), resumed=resumed)
+        ckpt_dir.cleanup()
+        return ok
+
+    def cpu_ref_finish(run, ref):
+        pinned = {**TGEN_EXAMPLE_STATS, "scheduler": "cpu-ref"}
+        ok, stats = cli_finish(run, pinned)
+        same_hosts = run.get("hosts") is not None and run.get("hosts") == ref.get("hosts")
+        ok = (ok and same_hosts and trajectory_stats(stats, ("scheduler",))
+              == trajectory_stats(ref["stats"], ("scheduler",)))
+        line("guards_cli_cpu_ref", ok=ok, example="tgen/shadow.yaml", same_hosts=same_hosts,
+             stats={k: stats.get(k) for k in ("events_handled", "packets_sent", "scheduler")})
+        return ok
+
+    return [
+        (cli_start("tgen/shadow.yaml", dev, extra=("--autotune", str(GUARD_CLI_AUTOTUNE_S))),
+         autotune_finish),
+        # at OBS_CLI_ROUNDS_PER_CHUNK rounds a chunk: the config's 128 make
+        # one chunk of the whole run, with no boundary to checkpoint at
+        # (the resumed run writes no checkpoint of its own before it ends,
+        # so the directory keeps the interrupted run's files for the check)
+        (cli_start("tgen/shadow.yaml", dev, extra=(
+            "--checkpoint-dir", ckpt_dir.name, "--checkpoint-interval", GUARD_CKPT_INTERVAL,
+            "--chaos-fault", GUARD_CKPT_FAULT), interrupt_ns=GUARD_INTERRUPT_NS,
+            resume_extra=("--checkpoint-dir", ckpt_dir.name, "--checkpoint-interval",
+                          GUARD_RESUME_INTERVAL),
+            subs=(("rounds_per_chunk: 128", f"rounds_per_chunk: {OBS_CLI_ROUNDS_PER_CHUNK}"),)),
+         ckpt_finish),
+        (cli_start("tgen/shadow.yaml", dev, subs=(("scheduler: tpu", "scheduler: cpu-ref"),)),
+         cpu_ref_finish),
+        (cpu_ref_start(dev), lambda run, ref: cpu_ref_finish_oracles(run)),
+    ]
+
+
 def background_clis(dev):
     """Start every CLI run of the smoke, each in a process of its own: on
     the onion example (stop time cut), on examples/fattree, on
     examples/tgen (plain, and with the observability flags, `mem`
-    beside it), on the phold example (stop time cut) and `run --replicas
-    2` on it. A callable that waits for all and says whether all
-    passed."""
+    beside it, and the guards' runs: guards_cli_runs), on the phold
+    example (stop time cut) and `run --replicas 2` on it; and the cpu-ref
+    oracles against the engine on the card (cpu_ref_start). A callable
+    that waits for all and says whether all passed."""
+    tgen_ref = {}
+
+    def tgen_finish(run):
+        ok, tgen_ref["stats"] = cli_finish(run, TGEN_EXAMPLE_STATS)
+        tgen_ref["hosts"] = run.get("hosts")
+        return ok
+
     runs = [(cli_start("onion/onion.yaml", dev, ONION_EXAMPLE_STOP),
              lambda r: cli_finish(r, ONION_EXAMPLE_STATS)[0]),
             (fattree_cli_start(dev), fattree_cli_finish),
-            (cli_start("tgen/shadow.yaml", dev), lambda r: cli_finish(r, TGEN_EXAMPLE_STATS)[0]),
+            (cli_start("tgen/shadow.yaml", dev), tgen_finish),
             (cli_start("phold/shadow.yaml", dev, PHOLD_EXAMPLE_STOP),
              lambda r: cli_finish(r, PHOLD_EXAMPLE_STATS)[0]),
             (cli_start("phold/shadow.yaml", dev, PHOLD_EXAMPLE_STOP, extra=("--replicas", "2")),
              ensemble_cli_finish),
             (observability_cli_start(dev), observability_cli_finish)]
+    runs += [(r, lambda r, f=f: f(r, tgen_ref)) for r, f in guards_cli_runs(dev)]
     return lambda: all([finish(r) for r, finish in runs])
 
 
@@ -1634,12 +2187,17 @@ def models_phase(dev, big_hosts: int) -> bool:
 STARTED = []
 
 
-def cli_start(example: str, dev, stop=None, extra=(), subs=()) -> dict:
+def cli_start(example: str, dev, stop=None, extra=(), subs=(), interrupt_ns=None,
+              resume_extra=()) -> dict:
     """Start `python -m shadow_tpu_torch run` on an example config in a
     process of its own (its data directory moved to a temporary one;
     `stop`, a pair of stop_time lines, shortens it; `subs`, more (old, new)
     pairs, edit it; `extra` adds flags; its output goes to files, so that
-    it never waits on this process): a handle for cli_finish."""
+    it never waits on this process): a handle for cli_finish. With
+    `interrupt_ns` the run is interrupted there (the interrupt guard's
+    sim-time knob; its exit status goes to the handle's "rc_path") and
+    then resumed with `--resume` and the flags `resume_extra` instead of
+    `extra`, in one shell."""
     tmp = tempfile.TemporaryDirectory()
     src = open(os.path.join(HERE, "examples", example)).read()
     for old, new in ((stop,) if stop is not None else ()) + tuple(subs):
@@ -1650,9 +2208,15 @@ def cli_start(example: str, dev, stop=None, extra=(), subs=()) -> dict:
     cfg_path = os.path.join(tmp.name, "config.yaml")
     with open(cfg_path, "w") as f:
         f.write(src.replace("data_directory: shadow.data", f"data_directory: {data}"))
-    cmd = [sys.executable, "-m", "shadow_tpu_torch", "run", *extra, cfg_path]
-    if dev.type == "cpu":
-        cmd += ["--device", "cpu"]
+    device = ["--device", "cpu"] if dev.type == "cpu" else []
+    cmd = [sys.executable, "-m", "shadow_tpu_torch", "run", *extra, cfg_path, *device]
+    rc_path = os.path.join(tmp.name, "interrupted_rc.txt")
+    if interrupt_ns is not None:
+        resume = [sys.executable, "-m", "shadow_tpu_torch", "run", *resume_extra, cfg_path,
+                  *device, "--resume"]
+        first, then = (" ".join(map(shlex.quote, c)) for c in (cmd, resume))
+        cmd = ["/bin/sh", "-c", f"{INTERRUPT_ENV}={int(interrupt_ns)} {first}; "
+               f"echo $? > {shlex.quote(rc_path)}; exec {then}"]
     err_path = os.path.join(tmp.name, "stderr.txt")
     with open(os.path.join(tmp.name, "stdout.txt"), "w") as out, open(err_path, "w") as err:
         t0 = time.perf_counter()
@@ -1662,7 +2226,7 @@ def cli_start(example: str, dev, stop=None, extra=(), subs=()) -> dict:
                                 env=dict(os.environ, OMP_NUM_THREADS="1"))
     STARTED.append(proc)
     return dict(example=example, extra=list(extra), proc=proc, t0=t0, data=data,
-                stderr=err_path, tmps=[tmp])
+                stderr=err_path, tmps=[tmp], rc_path=rc_path)
 
 
 def cli_finish(run: dict, pinned: dict) -> "tuple[bool, dict]":
@@ -1677,6 +2241,11 @@ def cli_finish(run: dict, pinned: dict) -> "tuple[bool, dict]":
     ok = rc == 0 and got == pinned
     with open(run["stderr"]) as f:
         stderr = f.read()
+    hosts_path = os.path.join(run["data"], "hosts")
+    if os.path.exists(hosts_path):
+        with open(hosts_path) as f:
+            run["hosts"] = f.read()
+    run["stderr_text"] = stderr
     line("cli", ok=ok, example=run["example"], flags=run["extra"], rc=rc, stats=got,
          execution=stats.get("execution"), wall_s=round(cli_s, 3),
          stderr_tail=stderr[-2000:] if not ok else "")
@@ -2207,6 +2776,12 @@ def run_phases(argv=None) -> int:
         help="only run the onion cell's plain-engine run and write its "
         "counters to OUT (the smoke starts this in a process of its own)",
     )
+    ap.add_argument(
+        "--cpu-ref", metavar="OUT",
+        help="only hold the cpu-ref oracles against the engine on the "
+        "reference tests' small worlds and write the records to OUT (the "
+        "smoke starts this in a process of its own)",
+    )
     args = ap.parse_args(argv)
     full = args.hosts == BENCH_HOSTS and args.end_ns == BENCH_END_NS
     if not full and not args.rehearse_cpu:
@@ -2230,6 +2805,9 @@ def run_phases(argv=None) -> int:
     if args.onion_plain:
         dev = torch.device("cpu") if args.rehearse_cpu else torch.device("cuda", 0)
         return onion_plain_run(args.hosts, ONION_END_NS, dev, args.onion_plain)
+    if args.cpu_ref:
+        return cpu_ref_run(torch.device("cpu") if args.rehearse_cpu else torch.device("cuda", 0),
+                           args.cpu_ref)
     if args.rehearse_cpu:
         dev, smi = torch.device("cpu"), "cpu rehearsal"
     else:
@@ -2491,6 +3069,12 @@ def run_phases(argv=None) -> int:
                                                        main_final, main_wall, dev)
     if not ok_o:
         return 1
+    # 6a. guards-10240: the main path under chaos faults and the watchdog,
+    # down the engine ladder, and at an autotuned rounds_per_chunk
+    ok_g, guards_launches = guards_phase((cfg, model, tables, st0), args.end_ns, main_final,
+                                         main_launches, main_wall, dev)
+    if not ok_g:
+        return 1
 
     # 7. the onion cell through its kernel instance, at full width
     launches_by_model = {"tgen": main_launches}
@@ -2565,7 +3149,8 @@ def run_phases(argv=None) -> int:
     ens_launch = {"tgen": ens_tgen, "onion": ens_onion, "tgen_wide": None, "onion_wide": None}
     # launches on the paths of this slice's phases, besides the main path's
     more = {"tgen": {"recovery": recovery_launches, "checkpoint": checkpoint_launches,
-                     "observability": observability_launches, **planes["launches"]}}
+                     "observability": observability_launches, "guards": guards_launches,
+                     **planes["launches"]}}
     # the launches planes-10240 timed: on compacted sub-states and with
     # dyn_runahead set
     planes_timed = {"tgen": planes["timed"]}

@@ -92,10 +92,46 @@ def main(argv: "list[str] | None" = None) -> int:
         "(general.resume)",
     )
     run_p.add_argument(
+        "--autotune", type=float, nargs="?", const=-1.0, metavar="SECONDS",
+        help="enable the compile-budget autotuner: a tiny-chunk compile "
+        "probe walks experimental.rounds_per_chunk down so one config "
+        "knob cannot blow the run's wall budget; optional SECONDS "
+        "overrides experimental.autotune_budget_s (runtime/autotune.py; "
+        "docs/usage.md)",
+    )
+    run_p.add_argument(
+        "--no-autotune", action="store_true",
+        help="force the autotuner off even when the config enables "
+        "experimental.autotune",
+    )
+    run_p.add_argument(
         "--no-recover", action="store_true",
         help="disable rollback-and-regrow capacity recovery: fail fast "
         "on a CapacityError instead of regrowing the saturated buffer "
         "and replaying (experimental.recover)",
+    )
+    run_p.add_argument(
+        "--chunk-watchdog", type=float, metavar="SECONDS",
+        help="arm the chunk-dispatch watchdog: a chunk whose launch and "
+        "probe fetch together (the launch waits on the chunk's device "
+        "work; the kernel's first build is not counted) exceed SECONDS "
+        "is abandoned and "
+        "re-dispatched from the retained clean snapshot, counted like a "
+        "recovery (experimental.chunk_watchdog_s; 0 = off; "
+        "docs/robustness.md)",
+    )
+    run_p.add_argument(
+        "--chaos-seed", type=int, metavar="N",
+        help="seed for the chaos plane's own PRNG stream (resolves "
+        "'at=auto' fault sites deterministically; chaos.seed; "
+        "docs/robustness.md 'Chaos testing')",
+    )
+    run_p.add_argument(
+        "--chaos-fault", action="append", metavar="SPEC",
+        help="inject a deterministic fault: KIND[@AT][:key=val...], e.g. "
+        "'capacity@2', 'stall@1:stall_s=0.5', 'compile:target=megakernel' "
+        "(repeatable; kinds: capacity, stall, compile, ckpt-corrupt, "
+        "ckpt-truncate, worker-kill, worker-hang, preempt; chaos.faults)",
     )
     mem_p = sub.add_parser(
         "mem",
@@ -159,6 +195,9 @@ def main(argv: "list[str] | None" = None) -> int:
                 tracker=args.tracker, trace_file=args.trace_file,
                 metrics_file=args.metrics_file, metrics_prom=args.metrics_prom,
                 xprof_dir=args.xprof_dir, xprof_chunks=args.xprof_chunks,
+                autotune=args.autotune, no_autotune=args.no_autotune,
+                chunk_watchdog=args.chunk_watchdog, chaos_seed=args.chaos_seed,
+                chaos_faults=args.chaos_fault,
             )
         except CliUserError as e:
             print(f"shadow-tpu-torch: error: {e}", file=sys.stderr)

@@ -453,9 +453,31 @@ class ChaosOptions:
         faults = d.pop("faults", []) or []
         if not isinstance(faults, list):
             raise ValueError("chaos.faults must be a list of fault mappings")
-        if faults:
-            # the chaos plane (fault injection) is not part of the port yet
-            raise NotYetPorted("chaos: faults")
+        # lazy: runtime/chaos.py imports FAULT_KINDS from this module, so
+        # the dependency can only run config -> runtime at call time
+        from shadow_tpu_torch.runtime.chaos import FaultSpec
+
+        for f in faults:
+            if not isinstance(f, dict):
+                raise ValueError("chaos.faults entries must be mappings")
+            f = dict(f)
+            kind = f.get("kind")
+            if kind not in FAULT_KINDS:
+                raise ValueError(
+                    f"chaos.faults: unknown kind {kind!r} "
+                    f"(expected one of {sorted(FAULT_KINDS)})"
+                )
+            unknown = sorted(set(f) - set(cls._FAULT_KEYS))
+            if unknown:
+                raise ValueError(f"unknown key(s) in chaos fault: {unknown}")
+            # validate values eagerly against the one definition
+            # (FaultSpec): a bad `at:`/`count:`/`stall_s:` is a one-line
+            # config error at load time, not a traceback mid-run
+            try:
+                FaultSpec(**f)
+            except (TypeError, ValueError) as e:
+                raise ValueError(f"chaos.faults entry {f!r}: {e}") from e
+            out.faults.append(f)
         _reject_unknown("chaos", d)
         return out
 

@@ -31,8 +31,9 @@ reference's vmap does:
 
 The megakernel stays the engine on the card: an ensemble of a model with
 a kernel instance (tgen, onion) runs the kernel, and a kernel that fails
-to build or launch raises (the reference falls back to its XLA pump
-under vmap; the port carries no fallback).
+to build or launch raises (the reference runs its XLA pump under vmap;
+the port's fallback ladder, runtime/chaos.py, acts only on an injected
+`compile` fault).
 """
 
 from __future__ import annotations
@@ -53,6 +54,9 @@ from shadow_tpu_torch.engine.round import (
     attach_capacity_bytes,
     bootstrap,
     check_capacity,
+    effective_engine,
+    observe_chunk,
+    run_chunk,
     run_round,
     state_probe,
     tap_chunk,
@@ -240,6 +244,7 @@ def run_ensemble_until(
     on_rows=None,
     on_state=None,
     tracker=None,
+    watchdog_s: float = 0.0,
 ) -> SimState:
     """Host-side ensemble driver: chunks of `rounds_per_chunk` rounds over
     the whole batch until no replica has work left before end_time. `st`
@@ -256,7 +261,8 @@ def run_ensemble_until(
     _patch_snapshot. `tracker` records run_until's dispatch spans (no
     per-host heartbeats: a line per host cannot name its replica), and the
     installed flight recorder observes each chunk's aggregate probe
-    before its overflow check."""
+    before its overflow check. `watchdog_s` and the chaos plane's
+    compile, stall and capacity seams are run_until's."""
     cfg = ensemble_engine_cfg(cfg)
     validate_runahead(cfg, tables)
     n = num_replicas(st)
@@ -302,16 +308,15 @@ def run_ensemble_until(
         with _tspan(tracker, "state_snapshot", chunk=chunks):
             return _patch_snapshot(state_to_host(stacked_view(st)), final_rows)
 
+    engine = effective_engine(cfg, st.device)
     chunks = 0
     pending = False  # a due snapshot of this chunk's state (see run_until)
     while True:
-        with _tspan(tracker, "chunk_launch" if chunks else "compile+launch", chunk=chunks):
-            st = launch(st)
+        st, rows = run_chunk(launch, st, chunks, tracker, engine, watchdog_s)
         chunks += 1
-        with _tspan(tracker, "probe_fetch", chunk=chunks - 1):
-            rows = state_probe(st).cpu().numpy()
+        rows = np.asarray(rows, dtype=np.int64)
         probe = _aggregate_probe(rows)
-        flightrec.observe_probe(probe, chunk=chunks - 1)
+        observe_chunk(probe, chunks - 1)
         ahead = chunks < max_chunks
         if rows[:, _LANE["overflow"]].any():
             err = _replica_capacity_error(rows)

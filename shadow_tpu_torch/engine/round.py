@@ -23,8 +23,11 @@ vmap over the replica axis gives them (engine/ensemble.py).
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
+import threading
+import time
 
 import numpy as np
 import torch
@@ -41,7 +44,7 @@ from shadow_tpu_torch.engine.state import (
 from shadow_tpu_torch.events import KIND_PACKET, pack_tie
 from shadow_tpu_torch.graph.routing import RoutingTables
 from shadow_tpu_torch.netstack import AUX_SHAPED_BIT, AUX_SIZE_MASK
-from shadow_tpu_torch.runtime import flightrec
+from shadow_tpu_torch.runtime import chaos, flightrec
 from shadow_tpu_torch.simtime import TIME_MAX
 
 _W = torch.where
@@ -826,6 +829,40 @@ class RunInterrupted(RuntimeError):
     returned; resume from the checkpoint instead."""
 
 
+class WatchdogExpired(RuntimeError):
+    """A chunk's launch and probe fetch exceeded the configured watchdog
+    deadline (experimental.chunk_watchdog_s). The chunk is abandoned;
+    runtime/recovery.py rolls back to the retained clean snapshot and
+    re-dispatches, counting it like a recovery in sim-stats. Past the
+    recovery budget it propagates as a structured failure, never an
+    indefinite hang."""
+
+    def __init__(self, chunk: int, deadline_s: float):
+        super().__init__(
+            f"chunk {chunk} dispatch exceeded the {deadline_s:.3g}s "
+            "watchdog deadline; abandoning the in-flight chunk"
+        )
+        self.chunk = chunk
+        self.deadline_s = deadline_s
+
+
+class EngineCompileError(RuntimeError):
+    """The selected engine failed to build its chunk program. The engines
+    are leaf-exact, so this is recoverable by degradation:
+    runtime/chaos.py run_with_engine_ladder falls one rung (megakernel ->
+    pump -> plain); only a plain-engine failure is terminal. In the port
+    only the chaos plane's injected `compile` fault raises it
+    (runtime/chaos.py compile_seam): a real build or launch failure of
+    the kernel propagates as itself."""
+
+    def __init__(self, engine: str, cause: "BaseException | None" = None):
+        super().__init__(
+            f"{engine} engine failed to compile its chunk program: "
+            f"{cause if cause is not None else 'injected fault (chaos plane)'}"
+        )
+        self.engine = engine
+
+
 def _capacity_error(
     dropped: int,
     queue_ov: "int | None" = None,
@@ -1052,6 +1089,128 @@ def _tspan(tracker, name, **args):
     return tracker.span(name, **args)
 
 
+# helpers abandoned at a deadline, with it: joined at exit (below)
+_ABANDONED: "list[tuple[threading.Thread, float]]" = []
+
+
+@atexit.register
+def _join_abandoned() -> None:
+    """Give each abandoned chunk another deadline to end before the
+    interpreter exits: a helper still in a torch call when the runtime
+    is torn down aborts the process, and the run's own error and exit
+    code would be lost. One wedged for good is left behind."""
+    for helper, watchdog_s in _ABANDONED:
+        helper.join(watchdog_s)
+
+
+def _bounded(work, watchdog_s: float, t0: float, chunk_idx: int):
+    """`work()` under the chunk watchdog's deadline, `t0 + watchdog_s`:
+    it runs in a daemon helper thread joined with what is left of the
+    deadline, so work that blocks on a wedged or slow stream surfaces as
+    WatchdogExpired in the caller's thread instead of blocking it. The
+    abandoned helper (a thread named `chunk-watchdog-N`) runs on to its
+    end on the abandoned chunk's tensors; the replay starts from the
+    retained host snapshot. An exception of `work` is raised in the
+    caller's thread."""
+    remaining = watchdog_s - (time.perf_counter() - t0)
+    if remaining <= 0:
+        raise WatchdogExpired(chunk_idx, watchdog_s)
+    box: list = []
+
+    def run():
+        try:
+            box.append((True, work()))
+        except BaseException as e:  # surfaced in the caller's thread
+            box.append((False, e))
+
+    helper = threading.Thread(target=run, daemon=True, name=f"chunk-watchdog-{chunk_idx}")
+    helper.start()
+    helper.join(remaining)
+    if not box:
+        _ABANDONED.append((helper, watchdog_s))
+        raise WatchdogExpired(chunk_idx, watchdog_s)
+    ok, val = box[0]
+    if not ok:
+        raise val
+    return val
+
+
+def _fetch_probe(probe: torch.Tensor, watchdog_s: float, chunk_idx: int, t0: float) -> list:
+    """Read a chunk's probe to the host, under the chunk watchdog when one
+    is configured (watchdog_s > 0): the read runs in _bounded with the
+    deadline measured from `t0` (run_chunk passes the start of the
+    chunk's launch). The chaos plane's `stall` seam sleeps
+    inside the measured region, before the read, as in the reference, so
+    the watchdog is exercised deterministically. Watchdog off: the plain
+    blocking read, no thread."""
+    stall = chaos.fire("stall", at=chunk_idx)
+    if stall is not None:
+        time.sleep(stall.stall_s)
+    if watchdog_s <= 0:
+        return probe.tolist()
+    return _bounded(probe.tolist, watchdog_s, t0, chunk_idx)
+
+
+def observe_chunk(probe, chunk: int) -> None:
+    """The seams after a chunk's probe is read: the installed flight
+    recorder observes it (before the overflow check, so a post-mortem's
+    last sample is the failing chunk), then the chaos plane's `capacity`
+    fault for this chunk may fire."""
+    flightrec.observe_probe(probe, chunk=chunk)
+    injected = chaos.fire("capacity", at=chunk)
+    if injected is not None:
+        raise chaos.injected_capacity_error(chunk, injected)
+
+
+def launch_chunk(launch, st, chunk: int, tracker, engine: str):
+    """One chunk launch of a chunk loop, in its tracker span. Chunk 0 is
+    where the engine's chunk program is first built (the kernel's nvcc
+    build on the card, done here before `launch` is called, so a watched
+    launch's deadline does not count it, as the reference's compile is
+    outside its deadline): it runs inside the chaos plane's compile seam,
+    where only an injected `compile` fault becomes an
+    EngineCompileError."""
+    if chunk:
+        with _tspan(tracker, "chunk_launch", chunk=chunk):
+            return launch(st)
+    with chaos.compile_seam(engine):
+        with _tspan(tracker, "compile+launch", chunk=0):
+            if engine == "megakernel" and st.device.type == "cuda":
+                from shadow_tpu_torch.engine.megakernel import PUMP_KERNEL
+
+                PUMP_KERNEL.library()
+            return launch(st)
+
+
+def run_chunk(launch, st, chunk: int, tracker, engine: str, watchdog_s: float):
+    """One chunk of a chunk loop (run_until, run_ensemble_until): its
+    launch (launch_chunk), then its probe read in the `probe_fetch` span.
+    Returns (state, probe as a list).
+
+    `watchdog_s` > 0 arms the chunk watchdog. The port's launch runs the
+    chunk's device work and waits on it (each round reads whether any
+    host is live), where the reference's launch is asynchronous and its
+    device work lands in the probe read; so the measured region starts
+    when `launch` is called, and the launch and the read each run in
+    _bounded against the one deadline. A chunk that is slow or wedged on
+    the card raises WatchdogExpired; so does the `stall` seam's sleep
+    between them. With the watchdog armed, spans that `launch` itself
+    records (a heartbeat's host_stats_fetch) carry the helper thread's
+    id."""
+    t0 = 0.0
+
+    def watched(s):
+        nonlocal t0
+        t0 = time.perf_counter()
+        if watchdog_s <= 0:
+            return launch(s)
+        return _bounded(lambda: launch(s), watchdog_s, t0, chunk)
+
+    st = launch_chunk(watched, st, chunk, tracker, engine)
+    with _tspan(tracker, "probe_fetch", chunk=chunk):
+        return st, _fetch_probe(state_probe(st), watchdog_s, chunk, t0)
+
+
 def run_until(
     st: SimState,
     end_time: int,
@@ -1064,6 +1223,7 @@ def run_until(
     counters=None,
     on_state=None,
     tracker=None,
+    watchdog_s: float = 0.0,
 ) -> SimState:
     """Host-side driver: chunks of `rounds_per_chunk` rounds until no work
     remains before end_time. The caller's state is never modified (the
@@ -1098,7 +1258,15 @@ def run_until(
     `now` (from chunk N itself when no chunk follows, where the
     reference's extra chunk is idle). The installed flight recorder
     (runtime/flightrec.py) observes every probe before its overflow
-    check, so a post-mortem's last sample is the failing chunk."""
+    check, so a post-mortem's last sample is the failing chunk.
+
+    `watchdog_s` > 0 arms the chunk watchdog (run_chunk): a chunk whose
+    launch and probe read pass the deadline raises WatchdogExpired. The chaos plane's seams
+    fire at the reference's sites and ordinals: `compile` at chunk 0's
+    launch (for the engine this config runs here), `stall` in chunk N's
+    probe read, `capacity` after chunk N's probe is observed. The
+    reference's pipelined loop reads chunk N's probe with chunk N + 1 in
+    flight, and names the sites by N as this loop does."""
     from shadow_tpu_torch.engine.state import state_to_host
 
     validate_runahead(cfg, tables)
@@ -1127,15 +1295,14 @@ def run_until(
         with _tspan(tracker, "state_snapshot", chunk=chunks):
             return state_to_host(s)
 
+    engine = effective_engine(cfg, st.device)
     chunks = 0
     pending = False  # a due snapshot of this chunk's state, verified by its probe
     while True:
-        with _tspan(tracker, "chunk_launch" if chunks else "compile+launch", chunk=chunks):
-            st = launch(st)
+        st, row = run_chunk(launch, st, chunks, tracker, engine, watchdog_s)
         chunks += 1
-        with _tspan(tracker, "probe_fetch", chunk=chunks - 1):
-            probe = ChunkProbe.from_array(state_probe(st).tolist())
-        flightrec.observe_probe(probe, chunk=chunks - 1)
+        probe = ChunkProbe.from_array(row)
+        observe_chunk(probe, chunks - 1)
         # the reference's chunk loop has the next chunk in flight at this probe
         ahead = chunks < max_chunks
         if probe.overflow:

@@ -94,6 +94,17 @@ class EngineConfig:
             )
 
 
+def trace_static_cfg(cfg: EngineConfig) -> EngineConfig:
+    """`cfg` with every field that cannot change what a chunk computes
+    canonicalized: the seed (it enters the state only through the key
+    grid built at init) goes to 0, and "dense", an alias, to
+    "all_to_all". The reference keys its compiled chunk programs and the
+    autotuner's probe cache by it (runtime/autotune.py); its repr is the
+    reference's, field for field."""
+    exchange = "all_to_all" if cfg.exchange == "dense" else cfg.exchange
+    return dataclasses.replace(cfg, seed=0, exchange=exchange)
+
+
 @dataclasses.dataclass
 class Outbox:
     """Per-host staging area for packets emitted during a round; rows are

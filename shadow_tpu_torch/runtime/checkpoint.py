@@ -46,7 +46,7 @@ from shadow_tpu_torch.config.fingerprint import (  # noqa: F401
     fingerprint_diff,
 )
 from shadow_tpu_torch.engine.state import SimState, state_from_host
-from shadow_tpu_torch.runtime import flightrec
+from shadow_tpu_torch.runtime import chaos, flightrec
 from shadow_tpu_torch.utils.shadow_log import slog
 
 CHECKPOINT_VERSION = 1
@@ -272,6 +272,15 @@ class CheckpointManager:
             "checkpoint", wall_s=round(time.perf_counter() - t0, 4),
             now_ns=now, final=final, path=path,
         )
+        # chaos seam (runtime/chaos.py): `at` counts this manager's
+        # writes; the damage lands after the atomic commit, simulating
+        # post-write corruption the integrity check must catch
+        if chaos.active() is not None:
+            ordinal = len(self.written)
+            if chaos.fire("ckpt-corrupt", at=ordinal) is not None:
+                chaos.damage_file(path, truncate=False)
+            if chaos.fire("ckpt-truncate", at=ordinal) is not None:
+                chaos.damage_file(path, truncate=True)
         self.written.append(path)
         slog("info", now, "checkpoint",
              f"wrote {'final ' if final else ''}checkpoint {path}")

@@ -1,6 +1,6 @@
 """`run` and `mem` implementations (port of shadow_tpu/runtime/cli_run.py,
-reduced to the single-device scripted run and its ensemble of
-replicas). User mistakes surface as CliUserError and print as one-line
+reduced to the single-device scripted run, its ensemble of replicas and
+the cpu-ref oracle). User mistakes surface as CliUserError and print as one-line
 errors."""
 
 from __future__ import annotations
@@ -11,7 +11,12 @@ import sys
 import yaml
 
 from shadow_tpu_torch.config import load_config_file
-from shadow_tpu_torch.engine.round import CapacityError, RunInterrupted
+from shadow_tpu_torch.engine.round import (
+    CapacityError,
+    EngineCompileError,
+    RunInterrupted,
+    WatchdogExpired,
+)
 from shadow_tpu_torch.runtime.checkpoint import CheckpointError
 from shadow_tpu_torch.runtime.manager import Manager
 from shadow_tpu_torch.utils.shadow_log import set_level
@@ -29,7 +34,10 @@ def run_from_config(path: str, device: str = "cuda", show_config: bool = False,
                     resume: bool = False, no_recover: bool = False,
                     tracker: bool = False, trace_file: "str | None" = None,
                     metrics_file: "str | None" = None, metrics_prom: "str | None" = None,
-                    xprof_dir: "str | None" = None, xprof_chunks: "str | None" = None) -> int:
+                    xprof_dir: "str | None" = None, xprof_chunks: "str | None" = None,
+                    autotune: "float | None" = None, no_autotune: bool = False,
+                    chunk_watchdog: "float | None" = None, chaos_seed: "int | None" = None,
+                    chaos_faults: "list[str] | None" = None) -> int:
     try:
         config = load_config_file(path)
     except (ValueError, OSError, yaml.YAMLError) as e:
@@ -52,6 +60,13 @@ def run_from_config(path: str, device: str = "cuda", show_config: bool = False,
         config.general.resume = True
     if no_recover:
         config.experimental.recover = False
+    if autotune is not None:
+        # bare --autotune keeps the config's budget (const = -1.0)
+        config.experimental.autotune = True
+        if autotune >= 0:
+            config.experimental.autotune_budget_s = autotune
+    if no_autotune:
+        config.experimental.autotune = False
     if replicas is not None:
         if replicas < 1:
             raise CliUserError("--replicas must be >= 1")
@@ -60,6 +75,10 @@ def run_from_config(path: str, device: str = "cuda", show_config: bool = False,
         if replica_seed_stride < 1:
             raise CliUserError("--replica-seed-stride must be >= 1")
         config.general.replica_seed_stride = replica_seed_stride
+    if chunk_watchdog is not None:
+        if chunk_watchdog < 0:
+            raise CliUserError("--chunk-watchdog must be >= 0")
+        config.experimental.chunk_watchdog_s = chunk_watchdog
     if metrics_file:
         config.general.metrics_file = metrics_file
     if metrics_prom:
@@ -78,6 +97,15 @@ def run_from_config(path: str, device: str = "cuda", show_config: bool = False,
                 "'START:END' with 0 <= START < END"
             )
         config.experimental.xprof_chunks = xprof_chunks
+    if chaos_seed is not None:
+        config.chaos.seed = chaos_seed
+    for arg in chaos_faults or []:
+        from shadow_tpu_torch.runtime.chaos import parse_fault_arg
+
+        try:
+            config.chaos.faults.append(parse_fault_arg(arg))
+        except ValueError as e:
+            raise CliUserError(f"invalid --chaos-fault {arg!r}: {e}") from e
     set_level(config.general.log_level)
     if show_config:
         print(json.dumps(config.to_dict(), indent=2, default=str))
@@ -93,8 +121,11 @@ def run_from_config(path: str, device: str = "cuda", show_config: bool = False,
         # checkpoint written; 130 is the conventional SIGINT exit status
         print(f"shadow-tpu-torch: {e}; resume with --resume", file=sys.stderr)
         return 130
-    except (CapacityError, CheckpointError, ValueError) as e:
-        # recovery budget exhausted, checkpoint/resume validation
+    except (CapacityError, WatchdogExpired, EngineCompileError, CheckpointError,
+            ValueError) as e:
+        # the degradation ladder's terminal rungs (recovery budget
+        # exhausted, watchdog past its retries, the plain engine failing
+        # an injected compile fault too), checkpoint/resume validation
         # (fingerprint mismatch, missing checkpoint), config mistakes
         raise CliUserError(str(e)) from e
     if results.unexpected_final_states:

@@ -7,10 +7,11 @@ same run() surface as TpuScheduler. ensemble_stats folds the final state
 into sim-stats.json's `ensemble` section: one block per replica and
 mean/stddev/min/max/95% CI across replicas.
 
-run() carries the reference runner's checkpoint, interrupt, recovery
-and tracker seams (a regrow widens the whole batch); flatten_host_stats
-folds the batch's per-host tensors for the tracker. Not carried yet:
-its compile-cache seam.
+run() carries the reference runner's checkpoint, interrupt, recovery,
+watchdog, engine-ladder and tracker seams (a regrow widens the whole
+batch); flatten_host_stats folds the batch's per-host tensors for the
+tracker. Not carried yet: its compile-cache seam (`_launch_for`), which
+comes with the sweep service.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ class EnsembleRunner:
     def __init__(self, model, tables: RoutingTables, cfg: EngineConfig, num_replicas: int,
                  *, seed_stride: int = 1, rounds_per_chunk: int = 256,
                  tx_bytes_per_interval=None, rx_bytes_per_interval=None, on_rows=None,
-                 device="cuda"):
+                 watchdog_s: float = 0.0, device="cuda"):
         if num_replicas < 1:
             raise ValueError("num_replicas must be >= 1")
         self.device = resolve_device(device)
@@ -55,6 +56,7 @@ class EnsembleRunner:
         self.tx_bytes_per_interval = tx_bytes_per_interval
         self.rx_bytes_per_interval = rx_bytes_per_interval
         self.on_rows = on_rows
+        self.watchdog_s = watchdog_s
         # the engine run_round executes for this model here: the kernel
         # on the card for a model with a kernel instance
         self.engine = (
@@ -82,7 +84,7 @@ class EnsembleRunner:
                     st, end_time_ns, self.model, self.tables, cfg,
                     rounds_per_chunk=self.rounds_per_chunk, max_chunks=max_chunks,
                     on_chunk=on_chunk, on_rows=self.on_rows, on_state=on_state,
-                    tracker=tracker,
+                    tracker=tracker, watchdog_s=self.watchdog_s,
                 )
 
             return run
@@ -92,28 +94,13 @@ class EnsembleRunner:
     def run(self, end_time_ns: int, on_chunk=None, max_chunks: int = 100_000,
             start_state=None, checkpoints=None, guard=None, recovery=None, tracker=None):
         """Run the whole batch to end_time_ns (the driver stops when the
-        slowest replica quiesces). Mirrors TpuScheduler.run, with the
-        regrow step on the whole [R, ...] batch (grow_ensemble_state)."""
-        from shadow_tpu_torch.runtime.recovery import RecoveryPolicy, run_until_recovering
+        slowest replica quiesces). Mirrors TpuScheduler.run, the engine
+        fallback ladder included, with the regrow step on the whole
+        [R, ...] batch (grow_ensemble_state)."""
+        from shadow_tpu_torch.runtime.scheduler import _run_guarded
 
-        st = start_state if start_state is not None else self.initial_state()
-        self.recovery_report = []
-        factory = self._runner_factory(end_time_ns, on_chunk, max_chunks, tracker)
-        try:
-            if recovery is None and checkpoints is None and guard is None:
-                # the plain path: no taps, no recovery wrapper
-                return factory(self.cfg)(st)
-            final, self.recovery_report = run_until_recovering(
-                st, end_time_ns, cfg=self.cfg,
-                policy=recovery or RecoveryPolicy(max_recoveries=0),
-                checkpoints=checkpoints, guard=guard, tracker=tracker,
-                runner_factory=factory,
-                grow_fn=grow_ensemble_state,
-            )
-        except Exception as err:
-            self.recovery_report = list(getattr(err, "recoveries", []))
-            raise
-        return final
+        return _run_guarded(self, end_time_ns, on_chunk, max_chunks, start_state, checkpoints,
+                            guard, recovery, tracker, grow_fn=grow_ensemble_state)
 
 
 def _agg(values) -> dict:

@@ -1,9 +1,11 @@
 """Manager: build the simulated world from config and run it (port of
 shadow_tpu/runtime/manager.py, reduced to scripted single-device runs,
-one world or an ensemble of seeded replicas).
+one world or an ensemble of seeded replicas, on the device engine or the
+cpu-ref oracle).
 
 Resolve the graph, expand host specs, assign IPs, map hosts to graph
-nodes, build the model, run the device engine with heartbeats, and write
+nodes, build the model, plan rounds_per_chunk (the autotuner), run the
+scheduler with heartbeats under the chaos plane's fault plan, and write
 `sim-stats.json`, the processed config and the hosts file into the data
 directory. Features of the reference that the port does not carry yet
 raise NotYetPorted while the world is validated, before anything runs.
@@ -27,7 +29,7 @@ from shadow_tpu_torch.graph import IpAssignment, NetworkGraph, compute_routing
 from shadow_tpu_torch.graph.network_graph import ONE_GBIT_SWITCH_GML
 from shadow_tpu_torch.models.registry import _NOT_YET_PORTED, _REGISTRY, build_model
 from shadow_tpu_torch.netstack import bw_bits_per_sec_to_refill
-from shadow_tpu_torch.runtime.scheduler import TpuScheduler
+from shadow_tpu_torch.runtime.scheduler import CpuRefScheduler, make_scheduler
 from shadow_tpu_torch.simtime import NS_PER_SEC, fmt_time_ns
 from shadow_tpu_torch.utils.shadow_log import slog
 
@@ -96,15 +98,18 @@ def _reject_ensemble(config: ConfigOptions) -> None:
 
 
 def _reject_unported(config: ConfigOptions) -> None:
-    """Config-time refusal of everything outside the port's slices."""
+    """Config-time refusal of everything outside the port's slices,
+    chaos faults whose seams belong to a later plane included."""
+    from shadow_tpu_torch.runtime.chaos import LATER_KINDS
+
     g, e = config.general, config.experimental
     checks = [
         (bool(g.mesh), "general.mesh (the 2-D mesh plane)"),
         (g.parallelism > 1, "general.parallelism > 1 (multi-device sharding)"),
-        (e.autotune, "experimental.autotune"),
-        (e.scheduler != "tpu", f"scheduler {e.scheduler!r}"),
-        (e.chunk_watchdog_s > 0, "the chunk watchdog"),
+        (e.scheduler == "managed", f"scheduler {e.scheduler!r}"),
     ]
+    checks += [(f["kind"] in LATER_KINDS, f"chaos fault kind {f['kind']!r}")
+               for f in config.chaos.faults]
     for bad, what in checks:
         if bad:
             raise NotYetPorted(what)
@@ -272,6 +277,12 @@ class Manager:
                     "--resume requires --checkpoint-dir (general.checkpoint_dir)"
                 )
             return ecfg, None, None, None
+        if self.config.experimental.scheduler != "tpu":
+            raise CheckpointError(
+                "checkpointing supports scripted-model runs on the tpu "
+                "scheduler; managed/hybrid runs get worker supervision "
+                "instead (docs/robustness.md)"
+            )
         fingerprint = config_fingerprint(self.config)
         resume_path = None
         if g.resume:
@@ -301,10 +312,18 @@ class Manager:
         return ecfg, ckpt, InterruptGuard(), resume_path
 
     def run(self) -> SimResults:
-        from shadow_tpu_torch.runtime import flightrec
+        """Run the simulation, with the chaos plane installed when the
+        config's `chaos:` section declares faults. The plan is
+        process-global for the run: every seam (the chunk loops, the
+        checkpoint writer) consults it through runtime/chaos.py fire()."""
+        from shadow_tpu_torch.runtime import chaos, flightrec
 
         try:
-            return self._run()
+            plan = chaos.plan_from_config(self.config.chaos)
+            if plan is None:
+                return self._run()
+            with chaos.installed(plan):
+                return self._run()
         finally:
             # belt-and-braces: _run uninstalls the flight recorder, but an
             # exception between its install and the run (a world
@@ -330,10 +349,15 @@ class Manager:
         # --metrics-file was passed
         recorder = self._build_recorder(tracker)
         flightrec.install(recorder)
+        autotune_plan = self._plan_autotune(world, ecfg, tracker)
+        rounds_per_chunk = cfgo.experimental.rounds_per_chunk
+        if autotune_plan is not None:
+            rounds_per_chunk = autotune_plan.rounds_per_chunk
         common = dict(
-            rounds_per_chunk=cfgo.experimental.rounds_per_chunk,
+            rounds_per_chunk=rounds_per_chunk,
             tx_bytes_per_interval=world.tx_refill,
             rx_bytes_per_interval=world.rx_refill,
+            watchdog_s=cfgo.experimental.chunk_watchdog_s,
             device=self.device,
         )
         if replicas > 1:
@@ -345,7 +369,9 @@ class Manager:
                 seed_stride=cfgo.general.replica_seed_stride, **common,
             )
         else:
-            sched = TpuScheduler(world.model, world.tables, ecfg, **common)
+            sched = make_scheduler(cfgo.experimental.scheduler, world.model, world.tables,
+                                   ecfg, world.host_node, **common)
+        oracle = isinstance(sched, CpuRefScheduler)
         end = cfgo.general.stop_time_ns
         hb_ns = cfgo.general.heartbeat_interval_ns
         last_hb = [0]
@@ -381,51 +407,18 @@ class Manager:
                 )
 
         rep_note = f"{replicas} replicas, " if replicas > 1 else ""
+        eng_note = "" if oracle else f"engine={sched.engine}, device={self.device}, "
         slog("info", 0, "manager",
              f"starting: {len(self.hosts)} hosts, {rep_note}scheduler={sched.name}, "
-             f"engine={sched.engine}, device={self.device}, "
-             f"runahead={world.runahead_ns}ns, stop={fmt_time_ns(end)}")
+             f"{eng_note}runahead={world.runahead_ns}ns, stop={fmt_time_ns(end)}")
         launches0 = PUMP_KERNEL.launches
         t0 = time.perf_counter()
         try:
-            resume_state = None
-            if resume_path is not None:
-                from shadow_tpu_torch.runtime.checkpoint import load_checkpoint
-
-                # resume_path came from latest_path, which verified the
-                # sha-256 digest moments ago: skip the second full hash
-                resume_state, meta = load_checkpoint(
-                    resume_path, sched.initial_state(), ckpt.fingerprint,
-                    check_digest=False, detail=ckpt.detail,
-                )
-                slog("info", meta["now_ns"], "manager",
-                     f"resuming from checkpoint {resume_path} "
-                     f"(sim time {fmt_time_ns(meta['now_ns'])})")
-            recovery = None
-            if cfgo.experimental.recover:
-                from shadow_tpu_torch.runtime.recovery import RecoveryPolicy
-
-                recovery = RecoveryPolicy(
-                    max_recoveries=cfgo.experimental.recovery_max_retries,
-                    snapshot_interval_chunks=cfgo.experimental.recovery_snapshot_chunks,
-                )
-            try:
-                with guard if guard is not None else contextlib.nullcontext():
-                    final = sched.run(
-                        end, on_chunk=on_chunk, start_state=resume_state,
-                        checkpoints=ckpt, guard=guard, recovery=recovery,
-                        tracker=tracker,
-                    )
-            except RunInterrupted:
-                progress.clear()
-                slog("info", 0, "manager",
-                     f"interrupted; checkpoints are in {cfgo.general.checkpoint_dir} — "
-                     "rerun with --resume to continue to a bit-identical final state")
-                raise
-            if self.device.type == "cuda":
-                import torch
-
-                torch.cuda.synchronize(self.device)
+            if oracle:
+                final = sched.run(end, on_chunk=on_chunk, tracker=tracker)
+            else:
+                final = self._run_device(sched, end, on_chunk, tracker, ckpt, guard,
+                                         resume_path, progress)
         except RunInterrupted:
             raise  # not a failure: a final checkpoint was committed
         except Exception as err:
@@ -439,20 +432,45 @@ class Manager:
         wall = time.perf_counter() - t0
         progress.finish(end)
 
-        results = SimResults(
-            hosts=self.hosts,
-            events_handled=int(final.events_handled.sum()),
-            packets_sent=int(final.packets_sent.sum()),
-            packets_dropped=int(final.packets_dropped.sum()),
-            packets_unroutable=int(final.packets_unroutable.sum()),
-            wall_seconds=wall,
-            sim_seconds=end / NS_PER_SEC,
-            scheduler=sched.name,
-        )
+        if oracle:
+            results = SimResults(
+                hosts=self.hosts,
+                events_handled=len(final.trace),
+                packets_sent=sum(final.packets_sent),
+                packets_dropped=sum(final.packets_dropped),
+                packets_unroutable=0,
+                wall_seconds=wall,
+                sim_seconds=end / NS_PER_SEC,
+                scheduler=sched.name,
+            )
+        else:
+            results = SimResults(
+                hosts=self.hosts,
+                events_handled=int(final.events_handled.sum()),
+                packets_sent=int(final.packets_sent.sum()),
+                packets_dropped=int(final.packets_dropped.sum()),
+                packets_unroutable=int(final.packets_unroutable.sum()),
+                wall_seconds=wall,
+                sim_seconds=end / NS_PER_SEC,
+                scheduler=sched.name,
+            )
         report = getattr(sched, "recovery_report", [])
         if report:
             # rollback-and-regrow happened: surface it in sim-stats.json
             results.extra_stats["recovery"] = {"count": len(report), "events": report}
+        fallbacks = getattr(sched, "engine_fallbacks", [])
+        watchdogs = sum(1 for r in report if r.get("kind") == "watchdog")
+        if fallbacks or watchdogs:
+            # the degradation ladder acted: a degraded run is visibly
+            # degraded, never silently slower
+            results.extra_stats["degraded"] = {
+                "engine_fallbacks": list(fallbacks),
+                "watchdog_redispatches": watchdogs,
+            }
+        if autotune_plan is not None:
+            # what the autotuner decided and on what evidence
+            results.extra_stats["autotune"] = autotune_plan.as_dict()
+        self._fold_chaos(results)
         host_tensors = None
         if replicas > 1:
             # per-replica sections and the aggregate mean/stddev/CI block,
@@ -467,15 +485,17 @@ class Manager:
                 seed_stride=cfgo.general.replica_seed_stride,
                 host_tensors=host_tensors,
             )
-        # the memory observatory: the final state prices the run's device
-        # footprint (after any regrow), with the allocator's numbers on
-        # the card. Best-effort: sim-stats never fails over telemetry.
-        try:
-            from shadow_tpu_torch.runtime import memtrack
+        if not oracle:
+            # the memory observatory: the final state prices the run's
+            # device footprint (after any regrow), with the allocator's
+            # numbers on the card. Best-effort: sim-stats never fails
+            # over telemetry.
+            try:
+                from shadow_tpu_torch.runtime import memtrack
 
-            results.extra_stats["memory"] = memtrack.memory_section(final, ecfg)
-        except Exception:  # noqa: BLE001
-            pass
+                results.extra_stats["memory"] = memtrack.memory_section(final, ecfg)
+            except Exception:  # noqa: BLE001
+                pass
         if recorder.metrics_path or recorder.prom_path:
             # a metrics-streamed run names its outputs in sim-stats
             results.extra_stats["metrics"] = {
@@ -484,12 +504,14 @@ class Manager:
                 **({"file": recorder.metrics_path} if recorder.metrics_path else {}),
                 **({"prom": recorder.prom_path} if recorder.prom_path else {}),
             }
-        self._fold_tracker(tracker, results, end, final, host_tensors)
-        # how the trajectory was executed (like `memory`, not the trajectory)
+        self._fold_tracker(tracker, results, end, None if oracle else final, host_tensors)
+        # how the trajectory was executed (like `memory`, not the
+        # trajectory): after a fallback, by the last rung of the ladder
         results.extra_stats["execution"] = {
             "package": "shadow_tpu_torch",
-            "device": str(self.device),
-            "engine": sched.engine,
+            "device": "cpu" if oracle else str(self.device),
+            "engine": "cpu-ref" if oracle else (fallbacks[-1]["to"] if fallbacks
+                                                else sched.engine),
             "kernel_launches": {"pump_megakernel": PUMP_KERNEL.launches - launches0},
         }
         slog("info", end, "manager",
@@ -497,6 +519,139 @@ class Manager:
              f"({results.sim_sec_per_wall_sec:.2f} sim-s/wall-s)")
         self._write_outputs(results)
         return results
+
+    def _run_device(self, sched, end, on_chunk, tracker, ckpt, guard, resume_path, progress):
+        """The device scheduler's run: resume, the recovery policy, the
+        interrupt guard. Returns the final state."""
+        from shadow_tpu_torch.engine.round import RunInterrupted
+
+        cfgo = self.config
+        resume_state = None
+        if resume_path is not None:
+            from shadow_tpu_torch.runtime.checkpoint import load_checkpoint
+
+            # resume_path came from latest_path, which verified the
+            # sha-256 digest moments ago: skip the second full hash
+            resume_state, meta = load_checkpoint(
+                resume_path, sched.initial_state(), ckpt.fingerprint,
+                check_digest=False, detail=ckpt.detail,
+            )
+            slog("info", meta["now_ns"], "manager",
+                 f"resuming from checkpoint {resume_path} "
+                 f"(sim time {fmt_time_ns(meta['now_ns'])})")
+        recovery = None
+        if cfgo.experimental.recover:
+            from shadow_tpu_torch.runtime.recovery import RecoveryPolicy
+
+            recovery = RecoveryPolicy(
+                max_recoveries=cfgo.experimental.recovery_max_retries,
+                snapshot_interval_chunks=cfgo.experimental.recovery_snapshot_chunks,
+            )
+        try:
+            with guard if guard is not None else contextlib.nullcontext():
+                final = sched.run(
+                    end, on_chunk=on_chunk, start_state=resume_state,
+                    checkpoints=ckpt, guard=guard, recovery=recovery,
+                    tracker=tracker,
+                )
+        except RunInterrupted:
+            progress.clear()
+            slog("info", 0, "manager",
+                 f"interrupted; checkpoints are in {cfgo.general.checkpoint_dir} — "
+                 "rerun with --resume to continue to a bit-identical final state")
+            raise
+        if self.device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(self.device)
+        return final
+
+    def _fold_chaos(self, results: SimResults) -> None:
+        """Publish what the installed fault plan injected: a chaos run is
+        visibly a chaos run in sim-stats.json."""
+        from shadow_tpu_torch.runtime import chaos
+
+        plan = chaos.active()
+        if plan is not None:
+            results.extra_stats["chaos"] = plan.report()
+
+    def _plan_autotune(self, world, ecfg: EngineConfig, tracker):
+        """The compile-budget autotuner (runtime/autotune.py) when
+        experimental.autotune asks for it on the tpu scheduler: an
+        AutotunePlan, or None. A probe runs the plain engine on the shape
+        the run will take (the [R, ...] batch for replicas) and its wall
+        persists in the data directory's autotune.json; the choice is
+        trajectory-neutral. A failing probe, a chaos fault landing on it
+        included, keeps the requested chunking with a warning."""
+        from shadow_tpu_torch.runtime import flightrec
+
+        cfgo = self.config
+        e = cfgo.experimental
+        requested = e.rounds_per_chunk
+        if not e.autotune:
+            return None
+        if e.scheduler != "tpu":
+            # never silently drop the flag: the user asked for budget
+            # protection the other schedulers do not dispatch through
+            slog("warning", 0, "autotune",
+                 f"experimental.autotune only applies to the tpu scheduler "
+                 f"(scheduler={e.scheduler}); ignoring")
+            return None
+        from shadow_tpu_torch.engine.round import bootstrap
+        from shadow_tpu_torch.engine.state import init_state
+        from shadow_tpu_torch.runtime.autotune import plan_rounds_per_chunk
+
+        model, tables, dev = world.model, world.tables, self.device
+        refills = dict(tx_bytes_per_interval=world.tx_refill,
+                       rx_bytes_per_interval=world.rx_refill)
+        probe_runner = None
+        shape_key = ""
+        reps = cfgo.general.replicas
+        if reps > 1:
+            from shadow_tpu_torch.engine.ensemble import init_ensemble_state, run_ensemble_until
+
+            shape_key = f"r{reps}"
+
+            def probe_state():
+                return init_ensemble_state(ecfg, model, reps, cfgo.general.replica_seed_stride,
+                                           device=dev, **refills)
+
+            def probe_runner(st, end_ns, rpc, pcfg, ptracker):
+                run_ensemble_until(st, end_ns, model, tables, pcfg, rounds_per_chunk=rpc,
+                                   tracker=ptracker)
+
+        else:
+
+            def probe_state():
+                # built lazily: a warm probe cache (or the rpc floor, or a
+                # zero budget) answers without this full-width build
+                return bootstrap(init_state(ecfg, model.init(dev), device=dev, **refills),
+                                 model, ecfg)
+
+        cache_path = None
+        if cfgo.general.data_directory:
+            cache_path = os.path.join(cfgo.general.data_directory, "autotune.json")
+        try:
+            plan = plan_rounds_per_chunk(
+                probe_state, model, tables, ecfg, requested=requested,
+                budget_s=e.autotune_budget_s, cache_path=cache_path, tracker=tracker,
+                probe_runner=probe_runner, shape_key=shape_key, device=dev,
+            )
+        except Exception as err:  # noqa: BLE001 — an optimization, never a failure
+            slog("warning", 0, "autotune",
+                 f"compile probe failed ({type(err).__name__}: {err}); "
+                 f"keeping rounds_per_chunk={requested}")
+            return None
+        if tracker is not None:
+            # the probe's wall and the chosen chunking in the tracker fold
+            tracker.autotune = plan.as_dict()
+        flightrec.record_event("autotune", **plan.as_dict())
+        if plan.rounds_per_chunk != plan.requested:
+            slog("info", 0, "autotune",
+                 f"rounds_per_chunk {plan.requested} -> {plan.rounds_per_chunk} "
+                 f"(probe {plan.probe_wall_s}s at rpc={plan.probe_rpc}, budget "
+                 f"{plan.budget_s}s, {plan.source})")
+        return plan
 
     def _fold_tracker(self, tracker, results, end, final_state, host_tensors=None):
         """Fold the tracker registry into sim-stats' `tracker` section and
@@ -507,7 +662,7 @@ class Manager:
         without --tracker) publishes phases only."""
         if tracker is None:
             return
-        if tracker.counters:
+        if tracker.counters and final_state is not None:
             from shadow_tpu_torch.engine.round import host_stats
 
             hs = host_tensors if host_tensors is not None else host_stats(final_state)

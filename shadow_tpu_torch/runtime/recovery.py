@@ -20,9 +20,12 @@ Replay is deterministic: growing a buffer is trajectory-neutral for a
 state that never overflowed (engine/state.py grow_state), so the
 recovered run is leaf-exact to a run that started with the larger
 capacity. Recovery wraps the chunk loops (run_until, run_ensemble_until);
-it does not live inside them. The reference's device-loss and watchdog
-rungs belong to planes the port does not carry yet (multi-device, the
-chunk watchdog).
+it does not live inside them.
+
+The chunk watchdog's rung (WatchdogExpired) rolls back the same way but
+keeps the shapes: the abandoned chunk is re-dispatched from the retained
+snapshot, a `watchdog` record beside the `capacity` ones. The reference's
+device-loss rung belongs to the multi-device planes, not ported yet.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import dataclasses
 
 import numpy as np
 
-from shadow_tpu_torch.engine.round import CapacityError, run_until
+from shadow_tpu_torch.engine.round import CapacityError, WatchdogExpired, run_until
 from shadow_tpu_torch.engine.state import (
     fmt_bytes,
     grow_state,
@@ -119,6 +122,7 @@ def run_until_recovering(
     guard=None,
     runner_factory=None,
     grow_fn=None,
+    watchdog_s: float = 0.0,
 ):
     """run_until with the recovery loop wrapped around it. Returns
     (final_state, recoveries), recoveries being the list of recovery
@@ -131,7 +135,9 @@ def run_until_recovering(
     together). Each recovery is a record for `tracker` (utils/tracker.py)
     and an event and a survivable black box for the installed flight
     recorder (runtime/flightrec.py); a terminal error writes the black
-    box with what the run survived."""
+    box with what the run survived. A WatchdogExpired (`watchdog_s` > 0
+    arms the default chunk loop's watchdog) takes the same rollback with
+    the shapes kept."""
     policy = policy or RecoveryPolicy()
     grow = grow_fn or grow_state
 
@@ -143,11 +149,12 @@ def run_until_recovering(
                     run_st, end_time, model, tables, run_cfg,
                     rounds_per_chunk=rounds_per_chunk, max_chunks=max_chunks,
                     on_chunk=on_chunk, on_state=on_state, tracker=tracker,
+                    watchdog_s=watchdog_s,
                 )
 
             return run
 
-    # The retainer is armed lazily, after the first CapacityError: a run
+    # The retainer is armed lazily, after the first recovery: a run
     # without a fault pays no periodic snapshot and holds no host copy;
     # its rollback point is the caller's entry state, which the chunk loops
     # never modify. Replays do retain snapshots, so repeated rungs never
@@ -166,7 +173,7 @@ def run_until_recovering(
         try:
             final = runner_factory(cur_cfg)(cur_st, on_state=tap)
             return final, recoveries
-        except CapacityError as err:
+        except (CapacityError, WatchdogExpired) as err:
             if len(recoveries) >= policy.max_recoveries:
                 # terminal: what the run survived before it died rides the
                 # exception, and the black box is written (its last sample
@@ -194,6 +201,7 @@ def run_until_recovering(
                     raise err from mat_err
                 from_ns = int(np.min(np.asarray(base_host[".now"])))
             else:
+                base_host = None
                 base = cur_st  # the caller's entry state
                 # ensemble states carry a [R] `now`: the rollback point is
                 # the slowest replica's window (the batch replays together)
@@ -210,59 +218,30 @@ def run_until_recovering(
                     )
                     flightrec.post_mortem(err, recoveries=len(recoveries))
                     raise err from fetch_err
-            new_cfg = grown_cfg(cur_cfg, err, policy.growth)
-            # price the regrown state before allocating it: the one moment
-            # the regrow can still warn that it will not fit the device.
-            # Best-effort: pricing never blocks the recovery itself.
-            headroom: dict = {}
-            mem_note = ""
-            try:
-                headroom["bytes_current"] = snapshot_nbytes(base)
-                headroom["bytes_regrown"] = price_regrow(
-                    base,
-                    queue_capacity=new_cfg.queue_capacity,
-                    outbox_capacity=new_cfg.outbox_capacity,
+            if isinstance(err, WatchdogExpired):
+                # the dispatch stalled, not the buffers: abandon the chunk,
+                # keep the shapes, re-dispatch from the retained snapshot
+                # (never from the abandoned chunk's tensors, which its
+                # kernels may still be writing)
+                new_cfg, grown = cur_cfg, base
+                record = {
+                    "kind": "watchdog",
+                    "chunk": err.chunk,
+                    "deadline_s": err.deadline_s,
+                    "replay_from_ns": from_ns,
+                }
+                slog(
+                    "warning", from_ns, "recovery",
+                    f"chunk {err.chunk} dispatch blew the "
+                    f"{err.deadline_s:.3g}s watchdog; abandoning the "
+                    f"in-flight chunk and re-dispatching from sim time "
+                    f"{from_ns} ns "
+                    f"(recovery {len(recoveries) + 1}/{policy.max_recoveries})",
                 )
-                mem_note = (
-                    f"; state {fmt_bytes(headroom['bytes_current'])}"
-                    f" -> {fmt_bytes(headroom['bytes_regrown'])}"
-                )
-                limit = (memtrack.device_memory(base.now.device) or {}).get("bytes_limit")
-                if limit and headroom["bytes_regrown"] > limit:
-                    headroom["would_exceed_hbm"] = True
-                    mem_note += f" WOULD EXCEED the {fmt_bytes(limit)} device limit"
-            except Exception:  # noqa: BLE001 — pricing is telemetry
-                headroom, mem_note = {}, ""
-            grown = grow(
-                base,
-                queue_capacity=new_cfg.queue_capacity,
-                outbox_capacity=new_cfg.outbox_capacity,
-            )
-            record = {
-                "kind": "capacity",
-                "queue_overflow": getattr(err, "queue_overflow", 0),
-                "outbox_overflow": getattr(err, "outbox_overflow", 0),
-                "queue_capacity": new_cfg.queue_capacity,
-                "outbox_capacity": new_cfg.outbox_capacity,
-                "replay_from_ns": from_ns,
-                **headroom,
-            }
-            if getattr(err, "replica", None) is not None:
-                # ensemble runs: name the replica that saturated, although
-                # the whole batch rolls back and regrows together
-                record["replica"] = err.replica
-            recoveries.append(record)
-            slog(
-                "warning",
-                from_ns,
-                "recovery",
-                f"capacity exhausted (queue_ov={record['queue_overflow']}, "
-                f"outbox_ov={record['outbox_overflow']}); rolling back to "
-                f"sim time {from_ns} ns and regrowing to "
-                f"queue_capacity={new_cfg.queue_capacity}, "
-                f"outbox_capacity={new_cfg.outbox_capacity}{mem_note} "
-                f"(recovery {len(recoveries)}/{policy.max_recoveries})",
-            )
+                recoveries.append(record)
+            else:
+                new_cfg, grown, record = _regrow(err, base, cur_cfg, policy, grow, from_ns,
+                                                 recoveries)
             if tracker is not None:
                 tracker.record_recovery(record)
             # the recovery is an event in the metrics stream and a
@@ -277,5 +256,72 @@ def run_until_recovering(
                 retainer = StateRetainer(policy.snapshot_interval_chunks)
             # the replay may overflow again before reaching a fresh
             # snapshot: seed the rollback point with the regrown start so
-            # the next rung never replays stale shapes (or the whole run)
-            retainer.seed(state_to_host(grown))
+            # the next rung never replays stale shapes (or the whole run).
+            # A watchdog rung keeps the shapes, so a host snapshot it
+            # started from is the seed as it is.
+            if grown is base and base_host is not None:
+                retainer.seed(base_host)
+            else:
+                retainer.seed(state_to_host(grown))
+
+
+def _regrow(err: CapacityError, base, cfg, policy: RecoveryPolicy, grow, from_ns: int,
+            recoveries: "list[dict]"):
+    """The capacity rung: (grown config, regrown state, record), the
+    record appended to `recoveries` and logged."""
+    new_cfg = grown_cfg(cfg, err, policy.growth)
+    # price the regrown state before allocating it: the one moment the
+    # regrow can still warn that it will not fit the device. Best-effort:
+    # pricing never blocks the recovery itself.
+    headroom: dict = {}
+    mem_note = ""
+    try:
+        headroom["bytes_current"] = snapshot_nbytes(base)
+        headroom["bytes_regrown"] = price_regrow(
+            base,
+            queue_capacity=new_cfg.queue_capacity,
+            outbox_capacity=new_cfg.outbox_capacity,
+        )
+        mem_note = (
+            f"; state {fmt_bytes(headroom['bytes_current'])}"
+            f" -> {fmt_bytes(headroom['bytes_regrown'])}"
+        )
+        limit = (memtrack.device_memory(base.now.device) or {}).get("bytes_limit")
+        if limit and headroom["bytes_regrown"] > limit:
+            headroom["would_exceed_hbm"] = True
+            mem_note += f" WOULD EXCEED the {fmt_bytes(limit)} device limit"
+    except Exception:  # noqa: BLE001 — pricing is telemetry
+        headroom, mem_note = {}, ""
+    grown = grow(
+        base,
+        queue_capacity=new_cfg.queue_capacity,
+        outbox_capacity=new_cfg.outbox_capacity,
+    )
+    record = {
+        "kind": "capacity",
+        "queue_overflow": getattr(err, "queue_overflow", 0),
+        "outbox_overflow": getattr(err, "outbox_overflow", 0),
+        "queue_capacity": new_cfg.queue_capacity,
+        "outbox_capacity": new_cfg.outbox_capacity,
+        "replay_from_ns": from_ns,
+        **headroom,
+    }
+    if getattr(err, "injected", False):
+        record["injected"] = True  # chaos plane, not real load
+    if getattr(err, "replica", None) is not None:
+        # ensemble runs: name the replica that saturated, although the
+        # whole batch rolls back and regrows together
+        record["replica"] = err.replica
+    recoveries.append(record)
+    slog(
+        "warning",
+        from_ns,
+        "recovery",
+        f"capacity exhausted (queue_ov={record['queue_overflow']}, "
+        f"outbox_ov={record['outbox_overflow']}); rolling back to "
+        f"sim time {from_ns} ns and regrowing to "
+        f"queue_capacity={new_cfg.queue_capacity}, "
+        f"outbox_capacity={new_cfg.outbox_capacity}{mem_note} "
+        f"(recovery {len(recoveries)}/{policy.max_recoveries})",
+    )
+    return new_cfg, grown, record

@@ -2,8 +2,9 @@
 never import jax, flax or the JAX package (importing any shadow_tpu.*
 module runs shadow_tpu/__init__.py, which imports jax). The host-side
 observability modules (OBSERVABILITY: the tracker registry, the flight
-recorder, the memory observatory) are named on their own: each is
-imported alone in a fresh interpreter, and each is in the source scan."""
+recorder, the memory observatory) and the run-loop guards and cpu-ref
+oracles (GUARDS) are named on their own: each is imported alone in a
+fresh interpreter, and each is in the source scan."""
 
 import ast
 import pathlib
@@ -19,6 +20,18 @@ OBSERVABILITY = (
     "shadow_tpu_torch.utils.tracker",
     "shadow_tpu_torch.runtime.flightrec",
     "shadow_tpu_torch.runtime.memtrack",
+)
+# the run-loop guards and the cpu-ref oracles
+GUARDS = (
+    "shadow_tpu_torch.runtime.chaos",
+    "shadow_tpu_torch.runtime.autotune",
+    "shadow_tpu_torch.runtime.scheduler",
+    "shadow_tpu_torch.cpu_ref",
+    "shadow_tpu_torch.cpu_ref.netstack_ref",
+    "shadow_tpu_torch.cpu_ref.tcp_ref",
+    "shadow_tpu_torch.cpu_ref.sim",
+    "shadow_tpu_torch.cpu_ref.tgen_ref",
+    "shadow_tpu_torch.cpu_ref.bulk_ref",
 )
 
 
@@ -63,7 +76,7 @@ def test_source_imports_no_jax(path):
     assert not bad, f"{path}: imports {bad}"
 
 
-@pytest.mark.parametrize("module", OBSERVABILITY)
+@pytest.mark.parametrize("module", OBSERVABILITY + GUARDS)
 def test_observability_module_imports_no_jax(module):
     """A fresh interpreter imports the module alone (and through it what
     it needs of the port): no jax, flax or shadow_tpu module loads, and
