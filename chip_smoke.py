@@ -26,8 +26,8 @@ Phases, each printing one line; any failure exits non-zero:
      pump_k 80, past the list and FIFO entries a wide launch's shared
      memory holds; its main path from the burst to 20 ms against the plain
      engine; onion's at 16 and 32 circuits per relay (33 and 65 sockets),
-     its main path to 60 ms, then kernel vs twin there, timed, and at 33
-     sockets also at pump_k 40; each wide launch prints its dynamic shared
+     its main paths to 40 ms, then kernel vs twin there, timed,
+     and at 33 sockets also at pump_k 40; each wide launch prints its dynamic shared
      memory; while those
      two host-bound runs go on, the onion cell's plain-engine run (phase
      7) and every CLI run of the smoke go on in processes of their own,
@@ -80,13 +80,12 @@ Phases, each printing one line; any failure exits non-zero:
      tgen, bulk-tcp and phold worlds (`--cpu-ref OUT`, a process of its
      own), every TCP field, counter and leftover queue entry equal;
   7. onion-10240: the onion model (4,096 clients, 6,144 relays, 17 sockets
-     per host) on the bench graph and shaping: the main path to 0.1 s sim
-     with engine "auto" (the kernel's onion instance), pausing at the
-     burst (60 ms); the plain engine on the same world to 0.1 s (run in a
-     process of its own during phase 3a), whose host and model counters
-     must agree with the main path's at the burst and at 0.1 s; kernel vs
-     twin at the burst launch and at the main path's end (mid-run), each
-     timed alone with its bound;
+     per host) on the bench graph and shaping: the main path to its burst
+     (60 ms) with engine "auto" (the kernel's onion instance); the plain
+     engine on the same world to 60 ms (run in a process of its own
+     during phase 3a), whose host and model counters must agree with the
+     main path's; kernel vs twin at the burst launch, which is the main
+     path's end, timed alone with its bound;
   8. phold, bulk-tcp, cdn and gossip (no pump kernel) on the card and on
      the CPU in this process, leaf-equal, at small size; phold at 10,240
      hosts on the bench graph;
@@ -115,6 +114,19 @@ Phases, each printing one line; any failure exits non-zero:
      three planes to 30 ms against its single runs; how many of 10^6
      f32 draws of rng.exponential_ns CUDA's log1pf makes differ from the
      CPU's;
+  9b. managed: examples/http (guests built by cc) through `python -m
+     shadow_tpu_torch run` three ways, the hybrid with its device plane on
+     the card, the same with --device cpu and `scheduler: managed` (the
+     serial host kernel, no device), and at parallelism 2 under a
+     worker-kill fault: guest stdout, strace files and sim-stats equal,
+     the killed worker respawned once; the three ways again in this
+     process, their packet event logs equal as sorted multisets; then
+     hybrid-http-matrix-256, tools/bench_hybrid.py's world cut to 512
+     examples/http-matrix guests (4 kernel workers; the CLI runs start
+     beside the wide onion runs, phase 3a) through the port's
+     ParallelHybridScheduler with the device state on the card: every
+     client fetched its document, and the syscall, packet and device-pass
+     counts equal the JAX package's run of that world on the CPU;
  10. the narrow instances' R = 1 launch times beside the earlier record,
      the wide instances' launch times beside theirs before the redesign,
      the kernels JSON line (one entry per template instance of the
@@ -215,22 +227,25 @@ LOSSY_MID_NS_SHAPED = 26_000_000
 LOSSY_MID_NS_UNSHAPED = 22_000_000
 LOSSY_END_NS = 120_000_000
 # the onion cell: 10,240 hosts, 4,096 clients (0.4) and 6,144 relays
-# (about Tor's consensus size), to ONION_END_NS (0.1 s: the plain
+# (about Tor's consensus size), to ONION_END_NS, its burst (the plain
 # handler, which every relay event takes, holds the host ~66 ms per drain
-# iteration on an H100's host, so 0.6 s would take ~10 min a run); its
-# kernel is held against the twin and timed at a burst (ONION_BURST_NS)
-# and at the end of the main path
+# iteration on an H100's host, so 0.6 s would take ~10 min a run, and
+# the smoke's time limit, with every phase, holds the burst); its kernel
+# is held against the twin and timed at the burst (ONION_BURST_NS), which
+# is the end of the main path
 ONION_CLIENT_SHARE = 0.4
-ONION_END_NS = 100_000_000
 ONION_BURST_NS = 60_000_000
+ONION_END_NS = ONION_BURST_NS
 ONION_WINDOW_CAP_NS = 1_000_000_000
 # wide_kernel: pump_k past a narrow instance's MAX_K, in the bench burst
 # and on the burst state's run to WIDE_RUN_NS; onion past 32 sockets, at
-# circuits_per_relay 16 and 32 (33 and 65 sockets) to its burst state at
-# ONION_BURST_NS (each run host-bound, ~85 s on the card's host: the CLI
-# runs of background_clis and the onion cell's plain-engine run go on in
-# processes of their own meanwhile, and no kernel is timed until they
-# have ended)
+# circuits_per_relay 16 and 32 (33 and 65 sockets), each to
+# ONION_WIDE_SHORT_NS, short of the burst, where its launches already
+# take P2 and P3 events (each run host-bound, ~85 s to the burst alone on
+# the card's host, up to 240 s beside the other processes, which the
+# smoke's time limit does not hold: the CLI runs of background_clis and
+# the onion cell's plain-engine run go on in processes of their own
+# meanwhile, and no kernel is timed until they have ended)
 WIDE_PUMP_K = 40
 WIDE_RUN_NS = 20_000_000
 # wide_kernel's edge states on the 30 ms state's idle rows
@@ -243,7 +258,8 @@ WIDE_RUN_NS = 20_000_000
 BOUNDARY_ARRIVALS = 60
 WIDE_PAST_K = 80
 WIDE_PAST_ARRIVALS = 100
-ONION_WIDE_NS = {16: ONION_BURST_NS, 32: ONION_BURST_NS}
+ONION_WIDE_SHORT_NS = 40_000_000
+ONION_WIDE_NS = {16: ONION_WIDE_SHORT_NS, 32: ONION_WIDE_SHORT_NS}
 # recovery: the bench world at an outbox of RECOVERY_OUTBOX slots, below
 # its 32: the start's burst overflows it in the first chunk, and recovery
 # regrows it 8 -> 16 -> 32 (the bench's own capacity); its R = 2 ensemble
@@ -370,6 +386,30 @@ TCP_FIELDS = (
     "in_rec", "srtt", "rttvar", "rto", "rtt_pending", "rtt_seq", "rtt_ts",
     "rto_expire", "backoff", "tev_time", "retransmits", "segs_in", "segs_out",
 )
+# managed: examples/http three ways (the hybrid on the card, the hybrid
+# with --device cpu, `scheduler: managed`) and at parallelism 2 under a
+# worker kill (CLI runs started beside the wide onion runs); then
+# tools/bench_hybrid.py's world at the repro in BENCH_HYBRID_r03.json
+# (`python tools/bench_hybrid.py 512 4 1 12000`) cut to MATRIX_PAIRS
+# pairs, because the smoke's time limit does not hold 512 on a slow host
+# (147 s there, 1,024 guests): two sites 10 ms apart with 1 ms
+# self-latency, MATRIX_PAIRS examples/http-matrix client/server pairs,
+# MATRIX_WORKERS kernel workers, MATRIX_FETCHES fetch of MATRIX_BYTES,
+# MATRIX_SIM_NS of sim time. MATRIX_STATS are the JAX package's counters
+# for that run on the CPU (`python tools/bench_hybrid.py 256 4 1 12000`,
+# JAX_PLATFORMS=cpu).
+MANAGED_HTTP = "http/shadow.yaml"
+MANAGED_GUESTS = ("http_server", "http_client")
+MANAGED_KILL = "worker-kill@2"
+MANAGED_SERIAL = "  scheduler: managed\n"
+MANAGED_PARALLELISM = 2
+MATRIX_PAIRS = 256
+MATRIX_WORKERS = 4
+MATRIX_FETCHES = 1
+MATRIX_BYTES = 12_000
+MATRIX_SIM_NS = 30_000_000_000
+MATRIX_SEED = 7
+MATRIX_STATS = {"syscalls": 7_936, "packets": 7_936, "device_passes": 529}
 # H100 SXM device-memory rate (NVIDIA data sheet) for the bound column
 HBM_BYTES_PER_S = 3.35e12
 # non-tensor-core 32-bit rate (NVIDIA data sheet, FP32), the op yardstick
@@ -2747,6 +2787,263 @@ def planes_phase(hosts: int, end_ns: int, main_ref: dict, dev) -> "tuple[bool, d
     return ok, info
 
 
+def build_guests(out_dir: str) -> dict:
+    """examples/http's and examples/http-matrix's guests, built by `cc` as
+    examples/http/shadow.yaml says: {(example, name): path}."""
+    bins = {}
+    for example in ("http", "http-matrix"):
+        os.makedirs(os.path.join(out_dir, example))
+        for name in MANAGED_GUESTS:
+            # the binary's own name: guest output files are named after it
+            dst = os.path.join(out_dir, example, name)
+            subprocess.run(["cc", "-O2", "-o", dst,
+                            os.path.join(HERE, "examples", example, f"{name}.c")], check=True)
+            bins[(example, name)] = dst
+    return bins
+
+
+def managed_subs(bins: dict, serial: bool = False, parallel: bool = False) -> tuple:
+    """(old, new) edits of examples/http/shadow.yaml: the built guests,
+    and `scheduler: managed` or `parallelism: MANAGED_PARALLELISM`."""
+    subs = [(f"examples/http/{g}", bins[("http", g)]) for g in MANAGED_GUESTS]
+    if serial:
+        subs.append(("network:\n", f"experimental:\n{MANAGED_SERIAL}network:\n"))
+    if parallel:
+        subs.append(("general:\n", f"general:\n  parallelism: {MANAGED_PARALLELISM}\n"))
+    return tuple(subs)
+
+
+def managed_http_config(tmp: str, name: str, subs: tuple) -> str:
+    """examples/http/shadow.yaml edited by `subs`, with a data directory
+    of its own under `tmp`, written there: its path."""
+    src = open(os.path.join(HERE, "examples", MANAGED_HTTP)).read()
+    for old, new in subs:
+        if old not in src:
+            raise ValueError(f"{MANAGED_HTTP}: no {old!r} to edit")
+        src = src.replace(old, new)
+    path = os.path.join(tmp, f"{name}.yaml")
+    with open(path, "w") as f:
+        f.write(src.replace("data_directory: shadow.data",
+                            f"data_directory: {os.path.join(tmp, name)}"))
+    return path
+
+
+def managed_cli_finish(run: dict) -> dict:
+    """Wait for a CLI run cli_start started on examples/http: its rc,
+    wall, sim-stats and the files of its data directory (guest
+    stdout/stderr, strace, hosts)."""
+    rc = run["proc"].wait()
+    out = dict(rc=rc, wall_s=round(time.perf_counter() - run["t0"], 3), stats={}, files={})
+    if rc == 0:
+        with open(os.path.join(run["data"], "sim-stats.json")) as f:
+            out["stats"] = json.load(f)
+        for root, _dirs, names in os.walk(run["data"]):
+            for n in names:
+                p = os.path.join(root, n)
+                rel = os.path.relpath(p, run["data"])
+                if rel not in ("sim-stats.json", "processed-config.json"):
+                    with open(p, "rb") as f:
+                        out["files"][rel] = f.read()
+    with open(run["stderr"]) as f:
+        out["stderr_tail"] = f.read()[-2000:]
+    for tmp in run["tmps"]:
+        tmp.cleanup()
+    return out
+
+
+def managed_http_start(dev, bins: dict, tmp: str) -> dict:
+    """Start managed-http's CLI runs, each in a process of its own:
+    examples/http through `python -m shadow_tpu_torch run` three ways, the
+    hybrid with its device plane on `dev`, the same with `--device cpu`,
+    and `scheduler: managed` (the serial host kernel, no device), plus the
+    hybrid at parallelism MANAGED_PARALLELISM under a worker-kill fault
+    with a metrics stream. A handle for managed_http_finish."""
+    metrics = os.path.join(tmp, "kill-metrics.jsonl")
+    cpu = torch.device("cpu")
+    runs = {
+        "hybrid_card": cli_start(MANAGED_HTTP, dev, subs=managed_subs(bins)),
+        "hybrid_cpu": cli_start(MANAGED_HTTP, cpu, subs=managed_subs(bins)),
+        "managed": cli_start(MANAGED_HTTP, dev, subs=managed_subs(bins, serial=True)),
+        "parallel_kill": cli_start(
+            MANAGED_HTTP, dev, subs=managed_subs(bins, parallel=True),
+            extra=("--chaos-fault", MANAGED_KILL, "--metrics-file", metrics)),
+    }
+    return dict(runs=runs, metrics=metrics, t0=time.perf_counter())
+
+
+def managed_http_finish(handle: dict) -> dict:
+    """Wait for managed_http_start's runs: {way: managed_cli_finish's
+    record}, the metrics stream's path and the runs' wall."""
+    runs = {w: managed_cli_finish(r) for w, r in handle["runs"].items()}
+    return dict(runs=runs, metrics=handle["metrics"],
+                wall_s=round(time.perf_counter() - handle["t0"], 3))
+
+
+def managed_http_phase(dev, bins: dict, tmp: str, cli: dict) -> bool:
+    """managed-http: the CLI runs of managed_http_start (`cli`, as
+    managed_http_finish returns them): every run's data directory (guest
+    stdout, strace files, hosts) and sim-stats (but for wall clock,
+    execution shape, the scheduler's name and the chaos section) are
+    equal; the killed worker was respawned once. The three ways are also
+    run in this process through Manager.run, whose packet event logs
+    must be equal as time-sorted multisets."""
+    from shadow_tpu_torch.config import load_config_file
+    from shadow_tpu_torch.runtime.manager import Manager
+
+    logs, walls = {}, {}
+    for way, device in (("hybrid_card", dev), ("hybrid_cpu", torch.device("cpu")),
+                        ("managed", dev)):
+        cfg_path = managed_http_config(tmp, f"inproc_{way}",
+                                       managed_subs(bins, serial=way == "managed"))
+        t1 = time.perf_counter()
+        res = Manager(load_config_file(cfg_path), device=device).run()
+        walls[way] = round(time.perf_counter() - t1, 3)
+        logs[way] = sorted(res.event_log)
+    runs, metrics = cli["runs"], cli["metrics"]
+    names = {"hybrid_card": "tpu-hybrid", "hybrid_cpu": "tpu-hybrid", "managed": "managed",
+             "parallel_kill": "tpu-hybrid-par"}
+    ref = runs["hybrid_cpu"]
+    base = trajectory_stats(ref["stats"], drop=("scheduler",))
+    differ = {w: [k for k in set(base) | set(trajectory_stats(r["stats"], ("scheduler", "chaos")))
+                  if trajectory_stats(r["stats"], ("scheduler", "chaos")).get(k) != base.get(k)]
+              for w, r in runs.items()}
+    files_differ = {w: sorted(k for k in set(r["files"]) | set(ref["files"])
+                              if r["files"].get(k) != ref["files"].get(k))
+                    for w, r in runs.items()}
+    respawns = []
+    if os.path.exists(metrics):
+        with open(metrics) as f:
+            respawns = [e for e in map(json.loads, f)
+                        if e.get("type") == "event" and e.get("kind") == "worker_respawn"]
+    execution = {w: r["stats"].get("execution") for w, r in runs.items()}
+    clients_done = all(b"client done" in ref["files"].get(f"client{i}/http_client.100{i}.stdout",
+                                                           b"") for i in (1, 2))
+    card_exec = execution["hybrid_card"] or {}
+    checks = {
+        "rc": all(r["rc"] == 0 for r in runs.values()),
+        "schedulers": all(runs[w]["stats"].get("scheduler") == n for w, n in names.items()),
+        "sim_stats": not any(differ.values()),
+        "files": not any(files_differ.values()),
+        "clients_done": clients_done,
+        "chaos": runs["parallel_kill"]["stats"].get("chaos", {}).get("fired")
+        == [{"kind": "worker-kill", "at": 2}],
+        "one_respawn": len(respawns) == 1,
+        "event_logs": logs["hybrid_card"] == logs["hybrid_cpu"] == logs["managed"]
+        and len(logs["managed"]) > 0,
+        "device_plane": str(card_exec.get("device", "")).startswith(dev.type)
+        and card_exec.get("device_passes", 0) > 0,
+        "serial_no_device": "device" not in (execution["managed"] or {}),
+    }
+    ok = all(checks.values())
+    line("managed_http", ok=ok, checks=checks, config=MANAGED_HTTP, cli_runs_wall_s=cli["wall_s"],
+         cli_wall_s={w: r["wall_s"] for w, r in runs.items()}, in_process_wall_s=walls,
+         rc={w: r["rc"] for w, r in runs.items()},
+         schedulers={w: r["stats"].get("scheduler") for w, r in runs.items()},
+         sim_stats_differing=differ, files_differing=files_differ,
+         files=len(ref["files"]), event_log_entries=len(logs["managed"]),
+         event_logs_equal=logs["hybrid_card"] == logs["hybrid_cpu"] == logs["managed"],
+         syscalls=ref["stats"].get("syscalls_handled"), packets=ref["stats"].get("packets_sent"),
+         execution=execution, chaos=runs["parallel_kill"]["stats"].get("chaos"),
+         respawn_events=respawns,
+         stderr_tails={w: r["stderr_tail"] for w, r in runs.items() if r["rc"] != 0})
+    return ok
+
+
+def hybrid_matrix_phase(dev, bins: dict, tmp: str, pairs: int, full: bool) -> bool:
+    """hybrid-http-matrix: tools/bench_hybrid.py's world built through the
+    port's ParallelHybridScheduler with its device state on `dev`:
+    `pairs` examples/http-matrix client/server pairs on two sites 10 ms
+    apart, MATRIX_WORKERS kernel workers, one fetch of MATRIX_BYTES each.
+    Every client fetched its document exactly; at full size the syscall,
+    packet and device-pass counts equal the JAX package's (MATRIX_STATS).
+    Prints the wall, phase_wall, the tracker's span totals and the device
+    the engine state was on."""
+    from shadow_tpu_torch.engine.state import EngineConfig
+    from shadow_tpu_torch.graph import NetworkGraph, compute_routing
+    from shadow_tpu_torch.hostk.kernel import ProcessSpec
+    from shadow_tpu_torch.runtime.hybrid import ParallelHybridScheduler
+    from shadow_tpu_torch.utils.tracker import Tracker
+
+    graph = NetworkGraph.from_gml("""graph [
+  directed 0
+  node [ id 0 ]
+  node [ id 1 ]
+  edge [ source 0 target 0 latency "1 ms" ]
+  edge [ source 1 target 1 latency "1 ms" ]
+  edge [ source 0 target 1 latency "10 ms" ]
+]""")
+    names = [f"server{i}" for i in range(pairs)] + [f"client{i}" for i in range(pairs)]
+    nodes = [0] * pairs + [1] * pairs
+    tables = compute_routing(graph, device=dev).with_hosts(nodes)
+    cfg = EngineConfig(num_hosts=2 * pairs, queue_capacity=256, outbox_capacity=64,
+                       runahead_ns=graph.min_latency_ns(), seed=MATRIX_SEED)
+    specs = []
+    for i in range(pairs):
+        specs.append(ProcessSpec(host=f"server{i}", args=[
+            bins[("http-matrix", "http_server")], "8080", str(MATRIX_BYTES),
+            str(MATRIX_FETCHES)]))
+        specs.append(ProcessSpec(host=f"client{i}", args=[
+            bins[("http-matrix", "http_client")], f"server{i}", "8080", str(MATRIX_FETCHES)],
+            start_ns=(50 + (i % 200)) * 1_000_000))
+    t0 = time.perf_counter()
+    sched = ParallelHybridScheduler(
+        tables, cfg, host_names=names, host_nodes=nodes, specs=specs,
+        num_workers=MATRIX_WORKERS, seed=MATRIX_SEED, data_dir=os.path.join(tmp, "matrix"),
+        device=dev)
+    start_s = time.perf_counter() - t0
+    sched.tracker = Tracker(host_names=names, counters=False)
+    try:
+        t0 = time.perf_counter()
+        try:
+            sched.run(MATRIX_SIM_NS)
+        finally:
+            sched.shutdown()
+        sync(dev)
+        wall = time.perf_counter() - t0
+        stats = sched.stats()
+        info = sched.proc_info()
+    finally:
+        sched.close()
+    want = f"fetched {MATRIX_FETCHES}/{MATRIX_FETCHES}".encode()
+    clients_ok = sum(1 for p in info if p["host"].startswith("client") and want in p["stdout"])
+    got = {"syscalls": stats["syscalls_handled"], "packets": stats["packets_sent"],
+           "device_passes": sched.device_passes}
+    state_device = str(sched.st.device)
+    ok = (clients_ok == pairs and (got == MATRIX_STATS or not full)
+          and state_device.startswith(dev.type) and sched._respawns == [0] * MATRIX_WORKERS)
+    line("hybrid_http_matrix", ok=ok, pairs=pairs, guests=2 * pairs, workers=MATRIX_WORKERS,
+         fetches=MATRIX_FETCHES, nbytes=MATRIX_BYTES, sim_s=MATRIX_SIM_NS / 1e9,
+         clients_ok=clients_ok, counters=got, pinned=MATRIX_STATS if full else None,
+         state_device=state_device, wall_s=round(wall, 3), start_s=round(start_s, 3),
+         sim_s_per_wall_s=MATRIX_SIM_NS / 1e9 / wall,
+         phase_wall={k: round(v, 3) for k, v in sched.phase_wall.items()},
+         span_totals=sched.tracker.phase_totals(),
+         span_counts={k: v["count"] for k, v in sched.tracker.phase_stats().items()},
+         respawns=sched._respawns)
+    return ok
+
+
+def managed_start(dev, tmp: str) -> dict:
+    """Build the managed guests into `tmp` and start managed-http's CLI
+    runs (managed_http_start): a handle for managed_phase."""
+    t0 = time.perf_counter()
+    bins = build_guests(tmp)
+    line("managed_guests", ok=True, built=sorted(f"{e}/{n}" for e, n in bins),
+         seconds=round(time.perf_counter() - t0, 3))
+    return dict(bins=bins, tmp=tmp, cli=managed_http_start(dev, bins, tmp))
+
+
+def managed_phase(dev, hosts: int, full: bool, started: dict, cli: dict) -> bool:
+    """managed: managed-http on the CLI runs managed_start started (`cli`,
+    as managed_http_finish returns them), then hybrid-http-matrix (at
+    MATRIX_PAIRS on the card; a CPU rehearsal takes `hosts` / 2 pairs)."""
+    bins, tmp = started["bins"], started["tmp"]
+    if not managed_http_phase(dev, bins, tmp, cli):
+        return False
+    pairs = MATRIX_PAIRS if full else max(2, min(MATRIX_PAIRS, hosts // 2))
+    return hybrid_matrix_phase(dev, bins, tmp, pairs, full)
+
+
 def main(argv=None) -> int:
     try:
         return run_phases(argv)
@@ -2940,16 +3237,20 @@ def run_phases(argv=None) -> int:
     # 3a. wide_kernel: the wide instances (pump_k past MAX_K, onion past 32
     # sockets), each held against the twin and timed, and their main paths;
     # every CLI run and the onion cell's plain-engine run meanwhile
-    onion_plain = {}
+    onion_plain, managed_cli = {}, {}
+    managed_tmp = tempfile.TemporaryDirectory()
 
     def meanwhile():
         plain_run = onion_plain_start(args.hosts, ONION_END_NS, dev)
         clis = background_clis(dev)
+        managed = managed_start(dev, managed_tmp.name)
 
         def finish():
             ok_clis = clis()
             got = onion_plain_finish(plain_run)
             onion_plain.update(got or {})
+            # judged in the managed phase, which prints what differs
+            managed_cli.update(started=managed, cli=managed_http_finish(managed["cli"]))
             return ok_clis and got is not None
         return finish
 
@@ -3110,6 +3411,15 @@ def run_phases(argv=None) -> int:
     del main_final
     max_err["tgen"] = max(max_err["tgen"], planes["max_abs_err"])
     if not ok_p:
+        return 1
+
+    # 9b. managed: examples/http three ways and under a worker kill, and
+    # the 1,024-guest http matrix through the parallel hybrid
+    t0 = time.perf_counter()
+    ok_m = managed_phase(dev, args.hosts, full, managed_cli["started"], managed_cli["cli"])
+    managed_tmp.cleanup()
+    line("managed", ok=ok_m, seconds=round(time.perf_counter() - t0, 3))
+    if not ok_m:
         return 1
 
     if dev.type == "cpu":

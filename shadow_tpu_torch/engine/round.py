@@ -154,6 +154,8 @@ def handle_one_iteration(
         )
         defer = keep_in & (ready > ev.time)
         net = _replace(net, rx_backlog_bytes=net.rx_backlog_bytes + _W(defer, size_in, 0))
+        if hasattr(model, "on_codel_drop"):
+            st = _replace(st, model=model.on_codel_drop(st.model, ev, codel_drop))
         ev = _replace(ev, valid=ev.valid & ~(defer | codel_drop))
         net = _replace(net, bytes_recv=net.bytes_recv + _W(ev.valid & is_pkt, size_in, 0))
 
@@ -173,11 +175,19 @@ def handle_one_iteration(
     rel = tables.rel[src_node[:, None], dst_node]
 
     unroutable = pvalid & (lat >= TIME_MAX)
-    ctrs = (
-        draw.counter[:, None]
-        + model.DRAWS_PER_EVENT
-        + torch.arange(ep, dtype=i64, device=dev)[None, :]
-    ) & rng.MASK32
+    loss_lane = getattr(model, "LOSS_COUNTER_LANE", None)
+    if loss_lane is None:
+        # one loss draw per packet lane, drawn in lane order
+        ctrs = (
+            draw.counter[:, None]
+            + model.DRAWS_PER_EVENT
+            + torch.arange(ep, dtype=i64, device=dev)[None, :]
+        ) & rng.MASK32
+    else:
+        # hybrid managed traffic: the counter was allocated from the
+        # host's stream at send time on the CPU and rides the payload (as
+        # i32 bits of a u32), so the uniform equals the serial kernel's
+        ctrs = pemits.data[:, :, loss_lane].to(i64) & rng.MASK32
     loss_u = rng.uniform_f32_grid(draw.key, ctrs)
     passed = loss_u < rel
     kept = pvalid & ~unroutable & passed
@@ -206,6 +216,11 @@ def handle_one_iteration(
         deliver = torch.maximum(dep + lat, we_col)
     else:
         deliver = torch.maximum(ev.time[:, None] + lat, we_col)
+
+    if hasattr(model, "on_packet_outcomes"):
+        mstate = model.on_packet_outcomes(
+            mstate, ev, pemits, kept, dropped, unroutable, deliver, dst_clamped
+        )
 
     # --- sequence numbers: local lanes first, then surviving packets ---
     lseq, seq_after_locals = _lane_seqs(lvalid, st.seq)
@@ -297,7 +312,8 @@ def handle_one_iteration(
             retrans_segs=tracker.retrans_segs + rtx_delta,
         )
 
-    stride = model.DRAWS_PER_EVENT + ep
+    # carried-counter models consume no live draws for packet loss
+    stride = model.DRAWS_PER_EVENT + (0 if loss_lane is not None else ep)
     return _replace(
         st,
         queue=queue,

@@ -107,6 +107,30 @@ def uniform_f32_grid(keys: torch.Tensor, counters: torch.Tensor) -> torch.Tensor
     return _bits_to_unit_f32(_bits32(fold_in(keys[:, None, :], counters)))
 
 
+def bernoulli(keys: torch.Tensor, counters: torch.Tensor, p) -> torch.Tensor:
+    """[H] bools, True with probability p (one draw per host)."""
+    return uniform_f32(keys, counters) < p
+
+
+def uniform_block(key: torch.Tensor, start, n: int) -> torch.Tensor:
+    """[n] uniforms for draws #start..start+n of ONE host key ([2]): the
+    same values per counter as uniform_f32. The counter is u32, as in the
+    reference, so a block that crosses 2**32 wraps to draw #0."""
+    start = torch.as_tensor(start, dtype=torch.int64, device=key.device)
+    counters = (start + torch.arange(n, dtype=torch.int64, device=key.device)) & MASK32
+    return uniform_f32(key.expand(n, 2), counters)
+
+
+def raw_bytes(key: torch.Tensor, counter: int, n: int) -> bytes:
+    """n deterministic bytes for draw #counter of one host key:
+    jax.random.bits(fold_in(key, counter), (n,), uint8), whose byte i is
+    the low byte of b0 ^ b1 of threefry2x32(k, (0, i))."""
+    k = fold_in(key, int(counter) & MASK32)
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    b0, b1 = threefry2x32(k[0], k[1], torch.zeros_like(i), i)
+    return ((b0 ^ b1) & 0xFF).to(torch.uint8).cpu().numpy().tobytes()
+
+
 def uniform_int(keys: torch.Tensor, counters: torch.Tensor, lo, hi) -> torch.Tensor:
     """[H] int64 in [lo, hi): jax.random.randint(fold_in(key, counter),
     (), lo, hi, int64), one draw per host. With Python int bounds whose

@@ -60,10 +60,8 @@ MAX_FIRED_RECORDS = 100
 MAX_FIRED_LOGS = 5
 
 # fault kinds whose seams belong to planes the port does not carry yet
-# (the hybrid worker fleet, the services, the multi-device mesh)
+# (the services, the multi-device mesh)
 LATER_KINDS = (
-    "worker-kill",
-    "worker-hang",
     "preempt",
     "daemon-kill",
     "spool-corrupt",

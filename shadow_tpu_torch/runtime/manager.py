@@ -1,7 +1,9 @@
 """Manager: build the simulated world from config and run it (port of
-shadow_tpu/runtime/manager.py, reduced to scripted single-device runs,
-one world or an ensemble of seeded replicas, on the device engine or the
-cpu-ref oracle).
+shadow_tpu/runtime/manager.py, reduced to single-device runs: scripted
+worlds, one or an ensemble of seeded replicas, on the device engine or
+the cpu-ref oracle; managed worlds of real executables on the host
+kernel, alone or coupled to the device engine, with parallel kernel
+workers).
 
 Resolve the graph, expand host specs, assign IPs, map hosts to graph
 nodes, build the model, plan rounds_per_chunk (the autotuner), run the
@@ -27,7 +29,7 @@ from shadow_tpu_torch.device import resolve_device
 from shadow_tpu_torch.engine.state import EngineConfig
 from shadow_tpu_torch.graph import IpAssignment, NetworkGraph, compute_routing
 from shadow_tpu_torch.graph.network_graph import ONE_GBIT_SWITCH_GML
-from shadow_tpu_torch.models.registry import _NOT_YET_PORTED, _REGISTRY, build_model
+from shadow_tpu_torch.models.registry import _REGISTRY, build_model
 from shadow_tpu_torch.netstack import bw_bits_per_sec_to_refill
 from shadow_tpu_torch.runtime.scheduler import CpuRefScheduler, make_scheduler
 from shadow_tpu_torch.simtime import NS_PER_SEC, fmt_time_ns
@@ -45,6 +47,7 @@ class HostInstance:
     model_name: str
     bw_up_bits: int = -1
     bw_down_bits: int = -1
+    cpu_freq_hz: int = 0  # 0 = native speed (no CPU delay scaling)
     spec: object = None
 
 
@@ -71,18 +74,27 @@ class SimResults:
     scheduler: str
     unexpected_final_states: "list[str]" = dataclasses.field(default_factory=list)
     extra_stats: dict = dataclasses.field(default_factory=dict)
+    # managed runs: the host kernel's packet event log (time, line), in
+    # the order the kernel (or its workers) appended it
+    event_log: "list | None" = None
 
     @property
     def sim_sec_per_wall_sec(self) -> float:
         return self.sim_seconds / self.wall_seconds if self.wall_seconds > 0 else float("inf")
 
 
-def _reject_ensemble(config: ConfigOptions) -> None:
+def _reject_ensemble(config: ConfigOptions, managed_mode: bool) -> None:
     """The reference's refusals of an ensemble (general.replicas > 1),
     with its messages; a 2-D mesh stays NotYetPorted (_reject_unported)."""
     g = config.general
     if g.replicas <= 1 or g.mesh:
         return
+    if managed_mode:
+        raise ValueError(
+            "general.replicas > 1 supports scripted-model runs "
+            "only; managed guests are live OS processes and cannot "
+            "be replicated on device (docs/ensemble.md)"
+        )
     if config.experimental.scheduler != "tpu":
         raise ValueError(
             "general.replicas > 1 requires experimental.scheduler: "
@@ -97,16 +109,18 @@ def _reject_ensemble(config: ConfigOptions) -> None:
         )
 
 
-def _reject_unported(config: ConfigOptions) -> None:
+def _reject_unported(config: ConfigOptions, managed_mode: bool = False) -> None:
     """Config-time refusal of everything outside the port's slices,
-    chaos faults whose seams belong to a later plane included."""
+    chaos faults whose seams belong to a later plane included. Parallel
+    kernel workers serve managed worlds; a scripted world's
+    parallelism > 1 is the multi-device plane."""
     from shadow_tpu_torch.runtime.chaos import LATER_KINDS
 
-    g, e = config.general, config.experimental
+    g = config.general
     checks = [
         (bool(g.mesh), "general.mesh (the 2-D mesh plane)"),
-        (g.parallelism > 1, "general.parallelism > 1 (multi-device sharding)"),
-        (e.scheduler == "managed", f"scheduler {e.scheduler!r}"),
+        (g.parallelism > 1 and not managed_mode,
+         "general.parallelism > 1 (multi-device sharding)"),
     ]
     checks += [(f["kind"] in LATER_KINDS, f"chaos fault kind {f['kind']!r}")
                for f in config.chaos.faults]
@@ -118,20 +132,12 @@ def _reject_unported(config: ConfigOptions) -> None:
 class Manager:
     def __init__(self, config: ConfigOptions, device="cuda"):
         self.config = config
-        _reject_ensemble(config)
-        _reject_unported(config)
-        self.device = resolve_device(device)
         self.graph = self._load_graph()
         self.hosts = self._expand_hosts()
-        if config.general.replicas > 1 and any(
-            p.path not in _REGISTRY for h in self.hosts for p in h.spec.processes
-        ):
-            raise ValueError(
-                "general.replicas > 1 supports scripted-model runs "
-                "only; managed guests are live OS processes and cannot "
-                "be replicated on device (docs/ensemble.md)"
-            )
-        self._validate_process_specs()
+        self.managed_mode = self._validate_process_specs()
+        _reject_ensemble(config, self.managed_mode)
+        _reject_unported(config, self.managed_mode)
+        self.device = resolve_device(device)
         self.ip = IpAssignment()
         for h in self.hosts:
             if h.ip >= 0:
@@ -140,24 +146,51 @@ class Manager:
             if h.ip < 0:
                 h.ip = self.ip.assign_auto(h.index)
 
-    def _validate_process_specs(self) -> None:
+    def _validate_process_specs(self) -> bool:
+        """Classify the run as scripted-model or managed-executable mode and
+        validate the specs up front (construction = world validation)."""
+        import pathlib
+
+        kinds = {p.path in _REGISTRY for h in self.hosts for p in h.spec.processes}
+        if kinds == {True, False}:
+            raise ValueError(
+                "config mixes scripted models and executable paths across hosts; "
+                "run them in separate simulations"
+            )
+        if kinds != {False}:
+            for h in self.hosts:
+                if len(h.spec.processes) != 1:
+                    raise ValueError(
+                        f"hosts.{h.name}: scripted-model hosts take exactly one process"
+                    )
+                if not isinstance(h.spec.processes[0].args, dict):
+                    raise ValueError(
+                        f"hosts.{h.name}: scripted model {h.model_name!r} takes args "
+                        f"as a mapping, not a string or list"
+                    )
+            return False
         for h in self.hosts:
             for p in h.spec.processes:
-                if p.path in _NOT_YET_PORTED:
-                    raise NotYetPorted(f"model {p.path!r}")
-                if p.path not in _REGISTRY:
-                    raise NotYetPorted(
-                        f"hosts.{h.name}: process {p.path!r} (managed processes)"
+                exe = pathlib.Path(p.path)
+                if not (exe.is_file() and os.access(exe, os.X_OK)):
+                    from shadow_tpu_torch.models.registry import unknown_model_error
+
+                    if os.sep not in p.path:
+                        # a bare word is a (mistyped) model name, not a
+                        # path: say what IS registered, with a hint
+                        raise ValueError(
+                            f"hosts.{h.name}: {unknown_model_error(p.path)}"
+                        )
+                    raise ValueError(
+                        f"hosts.{h.name}: process path {p.path!r} is neither a "
+                        f"registered model nor an executable file"
                     )
-            if len(h.spec.processes) != 1:
-                raise ValueError(
-                    f"hosts.{h.name}: scripted-model hosts take exactly one process"
-                )
-            if not isinstance(h.spec.processes[0].args, dict):
-                raise ValueError(
-                    f"hosts.{h.name}: scripted model {h.model_name!r} takes args "
-                    f"as a mapping, not a string or list"
-                )
+                if not isinstance(p.args, list) and p.args != {}:
+                    raise ValueError(
+                        f"hosts.{h.name}: executable processes take args as a string "
+                        f"or list, not a mapping"
+                    )
+        return True
 
     def _load_graph(self) -> NetworkGraph:
         g = self.config.network.graph
@@ -196,16 +229,32 @@ class Manager:
                     HostInstance(
                         index=len(out), name=name, node_index=node_index, ip=ip,
                         model_name=spec.processes[0].path, bw_up_bits=bw_up,
-                        bw_down_bits=bw_down, spec=spec,
+                        bw_down_bits=bw_down, cpu_freq_hz=spec.cpu_frequency_hz or 0,
+                        spec=spec,
                     )
                 )
         return out
+
+    def _resolve_runahead(self, tables) -> int:
+        """The conservative round window: the configured value, else the
+        minimum link/path latency. One definition for the scripted and
+        managed paths — the hybrid/serial clamp grid must match the
+        engine's window exactly."""
+        ra = self.config.experimental.runahead_ns
+        if ra is None:
+            ra = min(self.graph.min_latency_ns(), tables.min_path_latency_ns())
+        return ra
 
     def build_world(self) -> ScriptedWorld:
         """Validate the model specs, compute routing, resolve the runahead
         window and shaping refills, and assemble the EngineConfig."""
         cfgo = self.config
         num_hosts = len(self.hosts)
+        if self.managed_mode:
+            raise ValueError(
+                "build_world() is for scripted-model runs; managed "
+                "executables go through Manager.run()"
+            )
         model_names = {h.model_name for h in self.hosts}
         if len(model_names) != 1:
             raise ValueError(
@@ -222,9 +271,7 @@ class Manager:
         tables = compute_routing(
             self.graph, use_shortest_path=cfgo.network.use_shortest_path, device=self.device
         ).with_hosts(host_node)
-        runahead = cfgo.experimental.runahead_ns
-        if runahead is None:
-            runahead = min(self.graph.min_latency_ns(), tables.min_path_latency_ns())
+        runahead = self._resolve_runahead(tables)
 
         bw_up = np.array([max(h.bw_up_bits, 0) for h in self.hosts], dtype=np.int64)
         bw_down = np.array([max(h.bw_down_bits, 0) for h in self.hosts], dtype=np.int64)
@@ -277,7 +324,7 @@ class Manager:
                     "--resume requires --checkpoint-dir (general.checkpoint_dir)"
                 )
             return ecfg, None, None, None
-        if self.config.experimental.scheduler != "tpu":
+        if self.config.experimental.scheduler != "tpu" or self.managed_mode:
             raise CheckpointError(
                 "checkpointing supports scripted-model runs on the tpu "
                 "scheduler; managed/hybrid runs get worker supervision "
@@ -337,6 +384,8 @@ class Manager:
         from shadow_tpu_torch.runtime import flightrec
         from shadow_tpu_torch.utils.progress import ProgressLine
 
+        if self.managed_mode:
+            return self._run_managed()
         cfgo = self.config
         world = self.build_world()
         ecfg, ckpt, guard, resume_path = self._setup_checkpointing(world.ecfg)
@@ -733,6 +782,269 @@ class Manager:
             xprof_chunks=xprof_chunks,
             device=self.device,
         )
+
+    def _managed_engine_config(self, runahead: int):
+        """The device plane's EngineConfig and shaping refills for a
+        managed world (the hybrid schedulers' engine state)."""
+        cfgo = self.config
+        bw_up = np.array([max(h.bw_up_bits, 0) for h in self.hosts], dtype=np.int64)
+        bw_down = np.array([max(h.bw_down_bits, 0) for h in self.hosts], dtype=np.int64)
+        use_netstack = bool((bw_up > 0).any() or (bw_down > 0).any())
+        ecfg = EngineConfig(
+            num_hosts=len(self.hosts),
+            queue_capacity=cfgo.experimental.queue_capacity,
+            outbox_capacity=cfgo.experimental.outbox_capacity,
+            runahead_ns=runahead,
+            seed=cfgo.general.seed,
+            max_iters_per_round=cfgo.experimental.max_iters_per_round,
+            use_netstack=use_netstack,
+            bootstrap_end_ns=cfgo.general.bootstrap_end_time_ns,
+        )
+        refills = dict(
+            tx_bytes_per_interval=bw_bits_per_sec_to_refill(bw_up) if use_netstack else None,
+            rx_bytes_per_interval=bw_bits_per_sec_to_refill(bw_down) if use_netstack else None,
+        )
+        return ecfg, refills
+
+    def _run_managed(self) -> SimResults:
+        """Run real executables as managed processes under the LD_PRELOAD
+        shim (spawn/resume managed_thread.rs:156-267). scheduler=tpu (the
+        default) couples the CPU kernel to the device engine: guests
+        execute on the CPU, their packets ride the device network plane
+        (runtime/hybrid.py; reference manager.rs:392-478) on this
+        manager's device. scheduler=managed keeps the whole simulation
+        on the serial CPU kernel. Both use the same round-window delivery
+        clamp (worker.rs:399-402) and the same threefry streams, so their
+        timelines are bit-identical."""
+        from shadow_tpu_torch.hostk.kernel import NetKernel, ProcessSpec
+
+        cfgo = self.config
+        if cfgo.general.checkpoint_dir or cfgo.general.resume:
+            from shadow_tpu_torch.runtime.checkpoint import CheckpointError
+
+            raise CheckpointError(
+                "checkpoint/resume supports scripted-model runs only; "
+                "managed guests are live OS processes and cannot be "
+                "serialized — hybrid runs get worker supervision instead "
+                "(docs/robustness.md)"
+            )
+        sched_name = cfgo.experimental.scheduler
+        host_node = [h.node_index for h in self.hosts]
+        # the serial kernel (scheduler: managed) uses no device at all
+        tables = compute_routing(
+            self.graph, use_shortest_path=cfgo.network.use_shortest_path,
+            device=self.device if sched_name == "tpu" else "cpu",
+        ).with_hosts(host_node)
+
+        runahead = self._resolve_runahead(tables)
+        tracker = self._build_tracker()
+
+        specs = [
+            ProcessSpec(
+                host=h.name,
+                args=[p.path] + list(p.args),
+                start_ns=p.start_time_ns,
+                expected_final_state=p.expected_final_state,
+                environment=p.environment,
+                shutdown_ns=p.shutdown_time_ns,
+            )
+            for h in self.hosts
+            for p in h.spec.processes
+        ]
+        if sched_name == "tpu" and cfgo.experimental.interface_qdisc == "rr":
+            raise ValueError(
+                "interface_qdisc: rr requires the serial kernel "
+                "(experimental.scheduler: managed); the device engine's "
+                "egress is FIFO in lane order"
+            )
+        if sched_name == "tpu" and cfgo.general.parallelism > 1:
+            return self._run_managed_parallel(tables, runahead, specs, tracker)
+
+        k = NetKernel(
+            tables,
+            host_names=[h.name for h in self.hosts],
+            host_nodes=host_node,
+            seed=cfgo.general.seed,
+            data_dir=cfgo.general.data_directory,
+            syscall_latency_ns=cfgo.experimental.syscall_latency_ns,
+            vdso_latency_ns=cfgo.experimental.vdso_latency_ns,
+            max_unapplied_ns=cfgo.experimental.max_unapplied_cpu_latency_ns,
+            strace_mode=cfgo.experimental.strace_logging_mode,
+            pcap=cfgo.experimental.use_pcap,
+            host_ips=[h.ip for h in self.hosts],
+            heartbeat_ns=cfgo.general.heartbeat_interval_ns,
+            progress=cfgo.general.progress,
+            bw_up_bits=[max(h.bw_up_bits, 0) for h in self.hosts],
+            bw_down_bits=[max(h.bw_down_bits, 0) for h in self.hosts],
+            bootstrap_end_ns=cfgo.general.bootstrap_end_time_ns,
+            window_ns=runahead,
+            tcp_sack=cfgo.experimental.use_tcp_sack,
+            tcp_autotune=cfgo.experimental.use_tcp_autotune,
+            qdisc=cfgo.experimental.interface_qdisc,
+            use_memory_manager=cfgo.experimental.use_memory_manager,
+            cpu_freq_hz=[h.cpu_freq_hz for h in self.hosts],
+        )
+        for s in specs:
+            k.add_process(s)
+
+        runner = None
+        if sched_name == "tpu":
+            from shadow_tpu_torch.runtime.hybrid import HybridScheduler
+
+            ecfg, refills = self._managed_engine_config(runahead)
+            runner = HybridScheduler(
+                k, tables, ecfg, record_capacity=cfgo.experimental.record_capacity,
+                device=self.device, **refills,
+            )
+            runner.tracker = tracker
+            run_fn, sched_label = runner.run, HybridScheduler.name
+        else:
+            run_fn, sched_label = k.run, "managed"
+
+        end = cfgo.general.stop_time_ns
+        slog("info", 0, "manager",
+             f"starting: {len(self.hosts)} hosts, scheduler={sched_label}, "
+             f"{len(k.procs)} managed processes, stop={fmt_time_ns(end)}")
+        from shadow_tpu_torch.runtime import flightrec
+
+        recorder = self._build_recorder(tracker)
+        flightrec.install(recorder)
+        t0 = time.perf_counter()
+        try:
+            run_fn(end)
+            if runner is not None and self.device.type == "cuda":
+                import torch
+
+                torch.cuda.synchronize(self.device)
+        except Exception as err:
+            # worker crashes and plain exceptions get the same black box
+            # as the scripted drivers (events: worker respawns, spans)
+            recorder.dump(failure=flightrec.failure_record(err))
+            raise
+        finally:
+            k.shutdown()
+            recorder.close()
+            flightrec.uninstall()
+        wall = time.perf_counter() - t0
+
+        stats = k.stats()
+        unexpected = k.unexpected_final_states()
+        results = self._managed_results(stats, unexpected, wall, sched_label, tracker)
+        results.event_log = list(k.event_log)
+        results.extra_stats["execution"] = self._managed_execution(runner)
+        self._write_outputs(results)
+        return results
+
+    def _managed_results(self, stats, unexpected, wall, sched_label, tracker) -> SimResults:
+        end = self.config.general.stop_time_ns
+        for u in unexpected:
+            slog("warning", end, "manager", f"unexpected final state: {u}")
+        results = SimResults(
+            hosts=self.hosts,
+            events_handled=stats["syscalls_handled"],
+            packets_sent=stats["packets_sent"],
+            packets_dropped=stats["packets_dropped"],
+            packets_unroutable=0,
+            wall_seconds=wall,
+            sim_seconds=end / NS_PER_SEC,
+            scheduler=sched_label,
+            unexpected_final_states=unexpected,
+            extra_stats=stats,
+        )
+        self._fold_tracker(tracker, results, end, None)
+        self._fold_chaos(results)
+        slog("info", end, "manager",
+             f"finished: {stats['syscalls_handled']} syscalls, "
+             f"{stats['packets_sent']} packets in {wall:.2f}s wall")
+        return results
+
+    def _managed_execution(self, runner, workers: int = 0) -> dict:
+        """How a managed run was executed (like the scripted runs'
+        section, not part of the trajectory): where the device plane's
+        state lived and how many passes it took, or the serial kernel."""
+        out = {"package": "shadow_tpu_torch", "engine": "hostk"}
+        if runner is not None:
+            out.update(device=str(runner.st.device), device_engine="plain",
+                       device_passes=runner.device_passes,
+                       kernel_launches={"pump_megakernel": 0})
+        if workers:
+            out["workers"] = workers
+            out["phase_wall"] = dict(runner.phase_wall)
+        return out
+
+    def _run_managed_parallel(self, tables, runahead: int, specs, tracker=None) -> SimResults:
+        """Managed run with hosts sharded over worker kernel processes
+        (general.parallelism workers) and packets on the device engine —
+        the role of the reference's thread_per_core scheduler
+        (thread_per_core.rs:188-206) with processes instead of threads."""
+        from shadow_tpu_torch.runtime.hybrid import ParallelHybridScheduler
+
+        cfgo = self.config
+        ecfg, refills = self._managed_engine_config(runahead)
+        sched = ParallelHybridScheduler(
+            tables,
+            ecfg,
+            host_names=[h.name for h in self.hosts],
+            host_nodes=[h.node_index for h in self.hosts],
+            specs=specs,
+            num_workers=cfgo.general.parallelism,
+            seed=cfgo.general.seed,
+            data_dir=cfgo.general.data_directory,
+            bw_up_bits=[max(h.bw_up_bits, 0) for h in self.hosts],
+            bw_down_bits=[max(h.bw_down_bits, 0) for h in self.hosts],
+            host_ips=[h.ip for h in self.hosts],
+            record_capacity=cfgo.experimental.record_capacity,
+            strace_mode=cfgo.experimental.strace_logging_mode,
+            pcap=cfgo.experimental.use_pcap,
+            heartbeat_ns=cfgo.general.heartbeat_interval_ns,
+            bootstrap_end_ns=cfgo.general.bootstrap_end_time_ns,
+            tcp_sack=cfgo.experimental.use_tcp_sack,
+            tcp_autotune=cfgo.experimental.use_tcp_autotune,
+            syscall_latency_ns=cfgo.experimental.syscall_latency_ns,
+            vdso_latency_ns=cfgo.experimental.vdso_latency_ns,
+            max_unapplied_ns=cfgo.experimental.max_unapplied_cpu_latency_ns,
+            cpu_freq_hz=[h.cpu_freq_hz for h in self.hosts],
+            device=self.device,
+            **refills,
+        )
+        sched.tracker = tracker
+        end = cfgo.general.stop_time_ns
+        slog("info", 0, "manager",
+             f"starting: {len(self.hosts)} hosts, scheduler={sched.name} "
+             f"({sched.num_workers} workers), {len(specs)} managed processes, "
+             f"stop={fmt_time_ns(end)}")
+        from shadow_tpu_torch.runtime import flightrec
+
+        recorder = self._build_recorder(tracker)
+        flightrec.install(recorder)
+        t0 = time.perf_counter()
+        try:
+            try:
+                sched.run(end)
+                if self.device.type == "cuda":
+                    import torch
+
+                    torch.cuda.synchronize(self.device)
+            except Exception as err:
+                # the worker-crash post-mortem: respawn events already
+                # ride the recorder (runtime/hybrid.py _revive)
+                recorder.dump(failure=flightrec.failure_record(err))
+                raise
+            finally:
+                sched.shutdown()
+            wall = time.perf_counter() - t0
+            stats = sched.stats()
+            event_log = sched.event_log()
+            unexpected = sched.unexpected_final_states()
+        finally:
+            sched.close()
+            recorder.close()
+            flightrec.uninstall()
+        results = self._managed_results(stats, unexpected, wall, sched.name, tracker)
+        results.event_log = event_log
+        results.extra_stats["execution"] = self._managed_execution(sched, sched.num_workers)
+        self._write_outputs(results)
+        return results
 
     def _write_outputs(self, results: SimResults) -> None:
         data_dir = self.config.general.data_directory

@@ -2,9 +2,11 @@
 never import jax, flax or the JAX package (importing any shadow_tpu.*
 module runs shadow_tpu/__init__.py, which imports jax). The host-side
 observability modules (OBSERVABILITY: the tracker registry, the flight
-recorder, the memory observatory) and the run-loop guards and cpu-ref
-oracles (GUARDS) are named on their own: each is imported alone in a
-fresh interpreter, and each is in the source scan."""
+recorder, the memory observatory), the run-loop guards and cpu-ref
+oracles (GUARDS) and the managed-process modules (MANAGED: the host
+kernel, the device plane's model, the hybrid schedulers and their
+workers, pcap) are named on their own: each is imported alone in a fresh
+interpreter, and each is in the source scan."""
 
 import ast
 import pathlib
@@ -32,6 +34,23 @@ GUARDS = (
     "shadow_tpu_torch.cpu_ref.sim",
     "shadow_tpu_torch.cpu_ref.tgen_ref",
     "shadow_tpu_torch.cpu_ref.bulk_ref",
+)
+# managed processes: the host kernel, the hybrid's device plane and workers
+MANAGED = (
+    "shadow_tpu_torch.hostk",
+    "shadow_tpu_torch.hostk.build",
+    "shadow_tpu_torch.hostk.descriptor",
+    "shadow_tpu_torch.hostk.dns",
+    "shadow_tpu_torch.hostk.guestmem",
+    "shadow_tpu_torch.hostk.ipc",
+    "shadow_tpu_torch.hostk.kernel",
+    "shadow_tpu_torch.hostk.shaping",
+    "shadow_tpu_torch.hostk.strace",
+    "shadow_tpu_torch.hostk.tcp",
+    "shadow_tpu_torch.models.managed_net",
+    "shadow_tpu_torch.runtime.hybrid",
+    "shadow_tpu_torch.runtime.hybrid_worker",
+    "shadow_tpu_torch.utils.pcap",
 )
 
 
@@ -76,7 +95,7 @@ def test_source_imports_no_jax(path):
     assert not bad, f"{path}: imports {bad}"
 
 
-@pytest.mark.parametrize("module", OBSERVABILITY + GUARDS)
+@pytest.mark.parametrize("module", OBSERVABILITY + GUARDS + MANAGED)
 def test_observability_module_imports_no_jax(module):
     """A fresh interpreter imports the module alone (and through it what
     it needs of the port): no jax, flax or shadow_tpu module loads, and
