@@ -26,7 +26,7 @@ Phases, each printing one line; any failure exits non-zero:
      pump_k 80, past the list and FIFO entries a wide launch's shared
      memory holds; its main path from the burst to 20 ms against the plain
      engine; onion's at 16 and 32 circuits per relay (33 and 65 sockets),
-     its main paths to 40 ms, then kernel vs twin there, timed,
+     its main paths to 35 ms, then kernel vs twin there, timed,
      and at 33 sockets also at pump_k 40; each wide launch prints its dynamic shared
      memory; while those
      two host-bound runs go on, the onion cell's plain-engine run (phase
@@ -81,8 +81,8 @@ Phases, each printing one line; any failure exits non-zero:
      own), every TCP field, counter and leftover queue entry equal;
   7. onion-10240: the onion model (4,096 clients, 6,144 relays, 17 sockets
      per host) on the bench graph and shaping: the main path to its burst
-     (60 ms) with engine "auto" (the kernel's onion instance); the plain
-     engine on the same world to 60 ms (run in a process of its own
+     (40 ms) with engine "auto" (the kernel's onion instance); the plain
+     engine on the same world to 40 ms (run in a process of its own
      during phase 3a), whose host and model counters must agree with the
      main path's; kernel vs twin at the burst launch, which is the main
      path's end, timed alone with its bound;
@@ -127,6 +127,20 @@ Phases, each printing one line; any failure exits non-zero:
      ParallelHybridScheduler with the device state on the card: every
      client fetched its document, and the syscall, packet and device-pass
      counts equal the JAX package's run of that world on the CPU;
+  9c. services-10240: `sweep` in this process over the lossy tgen world
+     at 10,240 hosts (6 nodes, GML inline): seeds 0-7 in two batches of
+     4 x 10,240 rows through the kernel's tgen instance, a priority-1 job
+     arriving at 20 ms on the service clock preempts the running batch
+     through a verified final checkpoint and the batch resumes from it;
+     every job done, builds equal to the distinct worlds (2) and hits for
+     the resume and the second batch (2), the preempted job and one of
+     the other batch leaf-equal to single runs of their seeds; its daemon
+     part ran in a process of its own beside the wide onion runs (`serve`
+     daemons on the card taking submitted examples/tgen jobs: one whose
+     cache entry a cache-corrupt fault damages, SIGKILLed mid-batch by the
+     chaos plane; the restart, which rebuilds the entry with its warning
+     and loses no job, each job's sim-stats that of a single run; a warm
+     start with zero builds behind the HTTP front door on 127.0.0.1);
  10. the narrow instances' R = 1 launch times beside the earlier record,
      the wide instances' launch times beside theirs before the redesign,
      the kernels JSON line (one entry per template instance of the
@@ -227,14 +241,15 @@ LOSSY_MID_NS_SHAPED = 26_000_000
 LOSSY_MID_NS_UNSHAPED = 22_000_000
 LOSSY_END_NS = 120_000_000
 # the onion cell: 10,240 hosts, 4,096 clients (0.4) and 6,144 relays
-# (about Tor's consensus size), to ONION_END_NS, its burst (the plain
+# (about Tor's consensus size), to ONION_END_NS, in its burst (the plain
 # handler, which every relay event takes, holds the host ~66 ms per drain
 # iteration on an H100's host, so 0.6 s would take ~10 min a run, and
-# the smoke's time limit, with every phase, holds the burst); its kernel
-# is held against the twin and timed at the burst (ONION_BURST_NS), which
-# is the end of the main path
+# the smoke's time limit, with every phase, holds 40 ms: the onion
+# launches take P2 and P3 events from ~35 ms on); its kernel is held
+# against the twin and timed there (ONION_BURST_NS), which is the end of
+# the main path
 ONION_CLIENT_SHARE = 0.4
-ONION_BURST_NS = 60_000_000
+ONION_BURST_NS = 40_000_000
 ONION_END_NS = ONION_BURST_NS
 ONION_WINDOW_CAP_NS = 1_000_000_000
 # wide_kernel: pump_k past a narrow instance's MAX_K, in the bench burst
@@ -258,7 +273,7 @@ WIDE_RUN_NS = 20_000_000
 BOUNDARY_ARRIVALS = 60
 WIDE_PAST_K = 80
 WIDE_PAST_ARRIVALS = 100
-ONION_WIDE_SHORT_NS = 40_000_000
+ONION_WIDE_SHORT_NS = 35_000_000
 ONION_WIDE_NS = {16: ONION_WIDE_SHORT_NS, 32: ONION_WIDE_SHORT_NS}
 # recovery: the bench world at an outbox of RECOVERY_OUTBOX slots, below
 # its 32: the start's burst overflows it in the first chunk, and recovery
@@ -410,6 +425,43 @@ MATRIX_BYTES = 12_000
 MATRIX_SIM_NS = 30_000_000_000
 MATRIX_SEED = 7
 MATRIX_STATS = {"syscalls": 7_936, "packets": 7_936, "device_passes": 529}
+# services-10240 (phase 9c), the sweep in the foreground: a tgen world in
+# lossy_world's style (40 KB responses, 30 ms pause, 20 Mbit hosts, loss
+# 0.05 between SERVICES_NODES nodes, queue 192, outbox 32) at full width,
+# written as a config with its GML inline, the clients on the first half
+# of the nodes and their servers on the other half (so streams cross
+# lossy links and seeds diverge); SERVICES_SEEDS seeds of one entry at
+# capacity SERVICES_CAPACITY (two batches of 4 x 10,240 rows) and a job of
+# priority 1 (seed SERVICES_HI_SEED) arriving at SERVICES_ARRIVAL_NS on the
+# service clock, which preempts the running batch; every job runs to
+# SERVICES_END_NS, past the burst (26 ms, LOSSY_MID_NS_SHAPED), at
+# SERVICES_RPC rounds a chunk. The jobs in SERVICES_KEEP (the preempted
+# batch's first, and one of the other batch) are held against single runs
+SERVICES_NODES = 6
+SERVICES_SEEDS = 8
+SERVICES_CAPACITY = 4
+SERVICES_HI_SEED = 100
+SERVICES_ARRIVAL_NS = 20_000_000
+SERVICES_END_NS = 40_000_000
+SERVICES_RPC = 16
+SERVICES_KEEP = ("lo-s0", "lo-s5")
+# the daemon's part (`--services-daemon OUT`, a process of its own beside
+# the wide onion runs): examples/tgen cut to SERVICES_DAEMON_STOP at
+# SERVICES_DAEMON_RPC rounds a chunk with checkpoints every
+# SERVICES_DAEMON_CKPT, jobs of two seeds each (16 chunks a batch: the
+# streams end by 9 ms and resume after each 200 ms pause, so the first
+# checkpoint is at chunk 4, 204 ms); the first daemon is SIGKILLed at
+# chunk SERVICES_DAEMON_KILL_AT of its batch (216 ms, after that
+# checkpoint); claims lease SERVICES_DAEMON_LEASE_S seconds; every
+# subprocess waits at most SERVICES_DAEMON_WAIT_S. Three daemons, not
+# one for each check: each start costs a process, torch and CUDA, and
+# they share the host with the wide onion runs
+SERVICES_DAEMON_STOP = "600 ms"
+SERVICES_DAEMON_RPC = 2
+SERVICES_DAEMON_CKPT = "50 ms"
+SERVICES_DAEMON_KILL_AT = 8
+SERVICES_DAEMON_LEASE_S = "2"
+SERVICES_DAEMON_WAIT_S = 300
 # H100 SXM device-memory rate (NVIDIA data sheet) for the bound column
 HBM_BYTES_PER_S = 3.35e12
 # non-tensor-core 32-bit rate (NVIDIA data sheet, FP32), the op yardstick
@@ -3044,13 +3096,362 @@ def managed_phase(dev, hosts: int, full: bool, started: dict, cli: dict) -> bool
     return hybrid_matrix_phase(dev, bins, tmp, pairs, full)
 
 
+def services_world(hosts: int, stop_ns: int) -> dict:
+    """The services cell's world as a config mapping (SERVICES_* above):
+    lossy_world's graph style written as GML inline, host groups one a
+    node, the first half of the nodes holding the clients."""
+    rng_py = random.Random(11)
+    lines = ["graph [", "  directed 0"]
+    for i in range(SERVICES_NODES):
+        lines.append(f"  node [ id {i} ]")
+        lines.append(f'  edge [ source {i} target {i} latency "2 ms" ]')
+    for i in range(SERVICES_NODES):
+        for j in range(i + 1, SERVICES_NODES):
+            lines.append(f'  edge [ source {i} target {j} latency "{rng_py.randrange(2, 9)} ms" '
+                         f"packet_loss 0.05 ]")
+    lines.append("]")
+    half, per_half = hosts // 2, SERVICES_NODES // 2
+    sizes = [half // per_half + (i < half % per_half) for i in range(per_half)]
+    sizes += [(hosts - half) // per_half + (i < (hosts - half) % per_half)
+              for i in range(per_half)]
+    proc = {"path": "tgen", "args": {"clients": half, "resp_bytes": 40_000, "pause": "30 ms"}}
+    return {
+        "general": {"stop_time": f"{stop_ns} ns", "heartbeat_interval": None, "tracker": True},
+        "network": {"graph": {"type": "gml", "inline": "\n".join(lines) + "\n"}},
+        "experimental": {"rounds_per_chunk": SERVICES_RPC, "queue_capacity": 192,
+                         "outbox_capacity": 32},
+        "hosts": {f"n{i}": {"network_node_id": i, "quantity": q, "bandwidth_up": "20 Mbit",
+                            "bandwidth_down": "20 Mbit", "processes": [proc]}
+                  for i, q in enumerate(sizes)},
+    }
+
+
+def job_trajectory(stats: dict) -> dict:
+    """A job's sim-stats without the wall clock and the execution shape
+    (tests/test_sweep_cli.py::_stats's fields and the port's `execution`):
+    a job in a batch and its single run must agree on the rest."""
+    out = trajectory_stats(stats)
+    tracker = dict(out.get("tracker") or {})
+    tracker.pop("phases", None)
+    if "window" in tracker:
+        tracker["window"] = {k: v for k, v in tracker["window"].items()
+                             if k not in ("iters", "lanes_live", "occupancy")}
+    if tracker:
+        out["tracker"] = tracker
+    return out
+
+
+def services_daemon_run(dev, out_path: str) -> int:
+    """The services cell's daemon part, for a process of its own
+    (`--services-daemon OUT`): three `serve` daemons on `dev` taking
+    submitted tgen jobs (examples/tgen cut to SERVICES_DAEMON_STOP), each
+    a process of its own with a bounded wait. The first stores its
+    build in the persistent cache, where a `cache-corrupt` fault damages
+    it, and is SIGKILLed by the chaos plane at chunk
+    SERVICES_DAEMON_KILL_AT of its batch; the second, the restart,
+    rebuilds the damaged entry with the sha-256 warning, replays the
+    journal and resumes the batch from its newest checkpoint (no job
+    lost, every job's sim-stats that of a single `run` of its seed
+    here); the third starts on the warm spool with the HTTP front door
+    on 127.0.0.1 (a POSTed job of the same world, its status and
+    results, a 404 and a 400) and builds nothing: the persistent cache's
+    disk hit. Writes the checks and figures to OUT (JSON)."""
+    import signal
+    import urllib.error
+    import urllib.request
+
+    import yaml
+
+    from shadow_tpu_torch.runtime.cli_run import run_from_config, run_submit
+    from shadow_tpu_torch.runtime.daemon import journal_terminal_map
+
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    device = ["--device", "cpu"] if dev.type == "cpu" else []
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    with open(os.path.join(HERE, "examples", "tgen", "shadow.yaml")) as f:
+        base = yaml.safe_load(f)
+    base["general"].pop("data_directory")
+    base["general"].pop("seed")
+    base["general"].update(stop_time=SERVICES_DAEMON_STOP, heartbeat_interval=None,
+                           checkpoint_interval=SERVICES_DAEMON_CKPT)
+    base["experimental"]["rounds_per_chunk"] = SERVICES_DAEMON_RPC
+    out, checks, procs = {}, {}, []
+
+    def spec(tenant, seeds) -> str:
+        path = os.path.join(root, f"{tenant}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump({"job": {"tenant": tenant, "name": "tg", "seeds": list(seeds),
+                                    "config": base}}, f)
+        return path
+
+    def serve(spool, *args, wait=True):
+        cmd = [sys.executable, "-m", "shadow_tpu_torch", "serve", spool, *device,
+               "--lease-s", SERVICES_DAEMON_LEASE_S, *args]
+        if not wait:
+            proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            procs.append(proc)
+            return proc
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd + ["--drain"], cwd=HERE, env=env, capture_output=True,
+                           text=True, timeout=SERVICES_DAEMON_WAIT_S)
+        return r.returncode, r.stdout + r.stderr, round(time.perf_counter() - t0, 3)
+
+    def manifest(spool) -> dict:
+        with open(os.path.join(spool, "daemon-manifest.json")) as f:
+            return json.load(f)
+
+    def job_stats(spool, job) -> dict:
+        with open(os.path.join(spool, "jobs", job, "sim-stats.json")) as f:
+            return json.load(f)
+
+    try:
+        spool, cache = os.path.join(root, "spool"), os.path.join(root, "cache")
+        run_submit(spool, spec("alice", (1, 2)))
+        rc, text, wall = serve(spool, "--cache-dir", cache, "--chaos-fault", "cache-corrupt@0",
+                               "--chaos-fault",
+                               f"daemon-kill@{SERVICES_DAEMON_KILL_AT}:target=chunk")
+        checks["killed"] = rc in (-signal.SIGKILL, 128 + signal.SIGKILL)
+        out["killed"] = dict(rc=rc, wall_s=wall, tail=text[-600:] if not checks["killed"] else "")
+        rc, text, wall = serve(spool, "--cache-dir", cache)
+        m = manifest(spool)
+        resume = m["daemon"].get("resume", {})
+        term = journal_terminal_map(spool)
+        cache_stats = m["compile_cache"]
+        warned = "failed its sha-256 integrity check; rebuilding" in text
+        checks["restarted"] = (rc == 0 and resume.get("crashed") is True
+                               and bool(resume.get("batches"))
+                               and all(b["checkpoint"] for b in resume["batches"])
+                               and term == {"alice.tg-s1": "done", "alice.tg-s2": "done"})
+        checks["cache_corrupt_rebuilt"] = (
+            warned and cache_stats["compiles"] == 1 and cache_stats["persistent"]["disk_skips"] == 1
+            and cache_stats["persistent"]["disk_stores"] == 1)
+        out["restarted"] = dict(rc=rc, wall_s=wall, resume=resume, terminal=term,
+                                compile_cache=cache_stats, warned=warned,
+                                tail=text[-600:] if not checks["restarted"] else "")
+        singles = {}
+        for seed in (1, 2):
+            cfg = dict(base, general=dict(base["general"], seed=seed,
+                                          data_directory=os.path.join(root, f"alone-{seed}")))
+            path = os.path.join(root, f"alone-{seed}.yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump(cfg, f)
+            assert run_from_config(path, device=str(dev.type)) == 0
+            with open(os.path.join(root, f"alone-{seed}", "sim-stats.json")) as f:
+                singles[seed] = job_trajectory(json.load(f))
+        executions = {s: job_stats(spool, f"alice.tg-s{s}")["execution"] for s in (1, 2)}
+        checks["jobs_equal_single_runs"] = all(
+            job_trajectory(job_stats(spool, f"alice.tg-s{s}")) == singles[s] for s in (1, 2))
+        out["executions"] = executions
+
+        # the warm spool, its HTTP front door on 127.0.0.1
+        d = serve(spool, "--cache-dir", cache, "--http", "127.0.0.1:0", "--poll-interval",
+                  "0.2", wait=False)
+        t0 = time.perf_counter()
+        addr_file = os.path.join(spool, "http-address")
+        while not os.path.exists(addr_file) and time.perf_counter() - t0 < 120:
+            time.sleep(0.2)
+        with open(addr_file) as f:
+            url = f"http://{f.read().strip()}"
+
+        def req(method, path, body=None):
+            r = urllib.request.Request(url + path, method=method,
+                                       data=body.encode() if body is not None else None)
+            try:
+                with urllib.request.urlopen(r, timeout=60) as resp:
+                    return resp.status, resp.read().decode()
+            except urllib.error.HTTPError as e:
+                return e.code, e.read().decode()
+
+        with open(spec("bob", (3, 4))) as f:
+            code, body = req("POST", "/v1/jobs", f.read())
+        codes = {"post": code, "ids": json.loads(body).get("job_ids")}
+        status = {}
+        while time.perf_counter() - t0 < SERVICES_DAEMON_WAIT_S:
+            status = {j: json.loads(req("GET", f"/v1/jobs/{j}")[1] or "{}").get("status")
+                      for j in ("bob.tg-s3", "bob.tg-s4")}
+            if all(v in ("done", "failed", "quarantined") for v in status.values()):
+                break
+            time.sleep(0.5)
+        code, body = req("GET", "/v1/jobs/bob.tg-s3/results")
+        codes["results"] = code
+        results_equal = code == 200 and json.loads(body) == job_stats(spool, "bob.tg-s3")
+        codes["unknown"] = req("GET", "/v1/jobs/bob.nope-s9")[0]
+        codes["bad_body"] = req("POST", "/v1/jobs", ":-not yaml: [")[0]
+        d.send_signal(signal.SIGTERM)
+        text = d.communicate(timeout=SERVICES_DAEMON_WAIT_S)[0]
+        m = manifest(spool)
+        cache_stats = m["compile_cache"]
+        checks["http_warm"] = (
+            d.returncode == 0 and codes == {"post": 202, "ids": ["bob.tg-s3", "bob.tg-s4"],
+                                            "results": 200, "unknown": 404, "bad_body": 400}
+            and status == {"bob.tg-s3": "done", "bob.tg-s4": "done"} and results_equal
+            and cache_stats["compiles"] == 0 and cache_stats["persistent"]["disk_hits"] >= 1)
+        out["http_warm"] = dict(rc=d.returncode, codes=codes, status=status,
+                                results_equal=results_equal, compile_cache=cache_stats,
+                                wall_s=round(time.perf_counter() - t0, 3),
+                                tail=text[-600:] if not checks["http_warm"] else "")
+    except Exception as e:  # noqa: BLE001 — reported, and the phase fails
+        out["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        tmp.cleanup()
+    out["checks"] = checks
+    out["ok"] = bool(checks) and all(checks.values()) and "error" not in out
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def services_daemon_start(dev) -> dict:
+    """Start services_daemon_run in a process of its own (this script
+    with `--services-daemon`), in a session of its own so that its serve
+    daemons stop with it: a handle for services_daemon_finish."""
+    tmp = tempfile.TemporaryDirectory()
+    out = os.path.join(tmp.name, "services_daemon.json")
+    cmd = [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--services-daemon", out]
+    if dev.type == "cpu":
+        cmd += ["--rehearse-cpu", "--hosts", "64"]
+    err_path = os.path.join(tmp.name, "stderr.txt")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=err, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, OMP_NUM_THREADS="1"),
+                                start_new_session=True)
+    proc.own_session = True
+    STARTED.append(proc)
+    return dict(proc=proc, out=out, stderr=err_path, tmp=tmp, t0=time.perf_counter())
+
+
+def services_daemon_finish(run) -> dict:
+    """Wait for services_daemon_run: its record, with the wall it took."""
+    try:
+        rc = run["proc"].wait(timeout=4 * SERVICES_DAEMON_WAIT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    got = {"ok": False, "rc": rc}
+    if rc == 0 and os.path.exists(run["out"]):
+        with open(run["out"]) as f:
+            got = json.load(f)
+    else:
+        with open(run["stderr"]) as f:
+            got["stderr_tail"] = f.read()[-2000:]
+    got["wall_s"] = round(time.perf_counter() - run["t0"], 3)
+    run["tmp"].cleanup()
+    return got
+
+
+def services_phase(hosts: int, dev, daemon: dict) -> "tuple[bool, int]":
+    """services-10240: `sweep` in this process (SweepService.run, the
+    entry point behind `python -m shadow_tpu_torch sweep`) over the
+    services world (SERVICES_* above): the low-priority seeds in two
+    batches of SERVICES_CAPACITY x H rows, the priority-1 job's arrival
+    preempting the running batch through a verified final checkpoint, the
+    batch resumed from it. Every job done; one preemption; builds equal
+    to the distinct worlds (R = 4 and R = 1), hits for the resume and the
+    second batch; every batch launched the kernel on the card; the
+    SERVICES_KEEP jobs' final states leaf-equal to single runs of their
+    seeds through TpuScheduler.run. Then the daemon part's record
+    (`daemon`, as services_daemon_finish returns it). Returns (ok, the
+    sweep's kernel launches)."""
+    import yaml
+
+    from shadow_tpu_torch.config.sweep import load_sweep_file
+    from shadow_tpu_torch.engine import megakernel as mk
+    from shadow_tpu_torch.engine.ensemble import replica_slice
+    from shadow_tpu_torch.engine.state import state_to_host
+    from shadow_tpu_torch.runtime.manager import Manager
+    from shadow_tpu_torch.runtime.scheduler import TpuScheduler
+    from shadow_tpu_torch.runtime.sweep import SweepService
+
+    class KeptSweep(SweepService):
+        """The sweep, keeping on the host the final states of the
+        SERVICES_KEEP jobs as their batches publish them."""
+
+        finals: dict = {}
+
+        def _write_batch_outputs(self, batch, final, end, runner):
+            for r, job in enumerate(batch.jobs):
+                if job.name in SERVICES_KEEP:
+                    self.finals[job.name] = state_to_host(replica_slice(final, r))
+            super()._write_batch_outputs(batch, final, end, runner)
+
+    tmp = tempfile.TemporaryDirectory()
+    with open(os.path.join(tmp.name, "base.yaml"), "w") as f:
+        yaml.safe_dump(services_world(hosts, SERVICES_END_NS), f)
+    spec_path = os.path.join(tmp.name, "sweep.yaml")
+    with open(spec_path, "w") as f:
+        yaml.safe_dump({"sweep": {
+            "name": f"services-{hosts}", "base": "base.yaml",
+            "output_dir": os.path.join(tmp.name, "out"), "capacity": SERVICES_CAPACITY,
+            "jobs": [{"name": "lo", "seed_range": [0, SERVICES_SEEDS], "priority": 0},
+                     {"name": "hi", "seeds": [SERVICES_HI_SEED], "priority": 1,
+                      "arrival": f"{SERVICES_ARRIVAL_NS} ns"}]}}, f)
+    spec = load_sweep_file(spec_path)
+    svc = KeptSweep(spec, device=dev)
+    svc.finals = {}
+    sync(dev)
+    mk.PUMP_KERNEL.launches = 0
+    t0 = time.perf_counter()
+    m = svc.run()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = mk.PUMP_KERNEL.launches
+    execution = {}
+    for job in spec.jobs:
+        with open(os.path.join(job.config.general.data_directory, "sim-stats.json")) as f:
+            execution[job.name] = json.load(f)["execution"]
+    on_card = dev.type == "cpu" or (
+        launches > 0 and all(e["engine"] == "megakernel" and e["kernel_launches"][
+            "pump_megakernel"] > 0 for e in execution.values()))
+    preempted = [b for b in m["batches"] if b["preemptions"]]
+    cache = m["compile_cache"]
+    ok = (m["jobs_done"] == len(spec.jobs) == SERVICES_SEEDS + 1 and m["preemptions"] == 1
+          and len(preempted) == 1 and "lo-s0" in preempted[0]["jobs"]
+          and (cache["compiles"], cache["hits"]) == (2, 2) and on_card)
+    # the kept jobs against single runs of their seeds
+    singles, bad = {}, {}
+    for name in SERVICES_KEEP:
+        job = next(j for j in spec.jobs if j.name == name)
+        world = Manager(job.config, device=dev).build_world()
+        sched = TpuScheduler(world.model, world.tables, world.ecfg, rounds_per_chunk=SERVICES_RPC,
+                             tx_bytes_per_interval=world.tx_refill,
+                             rx_bytes_per_interval=world.rx_refill, device=dev)
+        t1 = time.perf_counter()
+        final = sched.run(SERVICES_END_NS)
+        sync(dev)
+        singles[name] = round(time.perf_counter() - t1, 3)
+        bad[name] = host_leaves_equal(svc.finals[name], final)
+        del final
+    ok = ok and len(svc.finals) == len(SERVICES_KEEP) and not any(bad.values())
+    events = {j["name"]: j["stats"]["events_handled"] for j in m["jobs"] if "stats" in j}
+    ok = ok and len(set(events.values())) > 1
+    line("services_sweep", ok=ok, cell=f"services-{hosts}", hosts=hosts, end_ns=SERVICES_END_NS,
+         wall_s=round(wall, 3), kernel_launches=launches, preemptions=m["preemptions"],
+         jobs_done=m["jobs_done"], compile_cache=cache,
+         batches=[{k: b[k] for k in ("index", "jobs", "replicas", "status", "wall_seconds",
+                                     "preemptions")} for b in m["batches"]],
+         launches_by_job={k: v["kernel_launches"]["pump_megakernel"] for k, v in execution.items()},
+         events_by_job=events, single_runs_wall_s=singles, mismatched_leaves_vs_single=bad)
+    tmp.cleanup()
+    ok_d = bool(daemon.get("ok"))
+    line("services_daemon", **{k: v for k, v in daemon.items()})
+    return ok and ok_d, launches
+
 def main(argv=None) -> int:
     try:
         return run_phases(argv)
     finally:
         for proc in STARTED:
             if proc.poll() is None:
-                proc.kill()
+                if getattr(proc, "own_session", False):
+                    # with the processes it started (serve daemons)
+                    os.killpg(proc.pid, 9)
+                else:
+                    proc.kill()
                 proc.wait()
 
 
@@ -3072,6 +3473,12 @@ def run_phases(argv=None) -> int:
         "--onion-plain", metavar="OUT",
         help="only run the onion cell's plain-engine run and write its "
         "counters to OUT (the smoke starts this in a process of its own)",
+    )
+    ap.add_argument(
+        "--services-daemon", metavar="OUT",
+        help="only run the services cell's daemon part (serve daemons killed, "
+        "restarted, warm over HTTP, their cache corrupted) and write its record "
+        "to OUT (the smoke starts this in a process of its own)",
     )
     ap.add_argument(
         "--cpu-ref", metavar="OUT",
@@ -3105,6 +3512,10 @@ def run_phases(argv=None) -> int:
     if args.cpu_ref:
         return cpu_ref_run(torch.device("cpu") if args.rehearse_cpu else torch.device("cuda", 0),
                            args.cpu_ref)
+    if args.services_daemon:
+        return services_daemon_run(
+            torch.device("cpu") if args.rehearse_cpu else torch.device("cuda", 0),
+            args.services_daemon)
     if args.rehearse_cpu:
         dev, smi = torch.device("cpu"), "cpu rehearsal"
     else:
@@ -3237,20 +3648,23 @@ def run_phases(argv=None) -> int:
     # 3a. wide_kernel: the wide instances (pump_k past MAX_K, onion past 32
     # sockets), each held against the twin and timed, and their main paths;
     # every CLI run and the onion cell's plain-engine run meanwhile
-    onion_plain, managed_cli = {}, {}
+    onion_plain, managed_cli, services_daemon = {}, {}, {}
     managed_tmp = tempfile.TemporaryDirectory()
 
     def meanwhile():
         plain_run = onion_plain_start(args.hosts, ONION_END_NS, dev)
         clis = background_clis(dev)
         managed = managed_start(dev, managed_tmp.name)
+        daemon = services_daemon_start(dev)
 
         def finish():
             ok_clis = clis()
             got = onion_plain_finish(plain_run)
             onion_plain.update(got or {})
-            # judged in the managed phase, which prints what differs
+            # judged in the managed and services phases, which print what
+            # differs
             managed_cli.update(started=managed, cli=managed_http_finish(managed["cli"]))
+            services_daemon.update(services_daemon_finish(daemon))
             return ok_clis and got is not None
         return finish
 
@@ -3422,6 +3836,15 @@ def run_phases(argv=None) -> int:
     if not ok_m:
         return 1
 
+    # 9c. services: the full-width sweep with a preemption, and the
+    # daemon part that ran beside the wide onion runs
+    t0 = time.perf_counter()
+    ok_s, services_launches = services_phase(args.hosts, dev, services_daemon)
+    line("services", ok=ok_s, seconds=round(time.perf_counter() - t0, 3),
+         daemon_wall_s=services_daemon.get("wall_s"))
+    if not ok_s:
+        return 1
+
     if dev.type == "cpu":
         line("rehearsal_done", note="no result: the kernel runs only on the card")
         return 3
@@ -3460,7 +3883,7 @@ def run_phases(argv=None) -> int:
     # launches on the paths of this slice's phases, besides the main path's
     more = {"tgen": {"recovery": recovery_launches, "checkpoint": checkpoint_launches,
                      "observability": observability_launches, "guards": guards_launches,
-                     **planes["launches"]}}
+                     **planes["launches"], "services": services_launches}}
     # the launches planes-10240 timed: on compacted sub-states and with
     # dyn_runahead set
     planes_timed = {"tgen": planes["timed"]}

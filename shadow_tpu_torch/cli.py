@@ -1,7 +1,9 @@
 """`python -m shadow_tpu_torch run CONFIG` (port of shadow_tpu/cli.py:
-the `run`, `mem` and `metrics` subcommands). `run` runs on the GPU
-unless `--device cpu` is given; `mem` prices a config's state without
-allocating it, and `metrics` renders a recorded metrics series."""
+the `run`, `sweep`, `serve`, `submit`, `mem` and `metrics`
+subcommands). `run`, `sweep` and `serve` run on the GPU unless
+`--device cpu` is given; `submit` drops a job spec into a daemon's
+spool; `mem` prices a config's state without allocating it, and
+`metrics` renders a recorded metrics series."""
 
 from __future__ import annotations
 
@@ -133,6 +135,229 @@ def main(argv: "list[str] | None" = None) -> int:
         "(repeatable; kinds: capacity, stall, compile, ckpt-corrupt, "
         "ckpt-truncate, worker-kill, worker-hang, preempt; chaos.faults)",
     )
+    sweep_p = sub.add_parser(
+        "sweep",
+        help="run a declarative parameter sweep: many seeds/variants "
+        "packed into ensemble batches through a priority job queue with "
+        "a compile cache and checkpoint-based preemption "
+        "(docs/service.md)",
+    )
+    sweep_p.add_argument("spec", help="path to a sweep spec YAML")
+    sweep_p.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help="where the batches' state lives (default: cuda)",
+    )
+    sweep_p.add_argument(
+        "--output-dir",
+        metavar="DIR",
+        help="override the spec's output_dir (per-job data dirs and "
+        "sweep-manifest.json land here)",
+    )
+    sweep_p.add_argument(
+        "--show-plan",
+        action="store_true",
+        help="print the packing decision (jobs -> ensemble batches) as "
+        "JSON and exit without running",
+    )
+    sweep_p.add_argument(
+        "--metrics-file",
+        metavar="PATH",
+        help="stream the service's per-chunk samples and job/batch "
+        "events as JSONL (docs/service.md)",
+    )
+    sweep_p.add_argument(
+        "--metrics-prom",
+        metavar="PATH",
+        help="rewrite a Prometheus textfile snapshot of the service "
+        "gauges (queue depth, preemptions, cache hits) after every "
+        "scheduling decision — the sweep service's scrape endpoint "
+        "(docs/service.md)",
+    )
+    serve_p = sub.add_parser(
+        "serve",
+        help="run the durable simulation daemon on a spool directory: "
+        "live job arrivals (specs dropped into SPOOL/incoming/), a "
+        "crash-safe write-ahead journal (SIGKILL loses zero admitted "
+        "jobs), per-tenant quotas + weighted fair-share, a "
+        "disk-persistent compile cache, an optional HTTP front door "
+        "(--http), and fleet operation — N daemons, one spool, "
+        "lease-based claims (docs/service.md 'Daemon mode')",
+    )
+    serve_p.add_argument(
+        "spool", help="spool directory (created if missing; all durable "
+        "daemon state — journal, jobs, checkpoints, cache — lives here)"
+    )
+    serve_p.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help="where the batches' state lives (default: cuda)",
+    )
+    serve_p.add_argument(
+        "--drain",
+        action="store_true",
+        help="process every queued and spooled job, then exit instead "
+        "of waiting for new arrivals (batch mode; also the "
+        "crash-recovery idiom: restart with --drain to finish a dead "
+        "daemon's queue)",
+    )
+    serve_p.add_argument(
+        "--poll-interval", type=float, default=2.0, metavar="SECONDS",
+        help="spool scan cadence, also honored mid-batch so live "
+        "arrivals can preempt (default 2)",
+    )
+    serve_p.add_argument(
+        "--prom-interval", type=float, default=10.0, metavar="SECONDS",
+        help="wall-clock cadence for rewriting the --metrics-prom "
+        "textfile and daemon-manifest.json while batches run "
+        "(default 10)",
+    )
+    serve_p.add_argument(
+        "--capacity", type=int, default=8, metavar="N",
+        help="max jobs packed into one ensemble batch (default 8)",
+    )
+    serve_p.add_argument(
+        "--retry-max", type=int, default=1, metavar="N",
+        help="per-job retries before quarantine (default 1)",
+    )
+    serve_p.add_argument(
+        "--max-queue", type=int, default=256, metavar="N",
+        help="bounded-queue backpressure: admissions beyond N "
+        "outstanding jobs are rejected with a journaled record "
+        "(default 256)",
+    )
+    serve_p.add_argument(
+        "--default-quota", type=int, default=64, metavar="N",
+        help="per-tenant cap on outstanding jobs (default 64)",
+    )
+    serve_p.add_argument(
+        "--quota", action="append", metavar="TENANT=N",
+        help="override the outstanding-jobs quota for one tenant "
+        "(repeatable)",
+    )
+    serve_p.add_argument(
+        "--quota-class", action="append", metavar="T=device_seconds:N[,queue:M]",
+        help="enforced per-tenant budget class: N device-seconds per "
+        "--quota-window; new jobs from an over-budget tenant are "
+        "refused (journaled reject + Retry-After), a RUNNING batch is "
+        "checkpointed and parked at the next chunk boundary; queue:M "
+        "overrides the outstanding-jobs quota (repeatable; "
+        "docs/service.md 'Quota classes')",
+    )
+    serve_p.add_argument(
+        "--quota-window", type=float, default=3600.0, metavar="SECONDS",
+        help="quota-class accounting window: budgets refill when it "
+        "rolls (default 3600)",
+    )
+    serve_p.add_argument(
+        "--http", metavar="HOST:PORT",
+        help="serve the HTTP front door on this address (port 0 binds "
+        "an ephemeral port, published in SPOOL/http-address): POST "
+        "/v1/jobs, GET /v1/jobs/{id}[/results|/events], GET /v1/metrics "
+        "(docs/service.md 'HTTP front door')",
+    )
+    serve_p.add_argument(
+        "--lease-s", type=float, default=30.0, metavar="SECONDS",
+        help="batch-claim lease duration for fleet operation (N serve "
+        "processes, one spool): leases renew at chunk ticks and a dead "
+        "daemon's claims are reclaimed by survivors once expired "
+        "(default 30; docs/service.md 'Running a fleet')",
+    )
+    serve_p.add_argument(
+        "--daemon-id", metavar="ID",
+        help="this daemon's fleet identity in claims/leases and the "
+        "manifest (default HOSTNAME.PID)",
+    )
+    serve_p.add_argument(
+        "--weight", action="append", metavar="TENANT=W",
+        help="fair-share weight for one tenant (higher = more service "
+        "within a priority level; default 1.0; repeatable)",
+    )
+    serve_p.add_argument(
+        "--keep-batch-dirs", type=int, default=8, metavar="K",
+        help="retention for per-batch checkpoint dirs: finished "
+        "batches' checkpoints are removed immediately, leftovers "
+        "beyond the newest K pruned (default 8)",
+    )
+    serve_p.add_argument(
+        "--cache-dir", metavar="DIR",
+        help="persistent compile-cache directory (default SPOOL/cache)",
+    )
+    serve_p.add_argument(
+        "--no-cache-persist", action="store_true",
+        help="keep the compile cache in-memory only (the pre-daemon "
+        "behavior: prepared chunks die with the process)",
+    )
+    serve_p.add_argument(
+        "--metrics-file", metavar="PATH",
+        help="stream service samples/events as JSONL; rotates at "
+        "--metrics-max-mb keeping --metrics-keep segments",
+    )
+    serve_p.add_argument(
+        "--metrics-max-mb", type=float, default=64.0, metavar="MB",
+        help="metrics JSONL rotation cap (default 64; 0 = unbounded)",
+    )
+    serve_p.add_argument(
+        "--metrics-keep", type=int, default=3, metavar="N",
+        help="rotated metrics segments kept (default 3)",
+    )
+    serve_p.add_argument(
+        "--metrics-prom", metavar="PATH",
+        help="Prometheus textfile snapshot: sweep gauges plus "
+        "shadow_tpu_daemon_uptime_seconds and the "
+        "shadow_tpu_tenant_queue_depth{tenant=...} family, rewritten "
+        "at --prom-interval cadence even mid-batch",
+    )
+    serve_p.add_argument(
+        "--mesh", metavar="RxS",
+        help="dispatch every packed batch over a 2-D Mesh(replica, "
+        "hosts) device grid (not yet ported)",
+    )
+    serve_p.add_argument(
+        "--journal-compact-every", type=int, default=512, metavar="N",
+        help="fold terminal journal records into a sha-digested "
+        "snapshot + tail once N record files accumulate, so a "
+        "months-long spool's journal stays bounded (default 512; "
+        "0 = never compact)",
+    )
+    serve_p.add_argument(
+        "--chaos-seed", type=int, metavar="N",
+        help="chaos-plane PRNG seed (docs/robustness.md)",
+    )
+    serve_p.add_argument(
+        "--chaos-fault", action="append", metavar="SPEC",
+        help="inject a deterministic daemon fault, e.g. "
+        "'daemon-kill@2:target=chunk', 'spool-corrupt@1', "
+        "'cache-corrupt@0' (repeatable; plus every run-level kind)",
+    )
+    submit_p = sub.add_parser(
+        "submit",
+        help="atomically drop a job spec into a daemon spool's "
+        "incoming/ directory (write-then-rename, so the daemon never "
+        "reads a torn file)",
+    )
+    submit_p.add_argument("spool", help="the daemon's spool directory")
+    submit_p.add_argument("spec", help="path to a job spec YAML "
+                          "(a 'job:' mapping; docs/service.md)")
+    submit_p.add_argument(
+        "--tenant", metavar="NAME",
+        help="set/override job.tenant in the submitted spec",
+    )
+    submit_p.add_argument(
+        "--wait", action="store_true",
+        help="after spooling, poll until every submitted job is "
+        "terminal; exit 0 iff all done (1 = failed/quarantined/"
+        "rejected, 2 = --timeout expired)",
+    )
+    submit_p.add_argument(
+        "--timeout", type=float, metavar="SECONDS",
+        help="give up on --wait after this long (exit 2; default: "
+        "wait forever)",
+    )
+    submit_p.add_argument(
+        "--http", metavar="URL",
+        help="with --wait, poll the daemon's HTTP status endpoint "
+        "(e.g. http://127.0.0.1:8080) instead of reading the journal — "
+        "works from hosts that cannot see the spool filesystem",
+    )
     mem_p = sub.add_parser(
         "mem",
         help="price a config's device memory without allocating it: a "
@@ -205,6 +430,59 @@ def main(argv: "list[str] | None" = None) -> int:
         except RuntimeError as e:
             if "CUDA not available" not in str(e):
                 raise
+            print(f"shadow-tpu-torch: error: {e}", file=sys.stderr)
+            return 1
+    if args.command == "sweep":
+        from shadow_tpu_torch.runtime.cli_run import CliUserError, run_sweep
+
+        try:
+            return run_sweep(
+                args.spec, output_dir=args.output_dir, show_plan=args.show_plan,
+                metrics_file=args.metrics_file, metrics_prom=args.metrics_prom,
+                device=args.device,
+            )
+        except CliUserError as e:
+            print(f"shadow-tpu-torch: error: {e}", file=sys.stderr)
+            return 1
+        except RuntimeError as e:
+            if "CUDA not available" not in str(e):
+                raise
+            print(f"shadow-tpu-torch: error: {e}", file=sys.stderr)
+            return 1
+    if args.command == "serve":
+        from shadow_tpu_torch.runtime.cli_run import CliUserError, run_serve
+
+        try:
+            return run_serve(
+                args.spool, drain=args.drain, poll_interval=args.poll_interval,
+                prom_interval=args.prom_interval, capacity=args.capacity,
+                retry_max=args.retry_max, max_queue=args.max_queue,
+                default_quota=args.default_quota, quotas=args.quota,
+                quota_classes=args.quota_class, quota_window=args.quota_window,
+                weights=args.weight, http=args.http, lease_s=args.lease_s,
+                daemon_id=args.daemon_id, keep_batch_dirs=args.keep_batch_dirs,
+                cache_dir=args.cache_dir, no_cache_persist=args.no_cache_persist,
+                metrics_file=args.metrics_file, metrics_max_mb=args.metrics_max_mb,
+                metrics_keep=args.metrics_keep, metrics_prom=args.metrics_prom,
+                chaos_seed=args.chaos_seed, chaos_faults=args.chaos_fault,
+                mesh=args.mesh, journal_compact_every=args.journal_compact_every,
+                device=args.device,
+            )
+        except CliUserError as e:
+            print(f"shadow-tpu-torch: error: {e}", file=sys.stderr)
+            return 1
+        except RuntimeError as e:
+            if "CUDA not available" not in str(e):
+                raise
+            print(f"shadow-tpu-torch: error: {e}", file=sys.stderr)
+            return 1
+    if args.command == "submit":
+        from shadow_tpu_torch.runtime.cli_run import CliUserError, run_submit
+
+        try:
+            return run_submit(args.spool, args.spec, tenant=args.tenant, wait=args.wait,
+                              timeout=args.timeout, http=args.http)
+        except CliUserError as e:
             print(f"shadow-tpu-torch: error: {e}", file=sys.stderr)
             return 1
     if args.command == "mem":

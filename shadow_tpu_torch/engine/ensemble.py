@@ -71,6 +71,7 @@ from shadow_tpu_torch.engine.state import (
     rows_view,
     stacked_view,
     state_to_host,
+    trace_static_cfg,
 )
 from shadow_tpu_torch.graph.routing import RoutingTables
 from shadow_tpu_torch.runtime import flightrec
@@ -231,54 +232,50 @@ def _finish(out: SimState, final_rows: "dict[int, np.ndarray]") -> SimState:
     )
 
 
-def run_ensemble_until(
-    st: SimState,
-    end_time: int,
-    model,
-    tables: RoutingTables,
-    cfg: EngineConfig,
-    rounds_per_chunk: int = 64,
-    max_chunks: int = 10_000,
-    on_chunk=None,
-    counters=None,
-    on_rows=None,
-    on_state=None,
-    tracker=None,
-    watchdog_s: float = 0.0,
-) -> SimState:
-    """Host-side ensemble driver: chunks of `rounds_per_chunk` rounds over
-    the whole batch until no replica has work left before end_time. `st`
-    is an init_ensemble_state [R, ...] stack; the returned state has the
-    same shape, and the caller's state is never modified. Rounds group
-    into chunks exactly as in run_until; in each round a replica with no
-    work takes the idle branch (its `now` moves and it counts an idle
-    round) while the others drain. `on_chunk(probe: ChunkProbe)` sees
-    each chunk's probe aggregated across replicas, `on_rows(rows)` the
-    raw [R, lanes] numpy probe; `counters` (a dict) accumulates "iters",
-    the batch's drain iterations. `on_state` taps
-    chunk-boundary snapshots of the [R, ...] stack as run_until taps a
-    world's (the reference's _drive_ensemble), each patched by
-    _patch_snapshot. `tracker` records run_until's dispatch spans (no
-    per-host heartbeats: a line per host cannot name its replica), and the
-    installed flight recorder observes each chunk's aggregate probe
-    before its overflow check. `watchdog_s` and the chaos plane's
-    compile, stall and capacity seams are run_until's."""
-    cfg = ensemble_engine_cfg(cfg)
-    validate_runahead(cfg, tables)
-    n = num_replicas(st)
-    nt = _LANE["next_time"]
-    entry = state_probe(st).cpu().numpy()
-    if int(entry[:, nt].min()) >= end_time:
-        check_capacity(st)
-        return st
-    # replicas quiescent at entry keep the entry state's values
-    final_rows = {r: entry[r] for r in range(n) if int(entry[r, nt]) >= end_time}
-    with _tspan(tracker, "donate_copy"):
-        st = rows_view(st.clone())
-    flightrec.begin_segment()
-    end_t = torch.tensor(end_time, dtype=torch.int64, device=st.device)
+class EnsembleChunk:
+    """One prepared ensemble chunk: `rounds_per_chunk` rounds over a
+    batch's rows view for one model and engine config, called as
+    `chunk(st, end_time, tables, counters=None)`. run_ensemble_until
+    builds one for its own run; lower_ensemble_chunk prepares one for a
+    state's shapes ahead of the run, which is what the compile cache
+    (runtime/compile_cache.py) keys and keeps, and run_ensemble_until
+    takes it through its `launch` argument.
 
-    def launch(st):
+    `engine` is what run_round executes here (the megakernel on the card
+    for a model with a kernel instance); `instance`, `dynamic_smem` and
+    `library_tag` name the kernel's template instance, the dynamic shared
+    memory its launches take at these shapes and the built library, for a
+    chunk prepared on the card (None otherwise). `build_peak_bytes` and
+    `launch_peak_bytes` are the CUDA allocator's peaks over the
+    preparation and the first call (runtime/memtrack.py compiled_memory)."""
+
+    def __init__(self, model, cfg: EngineConfig, rounds_per_chunk: int, engine: str,
+                 instance: "str | None" = None, dynamic_smem: "int | None" = None,
+                 library_tag: "str | None" = None):
+        self.model = model
+        self.cfg = cfg
+        self.rounds_per_chunk = int(rounds_per_chunk)
+        self.engine = engine
+        self.instance = instance
+        self.dynamic_smem = dynamic_smem
+        self.library_tag = library_tag
+        self.build_peak_bytes: "int | None" = None
+        self.launch_peak_bytes: "int | None" = None
+
+    def __call__(self, st: SimState, end_time: int, tables: RoutingTables, counters=None):
+        # a chunk lower_ensemble_chunk prepared on the card measures its
+        # first call's peak; a run's own chunk measures nothing
+        first = self.build_peak_bytes is not None and self.launch_peak_bytes is None
+        if first:
+            torch.cuda.reset_peak_memory_stats(st.device)
+        st = self._rounds(st, end_time, tables, counters)
+        if first:
+            self.launch_peak_bytes = int(torch.cuda.max_memory_allocated(st.device))
+        return st
+
+    def _rounds(self, st, end_time, tables, counters):
+        cfg, model, rounds_per_chunk = self.cfg, self.model, self.rounds_per_chunk
+        end_t = torch.tensor(end_time, dtype=torch.int64, device=st.device)
         for k in range(rounds_per_chunk):
             start = per_replica(st, equeue.next_time(st.queue)).amin(dim=1)
             has_traffic = per_replica(st, st.outbox.valid).any(dim=1)
@@ -304,15 +301,120 @@ def run_ensemble_until(
                 ))
         return st
 
+
+def lower_ensemble_chunk(st: SimState, end_time: int, rounds_per_chunk: int, model,
+                         tables: RoutingTables, cfg: EngineConfig) -> EnsembleChunk:
+    """The compile-cache seam (the reference's AOT lowering of its
+    ensemble chunk): prepare the chunk for this [R, ...] state's shapes
+    under the canonical static cfg (engine/state.py trace_static_cfg: the
+    seed never enters a chunk, so worlds that differ only in seed prepare
+    one chunk). Where the chunk runs the kernel (the megakernel engine on
+    the card, a model with a kernel instance), this loads the kernel's
+    library (nvcc at first use, else the build directory) and checks its
+    launch at these shapes: the argument struct over the batch's rows
+    (megakernel.kernel_args) and the dynamic shared memory a launch takes
+    against what the card grants a block. A failure raises: the chunk
+    cannot run here. `end_time` keeps the reference's signature; the
+    chunk takes the end time at each call, so it is not baked in."""
+    from shadow_tpu_torch.engine.round import model_pump_capable
+
+    cfg = trace_static_cfg(ensemble_engine_cfg(cfg))
+    validate_runahead(cfg, tables)
+    device = st.device
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    engine = effective_engine(cfg, device) if model_pump_capable(model) else "plain"
+    chunk = EnsembleChunk(model, cfg, rounds_per_chunk, engine)
+    if engine == "megakernel" and device.type == "cuda":
+        from shadow_tpu_torch.engine import megakernel as mk
+
+        kcfg = mk.resolve_stage_cfg(cfg)
+        mk.PUMP_KERNEL.library()
+        rows = rows_view(st)
+        r = num_replicas(st)
+        window_end = torch.zeros((r,), dtype=torch.int64, device=device)
+        rejected = torch.zeros((r,), dtype=torch.int32, device=device)
+        args, keep = mk.kernel_args(rows, window_end, model, tables.to(device), kcfg, rejected,
+                                    mk.PUMP_KERNEL.codel_table(device))
+        smem = mk.PUMP_KERNEL.dynamic_smem(args)
+        del keep
+        limit = getattr(torch.cuda.get_device_properties(device),
+                        "shared_memory_per_block_optin", None)
+        if limit is not None and smem > limit:
+            raise RuntimeError(
+                f"pump megakernel: a launch at these shapes takes {smem} B of dynamic "
+                f"shared memory, more than the {limit} B a block may have on {device}")
+        chunk.instance = mk.kernel_instance(model, kcfg)
+        chunk.dynamic_smem = smem
+        chunk.library_tag = mk.PUMP_KERNEL.tag()
+    if device.type == "cuda":
+        chunk.build_peak_bytes = int(torch.cuda.max_memory_allocated(device))
+    return chunk
+
+
+def run_ensemble_until(
+    st: SimState,
+    end_time: int,
+    model,
+    tables: RoutingTables,
+    cfg: EngineConfig,
+    rounds_per_chunk: int = 64,
+    max_chunks: int = 10_000,
+    on_chunk=None,
+    counters=None,
+    on_rows=None,
+    on_state=None,
+    tracker=None,
+    watchdog_s: float = 0.0,
+    launch=None,
+) -> SimState:
+    """Host-side ensemble driver: chunks of `rounds_per_chunk` rounds over
+    the whole batch until no replica has work left before end_time. `st`
+    is an init_ensemble_state [R, ...] stack; the returned state has the
+    same shape, and the caller's state is never modified. Rounds group
+    into chunks exactly as in run_until; in each round a replica with no
+    work takes the idle branch (its `now` moves and it counts an idle
+    round) while the others drain. `on_chunk(probe: ChunkProbe)` sees
+    each chunk's probe aggregated across replicas, `on_rows(rows)` the
+    raw [R, lanes] numpy probe; `counters` (a dict) accumulates "iters",
+    the batch's drain iterations. `on_state` taps
+    chunk-boundary snapshots of the [R, ...] stack as run_until taps a
+    world's (the reference's _drive_ensemble), each patched by
+    _patch_snapshot. `tracker` records run_until's dispatch spans (no
+    per-host heartbeats: a line per host cannot name its replica), and the
+    installed flight recorder observes each chunk's aggregate probe
+    before its overflow check. `watchdog_s` and the chaos plane's
+    compile, stall and capacity seams are run_until's. `launch` (an
+    EnsembleChunk from lower_ensemble_chunk, the compile cache's entry)
+    runs each chunk in place of the chunk this driver prepares itself."""
+    cfg = ensemble_engine_cfg(cfg)
+    validate_runahead(cfg, tables)
+    n = num_replicas(st)
+    nt = _LANE["next_time"]
+    entry = state_probe(st).cpu().numpy()
+    if int(entry[:, nt].min()) >= end_time:
+        check_capacity(st)
+        return st
+    # replicas quiescent at entry keep the entry state's values
+    final_rows = {r: entry[r] for r in range(n) if int(entry[r, nt]) >= end_time}
+    with _tspan(tracker, "donate_copy"):
+        st = rows_view(st.clone())
+    flightrec.begin_segment()
+    engine = effective_engine(cfg, st.device)
+    if launch is None:
+        launch = EnsembleChunk(model, cfg, rounds_per_chunk, engine)
+
+    def run_chunk_rounds(st):
+        return launch(st, end_time, tables, counters)
+
     def snapshot(st):
         with _tspan(tracker, "state_snapshot", chunk=chunks):
             return _patch_snapshot(state_to_host(stacked_view(st)), final_rows)
 
-    engine = effective_engine(cfg, st.device)
     chunks = 0
     pending = False  # a due snapshot of this chunk's state (see run_until)
     while True:
-        st, rows = run_chunk(launch, st, chunks, tracker, engine, watchdog_s)
+        st, rows = run_chunk(run_chunk_rounds, st, chunks, tracker, engine, watchdog_s)
         chunks += 1
         rows = np.asarray(rows, dtype=np.int64)
         probe = _aggregate_probe(rows)
@@ -330,7 +432,7 @@ def run_ensemble_until(
             if r not in final_rows and int(rows[r, nt]) >= end_time:
                 final_rows[r] = rows[r]
         if on_state is not None:
-            pending = tap_chunk(on_state, probe, chunks - 1, st, launch, snapshot,
+            pending = tap_chunk(on_state, probe, chunks - 1, st, run_chunk_rounds, snapshot,
                                 pending, ahead)
         if len(final_rows) == n:
             return _finish(stacked_view(st), final_rows)

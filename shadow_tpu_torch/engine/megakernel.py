@@ -150,12 +150,32 @@ class PumpMegakernel:
             self._lib = self._build()
         return self._lib
 
+    @staticmethod
+    def tag() -> str:
+        """The build's identity: a digest of the source and nvcc's flags
+        (the library's file name carries it)."""
+        src = SOURCE.read_bytes()
+        return hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+
+    def library_path(self) -> Path:
+        return BUILD_DIR / f"pump_megakernel_{self.tag()}.so"
+
+    def install_library(self, data: bytes) -> None:
+        """Put a library built earlier from this very source (its bytes,
+        e.g. from a persistent compile cache) where library() loads it,
+        so the next load runs no nvcc. A library already there is kept."""
+        out = self.library_path()
+        if out.exists():
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp.write_bytes(data)
+        os.replace(tmp, out)
+
     def _build(self) -> ctypes.CDLL:
         """nvcc's output (the -Xptxas -v resource report) is kept beside
         the library, so a later process that loads it still has it."""
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = BUILD_DIR / f"pump_megakernel_{tag}.so"
+        out = self.library_path()
         log = out.with_suffix(".log")
         if out.exists():
             self.build_log = log.read_text() if log.exists() else ""

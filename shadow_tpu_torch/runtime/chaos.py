@@ -26,6 +26,25 @@ The seams the port carries:
                     after it is written (runtime/checkpoint.py): the
                     sha-256 check and `latest_path`'s fall-back-to-valid.
   ``ckpt-truncate`` truncate checkpoint file number `at`.
+  ``preempt``       arm the sweep scheduler's preemption guard at batch
+                    chunk `at` with no higher-priority arrival
+                    (runtime/sweep.py): a preemption storm is several.
+  ``daemon-kill``   SIGKILL the serve daemon (runtime/daemon.py) at site
+                    ordinal `at`; `target` picks the site class
+                    (``admit`` / ``batch-start`` / ``chunk`` /
+                    ``checkpoint`` / ``compact``): restart on the same
+                    spool loses zero jobs.
+  ``spool-corrupt`` flip bytes inside journal record number `at` after
+                    its atomic write: the record's sha-256 check and the
+                    accepted-spec re-admission.
+  ``cache-corrupt`` flip bytes inside persistent compile-cache entry
+                    number `at` after its atomic write
+                    (runtime/compile_cache.py): a rebuild with a warning.
+  ``http-drop``     drop HTTP request number `at` with a structured 503
+                    (runtime/httpapi.py).
+  ``lease-steal``   rewrite the running batch's claim file to a foreign
+                    owner at lease renewal `at` (runtime/daemon.py): the
+                    batch parks through a checkpoint and re-queues.
 
 The plan parses every kind of the reference's catalog
 (config/options.py FAULT_KINDS); the manager refuses, with NotYetPorted,
@@ -60,16 +79,8 @@ MAX_FIRED_RECORDS = 100
 MAX_FIRED_LOGS = 5
 
 # fault kinds whose seams belong to planes the port does not carry yet
-# (the services, the multi-device mesh)
-LATER_KINDS = (
-    "preempt",
-    "daemon-kill",
-    "spool-corrupt",
-    "cache-corrupt",
-    "http-drop",
-    "lease-steal",
-    "device-loss",
-)
+# (the multi-device mesh)
+LATER_KINDS = ("device-loss",)
 
 
 @dataclasses.dataclass

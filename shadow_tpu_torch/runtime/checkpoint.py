@@ -281,6 +281,14 @@ class CheckpointManager:
                 chaos.damage_file(path, truncate=False)
             if chaos.fire("ckpt-truncate", at=ordinal) is not None:
                 chaos.damage_file(path, truncate=True)
+            # daemon-plane seam (runtime/daemon.py): SIGKILL the process
+            # the instant a checkpoint commits; the atomic write means a
+            # restart finds this checkpoint or the previous one, never a
+            # torn file
+            if chaos.fire("daemon-kill", at=ordinal, tags=("checkpoint",)) is not None:
+                slog("warning", now, "chaos",
+                     f"injected fault: daemon-kill at checkpoint {ordinal} — SIGKILL now")
+                os.kill(os.getpid(), signal.SIGKILL)
         self.written.append(path)
         slog("info", now, "checkpoint",
              f"wrote {'final ' if final else ''}checkpoint {path}")
@@ -294,6 +302,33 @@ class CheckpointManager:
                 os.remove(stale)
             except OSError:
                 pass
+
+    @staticmethod
+    def prune_batch_dirs(root: str, keep: int, protect: "set[str] | None" = None) -> int:
+        """Rolling retention for per-batch checkpoint directories (the
+        daemon's disk bound): keep the newest `keep` subdirectories of
+        `root` (by mtime), remove the rest, except any in `protect`
+        (batches still pending resume). Returns the number removed.
+        Best-effort: an unremovable directory is skipped."""
+        import shutil
+
+        protected = {os.path.abspath(p) for p in protect or ()}
+        try:
+            dirs = [os.path.join(root, d) for d in os.listdir(root)
+                    if os.path.isdir(os.path.join(root, d))]
+        except OSError:
+            return 0
+        dirs.sort(key=lambda d: os.path.getmtime(d), reverse=True)
+        removed = 0
+        for stale in dirs[max(0, keep):]:
+            if os.path.abspath(stale) in protected:
+                continue
+            try:
+                shutil.rmtree(stale)
+                removed += 1
+            except OSError:
+                pass
+        return removed
 
     @staticmethod
     def latest_path(directory: str, verify: bool = True) -> "str | None":

@@ -10,8 +10,10 @@ mean/stddev/min/max/95% CI across replicas.
 run() carries the reference runner's checkpoint, interrupt, recovery,
 watchdog, engine-ladder and tracker seams (a regrow widens the whole
 batch); flatten_host_stats folds the batch's per-host tensors for the
-tracker. Not carried yet: its compile-cache seam (`_launch_for`), which
-comes with the sweep service.
+tracker. The sweep service's seams: a compile cache
+(runtime/compile_cache.py) keyed under `cache_key` (the config
+fingerprint modulo seed), so same-shape batches share one prepared
+chunk (`_launch_for`), and a per-replica probe-row stream (`on_rows`).
 """
 
 from __future__ import annotations
@@ -42,8 +44,8 @@ class EnsembleRunner:
 
     def __init__(self, model, tables: RoutingTables, cfg: EngineConfig, num_replicas: int,
                  *, seed_stride: int = 1, rounds_per_chunk: int = 256,
-                 tx_bytes_per_interval=None, rx_bytes_per_interval=None, on_rows=None,
-                 watchdog_s: float = 0.0, device="cuda"):
+                 tx_bytes_per_interval=None, rx_bytes_per_interval=None, compile_cache=None,
+                 cache_key=None, on_rows=None, watchdog_s: float = 0.0, device="cuda"):
         if num_replicas < 1:
             raise ValueError("num_replicas must be >= 1")
         self.device = resolve_device(device)
@@ -55,6 +57,8 @@ class EnsembleRunner:
         self.rounds_per_chunk = rounds_per_chunk
         self.tx_bytes_per_interval = tx_bytes_per_interval
         self.rx_bytes_per_interval = rx_bytes_per_interval
+        self.compile_cache = compile_cache
+        self.cache_key = cache_key
         self.on_rows = on_rows
         self.watchdog_s = watchdog_s
         # the engine run_round executes for this model here: the kernel
@@ -77,6 +81,33 @@ class EnsembleRunner:
             device=self.device,
         )
 
+    def _launch_for(self, st, end_time_ns: int, cfg):
+        """The compile-cache lookup: the prepared chunk for this
+        (fingerprint-modulo-seed key, state shapes, static cfg), or None
+        for the chunk run_ensemble_until prepares itself. Recovery regrows
+        change the state shapes, so a regrown replay keys (and builds)
+        its own entry instead of aliasing the old one. The lookup runs in
+        the chaos plane's compile seam, as a chunk 0 launch does: only an
+        injected `compile` fault falls a rung; a kernel that fails to
+        build or to fit its launch stops the run."""
+        if self.compile_cache is None:
+            return None
+        from shadow_tpu_torch.engine.ensemble import lower_ensemble_chunk
+        from shadow_tpu_torch.engine.state import trace_static_cfg
+        from shadow_tpu_torch.runtime import chaos
+
+        static_cfg = trace_static_cfg(ensemble_engine_cfg(cfg))
+        eng = effective_engine(static_cfg, self.device)
+        with chaos.compile_seam(eng):
+            return self.compile_cache.get(
+                (self.cache_key, self.rounds_per_chunk),
+                st,
+                static_cfg,
+                lambda: lower_ensemble_chunk(
+                    st, end_time_ns, self.rounds_per_chunk, self.model, self.tables, cfg,
+                ),
+            )
+
     def _runner_factory(self, end_time_ns: int, on_chunk, max_chunks, tracker=None):
         def factory(cfg):
             def run(st, on_state=None):
@@ -85,6 +116,7 @@ class EnsembleRunner:
                     rounds_per_chunk=self.rounds_per_chunk, max_chunks=max_chunks,
                     on_chunk=on_chunk, on_rows=self.on_rows, on_state=on_state,
                     tracker=tracker, watchdog_s=self.watchdog_s,
+                    launch=self._launch_for(st, end_time_ns, cfg),
                 )
 
             return run

@@ -15,8 +15,10 @@ storage, so `mem` prices a config without allocating anything.
 `device_memory` reads the CUDA caching allocator's counters for live
 sampling (runtime/flightrec.py) and the sim-stats `memory` section: host
 reads, no device sync, and None on the CPU, where the reference's CPU
-backend reports none either. The reference's third reader,
-`compiled_memory`, reads XLA executables and has no counterpart here.
+backend reports none either. The third reader, `compiled_memory`,
+reports a compile-cache entry's memory (runtime/compile_cache.py): the
+reference reads XLA's analysis of an executable; the port reads the CUDA
+allocator's peaks over the entry's build and its first launch.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ __all__ = [
     "max_hosts_for_budget",
     "render_report",
     "memory_section",
+    "compiled_memory",
     "device_memory",
     "fmt_bytes",
     "leaf_nbytes",
@@ -232,3 +235,19 @@ def device_memory(device=None, limit: bool = True) -> "dict | None":
         return out
     except Exception:  # noqa: BLE001 — diagnostics, never a failure
         return None
+
+
+def compiled_memory(exe) -> "dict | None":
+    """A prepared chunk's memory (engine/ensemble.py EnsembleChunk): the
+    CUDA allocator's peak over its build (`build_peak_bytes`), over its
+    first launch once that has run (`launch_peak_bytes`), and the larger
+    as `peak_bytes`. None for a chunk prepared on the CPU, or for
+    anything else: the reference's "backend does not report" branch."""
+    peaks = {
+        k: int(v)
+        for k in ("build_peak_bytes", "launch_peak_bytes")
+        if (v := getattr(exe, k, None))
+    }
+    if not peaks:
+        return None
+    return {**peaks, "peak_bytes": max(peaks.values())}

@@ -5,8 +5,10 @@ observability modules (OBSERVABILITY: the tracker registry, the flight
 recorder, the memory observatory), the run-loop guards and cpu-ref
 oracles (GUARDS) and the managed-process modules (MANAGED: the host
 kernel, the device plane's model, the hybrid schedulers and their
-workers, pcap) are named on their own: each is imported alone in a fresh
-interpreter, and each is in the source scan."""
+workers, pcap) and the services (SERVICES: sweep specs, the compile
+cache, the sweep scheduler, the daemon, its HTTP front door) are named
+on their own: each is imported alone in a fresh interpreter, and each
+is in the source scan."""
 
 import ast
 import pathlib
@@ -52,6 +54,15 @@ MANAGED = (
     "shadow_tpu_torch.runtime.hybrid_worker",
     "shadow_tpu_torch.utils.pcap",
 )
+# the services: sweep specs, the compile cache, the sweep scheduler, the
+# daemon and its HTTP front door
+SERVICES = (
+    "shadow_tpu_torch.config.sweep",
+    "shadow_tpu_torch.runtime.compile_cache",
+    "shadow_tpu_torch.runtime.sweep",
+    "shadow_tpu_torch.runtime.daemon",
+    "shadow_tpu_torch.runtime.httpapi",
+)
 
 
 def _forbidden(module: str) -> bool:
@@ -95,7 +106,7 @@ def test_source_imports_no_jax(path):
     assert not bad, f"{path}: imports {bad}"
 
 
-@pytest.mark.parametrize("module", OBSERVABILITY + GUARDS + MANAGED)
+@pytest.mark.parametrize("module", OBSERVABILITY + GUARDS + MANAGED + SERVICES)
 def test_observability_module_imports_no_jax(module):
     """A fresh interpreter imports the module alone (and through it what
     it needs of the port): no jax, flax or shadow_tpu module loads, and
