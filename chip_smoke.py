@@ -15,9 +15,11 @@ Phases, each printing one line; any failure exits non-zero:
      states that reach the kernel's edge cases: a queue of 8 slots whose
      rows start full, a queue of 1,100 slots whose rows hold more slots
      below the window end than the kernel stages, and a host count that is
-     not a multiple of the rows a warp owns; then the same on a 4,096-host
-     world whose streams cross lossy links (shaped and unshaped), plus
-     whole runs of both engines there;
+     not a multiple of the rows a warp owns, and on one shard's rows (a
+     quarter of the hosts, row index != host id) at the burst, timed with
+     its bound; then the same on a 4,096-host world whose streams cross
+     lossy links (shaped and unshaped), plus whole runs of both engines
+     there;
      wide_kernel: the kernel's wide instances, which take any pump_k and
      any socket count: tgen's at pump_k 40 in the burst (timed with its
      bound), on the edge states and on rows that take 40 events in one
@@ -92,7 +94,7 @@ Phases, each printing one line; any failure exits non-zero:
   9. the ensemble plane (R seeded replicas as one batch, one kernel launch
      over all R x H rows per drain iteration):
      ensemble-tgen-10240x8, the lossy tgen world (6 nodes) at 10,240 hosts x 8
-     replicas (81,920 rows): the main path with engine "auto", replicas 0
+     replicas (81,920 rows) to 60 ms: the main path with engine "auto", replicas 0
      and 7 held against single kernel runs seeded 11 and 18 (the first is
      the R = 1 run it is compared with), launches against drain
      iterations, and the kernel against its twin at the burst, timed with
@@ -135,12 +137,27 @@ Phases, each printing one line; any failure exits non-zero:
      every job done, builds equal to the distinct worlds (2) and hits for
      the resume and the second batch (2), the preempted job and one of
      the other batch leaf-equal to single runs of their seeds; its daemon
-     part ran in a process of its own beside the wide onion runs (`serve`
+     part ran in a process of its own since phase 9 (`serve`
      daemons on the card taking submitted examples/tgen jobs: one whose
      cache entry a cache-corrupt fault damages, SIGKILLed mid-batch by the
      chaos plane; the restart, which rebuilds the entry with its warning
      and loses no job, each job's sim-stats that of a single run; a warm
      start with zero builds behind the HTTP front door on 127.0.0.1);
+  9d. mesh: the multi-device planes on 8 logical devices of the card
+     (SHADOW_TPU_TORCH_LOGICAL_DEVICES): sharded-10240, the bench world
+     through TpuScheduler with parallelism 4 (all_to_all, the auto
+     bucket) to 0.5 s, the kernel launched on each shard's rows, at the
+     oracle's counters and equal to the main path's final state but for
+     the per-shard diagnostics; and what ran in processes of their own
+     since phase 9: mesh-2x4-lossy-10240x2 (`--mesh-lossy OUT`: the lossy
+     world x 2 on a 2x4 grid, the segment exchange's ring, to 40 ms,
+     plain, under a device loss of logical device 5 that degrades it to
+     2x2, and interrupted at 20 ms then resumed on 1x4, each equal to the
+     same batch through run_ensemble_until in pop order), `run --mesh
+     2x2` of the phold example (stop time cut) straight and resumed on
+     1x2 (its log naming the reshard), each equal to `run --replicas 2`
+     on it, and a `sweep` of examples/tgen (stop time cut) with `mesh:
+     2x2` equal job for job to the same sweep without one, one build;
  10. the narrow instances' R = 1 launch times beside the earlier record,
      the wide instances' launch times beside theirs before the redesign,
      the kernels JSON line (one entry per template instance of the
@@ -152,12 +169,14 @@ Imports torch, numpy and the port only (no jax, nothing of shadow_tpu/).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
 import random
 import re
 import shlex
+import signal
 import subprocess
 import sys
 import tempfile
@@ -239,7 +258,10 @@ RAGGED_SHORT = 5
 LOSSY_HOSTS = 4096
 LOSSY_MID_NS_SHAPED = 26_000_000
 LOSSY_MID_NS_UNSHAPED = 22_000_000
-LOSSY_END_NS = 120_000_000
+# the whole runs of both engines there end here (cut from 120 ms to make
+# room for the mesh phase: past both bursts and the streams'
+# second requests after their 30 ms pause)
+LOSSY_END_NS = 60_000_000
 # the onion cell: 10,240 hosts, 4,096 clients (0.4) and 6,144 relays
 # (about Tor's consensus size), to ONION_END_NS, in its burst (the plain
 # handler, which every relay event takes, holds the host ~66 ms per drain
@@ -313,14 +335,18 @@ EARLIER_WIDE_LAUNCH_MS = {"tgen_wide_burst_k40": 0.5351, "onion_wide_33_sockets"
 # ENS_RAGGED_REPLICAS
 ENS_TGEN_REPLICAS = 8
 ENS_TGEN_NODES = 6
-ENS_TGEN_END_NS = 120_000_000
+# cut from 120 ms for the mesh phase: past the burst and the
+# second requests of the streams' 30 ms pause
+ENS_TGEN_END_NS = 60_000_000
 ENS_ONION_REPLICAS = 4
 ENS_ONION_END_NS = 30_000_000
 ENS_RAGGED_REPLICAS = 2
-# the small worlds of phold, bulk-tcp, cdn and gossip (card vs CPU), and
-# the horizon of phold at full width
+# the small worlds of phold, bulk-tcp, cdn and gossip (card vs CPU; the
+# tests hold them against the JAX package at this horizon too), and the
+# horizon of phold at full width (cut from 200 ms to make room for the
+# mesh phase)
 SMALL_WORLD_END_NS = 200_000_000
-PHOLD_END_NS = 200_000_000
+PHOLD_END_NS = 100_000_000
 # planes-10240: active_lanes = hosts / PLANES_LANES_DIV (1,280 at full
 # width, as tools/profile_kernels.py sizes it); the end of the search, in
 # steps of 1 ms from the lossy world's burst, for a state whose next
@@ -462,14 +488,50 @@ SERVICES_DAEMON_CKPT = "50 ms"
 SERVICES_DAEMON_KILL_AT = 8
 SERVICES_DAEMON_LEASE_S = "2"
 SERVICES_DAEMON_WAIT_S = 300
+# a timed launch holds every process this script started (quiet_card):
+# what they queued on the card drains for QUIET_DRAIN_S first
+QUIET_DRAIN_S = 0.2
+# 9d. mesh: the multi-device planes on logical devices of the one card
+# (SHADOW_TPU_TORCH_LOGICAL_DEVICES): the bench world sharded over 4 of 8
+# (all_to_all, the auto bucket); the lossy world at R replicas on a 2x4
+# grid with the segment exchange's ring to MESH_END_NS, plain, under a
+# device loss of MESH_LOSS_DEVICE at launch MESH_LOSS_AT (2x4 -> 2x2), and
+# interrupted at MESH_INTERRUPT_NS then resumed on 1x4
+MESH_LOGICAL_DEVICES = 8
+MESH_SHARDS = 4
+MESH_REPLICAS = 2
+MESH_GRID = (2, 4)
+MESH_RESUME_GRID = (1, 4)
+MESH_END_NS = 40_000_000
+MESH_RPC = 1  # a probe a round: the interrupt lands mid-run, the checkpoint before the end
+MESH_LOSS_AT = 2
+MESH_LOSS_DEVICE = 5
+MESH_INTERRUPT_NS = 20_000_000
+MESH_DROP = (".iters_done", ".lanes_live", ".tracker.exch_hwm")  # per-shard diagnostics
+# the background mesh CLIs: `run --mesh 2x2` of the phold example (stop
+# time cut) straight and interrupted at MESH_CLI_INTERRUPT_NS, resumed on
+# 1x2; `sweep` of examples/tgen (stop time cut) seeds 0-3 with and
+# without `mesh: 2x2`
+MESH_CLI_GRID = "2x2"
+MESH_CLI_RESUME_GRID = "1x2"
+MESH_CLI_INTERRUPT_NS = 250_000_000
+MESH_SWEEP_STOP = ('stop_time: "4 s"', 'stop_time: "1 s"')
+MESH_SWEEP_SEEDS = 4
 # H100 SXM device-memory rate (NVIDIA data sheet) for the bound column
 HBM_BYTES_PER_S = 3.35e12
 # non-tensor-core 32-bit rate (NVIDIA data sheet, FP32), the op yardstick
 OPS_PER_S = 67e12
 
 
+# every line this process printed (a process of its own hands them to
+# the smoke in its record)
+PRINTED: list = []
+
+
 def line(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    text = json.dumps({"phase": phase, **kw})
+    PRINTED.append(text)
+    print(text, flush=True)
 
 
 def bench_graph(seed: int = 7):
@@ -800,25 +862,76 @@ def leaves_equal(a, b):
     return bad, err
 
 
+def _descendants() -> "list[int]":
+    """The pids of every process this one started, directly or through
+    another (read from /proc)."""
+    parent = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                parent[int(name)] = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue  # gone meanwhile
+    out, todo = [], [os.getpid()]
+    while todo:
+        kids = [pid for pid, pp in parent.items() if pp == todo[-1]]
+        todo.pop()
+        out += kids
+        todo += kids
+    return out
+
+
+@contextlib.contextmanager
+def quiet_card(device):
+    """Hold (SIGSTOP) every process this script started while a launch
+    is timed on the card, and let them go on (SIGCONT) after: from phase
+    9 on, the mesh and services runs share the card in processes of
+    their own, and the card's time slices between processes would stretch
+    the CUDA-event times. What they queued drains before the timing
+    starts. On the CPU, and with nothing started, it does nothing."""
+    pids = _descendants() if device.type == "cuda" else []
+    held = []
+    for pid in pids:
+        try:
+            os.kill(pid, signal.SIGSTOP)
+            held.append(pid)
+        except ProcessLookupError:
+            pass
+    try:
+        if held:
+            time.sleep(QUIET_DRAIN_S)
+        yield
+    finally:
+        for pid in held:
+            try:
+                os.kill(pid, signal.SIGCONT)
+            except ProcessLookupError:
+                pass
+
+
 def timed_ms(fn, reps: int, setup, device) -> float:
     """Mean ms of fn(setup()) over `reps` calls: CUDA events on the card
-    (setup() runs untimed before each call), the host clock on the CPU."""
+    (setup() runs untimed before each call; every process this script
+    started held meanwhile), the host clock on the CPU."""
     total = 0.0
-    for _ in range(reps):
-        arg = setup()
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            fn(arg)
-            t1.record()
-            torch.cuda.synchronize()
-            total += t0.elapsed_time(t1)
-        else:
-            t0 = time.perf_counter()
-            fn(arg)
-            total += (time.perf_counter() - t0) * 1e3
+    with quiet_card(device):
+        for _ in range(reps):
+            arg = setup()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                fn(arg)
+                t1.record()
+                torch.cuda.synchronize()
+                total += t0.elapsed_time(t1)
+            else:
+                t0 = time.perf_counter()
+                fn(arg)
+                total += (time.perf_counter() - t0) * 1e3
     return total / reps
 
 
@@ -826,7 +939,8 @@ def kernel_device_ms(st, we, model, tables, cfg, reps: int) -> float:
     """Mean device ms of one kernel launch, each on a fresh clone of
     `st`. The argument structs are built before timing; a sleep kernel
     holds the stream while every launch is enqueued, so the CUDA events
-    around each launch bracket the kernel alone, not the host's wrapper."""
+    around each launch bracket the kernel alone, not the host's wrapper;
+    every process this script started is held meanwhile (quiet_card)."""
     from shadow_tpu_torch.engine import megakernel as mk
 
     dev = st.device
@@ -837,13 +951,14 @@ def kernel_device_ms(st, we, model, tables, cfg, reps: int) -> float:
         prepared.append(mk.kernel_args(st.clone(), w, model, tables, cfg, rej, codel))
     events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
               for _ in range(reps)]
-    torch.cuda.synchronize()
-    torch.cuda._sleep(100_000_000)  # ~50 ms of clock cycles
-    for (args, _), (t0, t1) in zip(prepared, events):
-        t0.record()
-        mk.PUMP_KERNEL.launch(args, dev)
-        t1.record()
-    torch.cuda.synchronize()
+    with quiet_card(dev):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)  # ~50 ms of clock cycles
+        for (args, _), (t0, t1) in zip(prepared, events):
+            t0.record()
+            mk.PUMP_KERNEL.launch(args, dev)
+            t1.record()
+        torch.cuda.synchronize()
     return sum(t0.elapsed_time(t1) for t0, t1 in events) / reps
 
 
@@ -2049,12 +2164,15 @@ def observability_cli_finish(run) -> bool:
     return ok
 
 
-def ensemble_cli_finish(run) -> bool:
+def ensemble_cli_finish(run, keep: "dict | None" = None) -> bool:
     """`run --replicas 2` on the phold example (stop time cut): the
     ensemble's sim-stats, whose replica 0 runs the config's own seed and
-    so is the single run PHOLD_EXAMPLE_STATS pins."""
+    so is the single run PHOLD_EXAMPLE_STATS pins (kept in `keep` for the
+    mesh's CLI runs)."""
     ok, stats = cli_finish(
         run, {k: PHOLD_EXAMPLE_STATS[k] for k in ("sim_seconds", "num_hosts")})
+    if keep is not None:
+        keep["stats"] = stats
     per = (stats.get("ensemble") or {}).get("per_replica") or [{}, {}]
     first = {k: per[0].get(k) for k in ("events_handled", "packets_sent")}
     ok = (ok and stats.get("scheduler") == "tpu-ensemble" and len(per) == 2
@@ -2147,12 +2265,13 @@ def guards_cli_runs(dev) -> list:
     ]
 
 
-def background_clis(dev):
+def background_clis(dev, phold_replicas: dict):
     """Start every CLI run of the smoke, each in a process of its own: on
     the onion example (stop time cut), on examples/fattree, on
     examples/tgen (plain, and with the observability flags, `mem`
     beside it, and the guards' runs: guards_cli_runs), on the phold
-    example (stop time cut) and `run --replicas 2` on it; and the cpu-ref
+    example (stop time cut) and `run --replicas 2` on it (its sim-stats
+    kept in `phold_replicas` for the mesh's CLI runs); and the cpu-ref
     oracles against the engine on the card (cpu_ref_start). A callable
     that waits for all and says whether all passed."""
     tgen_ref = {}
@@ -2169,7 +2288,7 @@ def background_clis(dev):
             (cli_start("phold/shadow.yaml", dev, PHOLD_EXAMPLE_STOP),
              lambda r: cli_finish(r, PHOLD_EXAMPLE_STATS)[0]),
             (cli_start("phold/shadow.yaml", dev, PHOLD_EXAMPLE_STOP, extra=("--replicas", "2")),
-             ensemble_cli_finish),
+             lambda r: ensemble_cli_finish(r, phold_replicas)),
             (observability_cli_start(dev), observability_cli_finish)]
     runs += [(r, lambda r, f=f: f(r, tgen_ref)) for r, f in guards_cli_runs(dev)]
     return lambda: all([finish(r) for r, finish in runs])
@@ -2280,7 +2399,7 @@ STARTED = []
 
 
 def cli_start(example: str, dev, stop=None, extra=(), subs=(), interrupt_ns=None,
-              resume_extra=()) -> dict:
+              resume_extra=(), env=None) -> dict:
     """Start `python -m shadow_tpu_torch run` on an example config in a
     process of its own (its data directory moved to a temporary one;
     `stop`, a pair of stop_time lines, shortens it; `subs`, more (old, new)
@@ -2289,7 +2408,7 @@ def cli_start(example: str, dev, stop=None, extra=(), subs=(), interrupt_ns=None
     `interrupt_ns` the run is interrupted there (the interrupt guard's
     sim-time knob; its exit status goes to the handle's "rc_path") and
     then resumed with `--resume` and the flags `resume_extra` instead of
-    `extra`, in one shell."""
+    `extra`, in one shell. `env` adds to its environment."""
     tmp = tempfile.TemporaryDirectory()
     src = open(os.path.join(HERE, "examples", example)).read()
     for old, new in ((stop,) if stop is not None else ()) + tuple(subs):
@@ -2315,7 +2434,7 @@ def cli_start(example: str, dev, stop=None, extra=(), subs=(), interrupt_ns=None
         # one host thread for torch's CPU ops: these processes run beside
         # the smoke's own host-bound runs
         proc = subprocess.Popen(cmd, cwd=HERE, stdout=out, stderr=err,
-                                env=dict(os.environ, OMP_NUM_THREADS="1"))
+                                env=dict(os.environ, OMP_NUM_THREADS="1", **(env or {})))
     STARTED.append(proc)
     return dict(example=example, extra=list(extra), proc=proc, t0=t0, data=data,
                 stderr=err_path, tmps=[tmp], rc_path=rc_path)
@@ -3441,6 +3560,404 @@ def services_phase(hosts: int, dev, daemon: dict) -> "tuple[bool, int]":
     line("services_daemon", **{k: v for k, v in daemon.items()})
     return ok and ok_d, launches
 
+def logical_env() -> dict:
+    """The environment that presents MESH_LOGICAL_DEVICES logical devices
+    on each physical one (shadow_tpu_torch/device.py)."""
+    from shadow_tpu_torch.device import LOGICAL_DEVICES_ENV
+
+    return {LOGICAL_DEVICES_ENV: str(MESH_LOGICAL_DEVICES)}
+
+
+def shard_stage(st_b, we, model, tables, scfg, reps, dev):
+    """Kernel vs twin on one shard's rows of the bench world at its burst:
+    shard 1 of MESH_SHARDS (hosts H/4 .. H/2 - 1, so row index != host
+    id), at the world's window end (the sharded window is the pmin over
+    the shards, the world's), timed with its bound. Returns timed_stage's
+    (ok, numbers, largest error)."""
+    from shadow_tpu_torch.engine.sharded import split_grid
+
+    cell = split_grid(st_b, [[dev] * MESH_SHARDS])[0][1]
+    rows = int(cell.num_hosts)
+    ok, entry, err = timed_stage(
+        "shard_kernel_vs_twin", cell, we, model, tables, scfg, reps, dev, must_take=True,
+        cell=f"sharded-{int(st_b.num_hosts)}", shard=1, shards=MESH_SHARDS, rows=rows,
+        first_host=int(cell.host_id[0]))
+    entry["rows"] = rows
+    return ok, entry, err
+
+
+def mesh_cli_runs(dev) -> list:
+    """The mesh's CLI runs, each in a process of its own with
+    MESH_LOGICAL_DEVICES logical devices: `run --mesh 2x2` of the phold
+    example (stop time cut) straight, and interrupted at
+    MESH_CLI_INTERRUPT_NS then resumed with `--mesh 1x2 --replicas 2`
+    (16 rounds a chunk, so that the interrupt falls mid-run), each held
+    against `run --replicas 2` on it (`ref`, filled by background_clis)
+    but for the mesh section and the execution shape, the resume's log
+    naming the reshard; `sweep` of examples/tgen (stop time cut) seeds
+    0-3 with `mesh: 2x2` and without, every job's sim-stats equal, the
+    mesh sweep one batch with one build. (handle, finish) pairs."""
+    ckpt_dir = tempfile.TemporaryDirectory()
+    shape = ("mesh", "scheduler", "ensemble")
+
+    def mesh_stats(stats):
+        out = trajectory_stats(stats, shape)
+        per = (stats.get("ensemble") or {}).get("per_replica") or []
+        out["per_replica"] = [{k: v for k, v in p.items() if "wall" not in k} for p in per]
+        return out
+
+    def straight_finish(run, ref):
+        ok, stats = cli_finish(run, {"scheduler": "tpu-mesh"})
+        same = bool(ref.get("stats")) and mesh_stats(stats) == mesh_stats(ref["stats"])
+        mesh = stats.get("mesh") or {}
+        ok = ok and same and mesh.get("effective") == MESH_CLI_GRID
+        line("mesh_cli", ok=ok, example="phold/shadow.yaml", grid=MESH_CLI_GRID, mesh=mesh,
+             equals_replicas_run=same)
+        return ok
+
+    def resumed_finish(run, ref):
+        run["proc"].wait()
+        rc_interrupted = -1
+        if os.path.exists(run["rc_path"]):
+            with open(run["rc_path"]) as f:
+                rc_interrupted = int(f.read().strip() or -1)
+        ok, stats = cli_finish(run, {"scheduler": "tpu-mesh"})
+        note = f", resharding {MESH_CLI_GRID} -> {MESH_CLI_RESUME_GRID}"
+        logged = note in run.get("stderr_text", "")
+        same = bool(ref.get("stats")) and mesh_stats(stats) == mesh_stats(ref["stats"])
+        ok = ok and rc_interrupted == 130 and logged and same
+        line("mesh_cli_resharded", ok=ok, example="phold/shadow.yaml",
+             interrupted_rc=rc_interrupted, logged_reshard=logged, equals_replicas_run=same,
+             mesh=stats.get("mesh"))
+        ckpt_dir.cleanup()
+        return ok
+
+    rpc16 = (("rounds_per_chunk: 256", "rounds_per_chunk: 16"),)
+    ckpt = ("--checkpoint-dir", ckpt_dir.name, "--checkpoint-interval", "100 ms")
+    sweep = sweep_mesh_start(dev)
+    return [
+        (cli_start("phold/shadow.yaml", dev, PHOLD_EXAMPLE_STOP, extra=("--mesh", MESH_CLI_GRID),
+                   env=logical_env()), straight_finish),
+        (cli_start("phold/shadow.yaml", dev, PHOLD_EXAMPLE_STOP, subs=rpc16,
+                   extra=("--mesh", MESH_CLI_GRID, *ckpt),
+                   interrupt_ns=MESH_CLI_INTERRUPT_NS,
+                   resume_extra=("--mesh", MESH_CLI_RESUME_GRID, "--replicas", "2", *ckpt),
+                   env=logical_env()), resumed_finish),
+        (sweep, lambda run, ref: sweep_mesh_finish(run)),
+    ]
+
+
+def sweep_mesh_start(dev) -> dict:
+    """Start the two sweeps of examples/tgen (stop time cut; seeds 0 to
+    MESH_SWEEP_SEEDS - 1 in one batch), one with `mesh: 2x2`, in processes
+    of their own: a handle for sweep_mesh_finish."""
+    tmp = tempfile.TemporaryDirectory()
+    src = open(os.path.join(HERE, "examples", "tgen", "shadow.yaml")).read()
+    old, new = MESH_SWEEP_STOP
+    if old not in src:
+        raise ValueError(f"examples/tgen/shadow.yaml: no {old!r} to edit")
+    with open(os.path.join(tmp.name, "base.yaml"), "w") as f:
+        f.write(src.replace(old, new))
+    device = ["--device", "cpu"] if dev.type == "cpu" else []
+    procs = {}
+    for name, mesh in (("mesh", f"  mesh: {MESH_CLI_GRID}\n"), ("plain", "")):
+        out = os.path.join(tmp.name, name)
+        spec = os.path.join(tmp.name, f"{name}.yaml")
+        with open(spec, "w") as f:
+            f.write(f"sweep:\n  base: base.yaml\n  output_dir: {out}\n"
+                    f"  capacity: {MESH_SWEEP_SEEDS}\n{mesh}  jobs:\n    - name: tg\n"
+                    f"      seed_range: [0, {MESH_SWEEP_SEEDS}]\n")
+        err = open(os.path.join(tmp.name, f"{name}.err"), "w")
+        proc = subprocess.Popen([sys.executable, "-m", "shadow_tpu_torch", "sweep", spec, *device],
+                                cwd=HERE, stdout=err, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, OMP_NUM_THREADS="1", **logical_env()))
+        err.close()
+        STARTED.append(proc)
+        procs[name] = dict(proc=proc, out=out, err=err.name)
+    return dict(procs=procs, tmp=tmp, t0=time.perf_counter())
+
+
+def sweep_mesh_finish(run) -> bool:
+    """Wait for both sweeps: every job done, each job's sim-stats (but for
+    the execution shape) equal between them, the mesh sweep one 2x2
+    batch and one build."""
+    rcs, manifests = {}, {}
+    for name, p in run["procs"].items():
+        rcs[name] = p["proc"].wait()
+        path = os.path.join(p["out"], "sweep-manifest.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                manifests[name] = json.load(f)
+    differing = []
+    m = manifests.get("mesh") or {}
+    for seed in range(MESH_SWEEP_SEEDS):
+        got = {}
+        for name, p in run["procs"].items():
+            path = os.path.join(p["out"], "jobs", f"tg-s{seed}", "sim-stats.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    got[name] = trajectory_stats(json.load(f))
+        if len(got) != 2 or got["mesh"] != got["plain"]:
+            differing.append(seed)
+    batches = m.get("batches") or []
+    ok = (rcs == {"mesh": 0, "plain": 0} and not differing and m.get("mesh") == MESH_CLI_GRID
+          and m.get("jobs_done") == MESH_SWEEP_SEEDS and len(batches) == 1
+          and batches[0].get("mesh_effective") == MESH_CLI_GRID
+          and (m.get("compile_cache") or {}).get("compiles") == 1)
+    tail = ""
+    if not ok:
+        for p in run["procs"].values():
+            with open(p["err"]) as f:
+                tail += f.read()[-1500:]
+    line("mesh_cli_sweep", ok=ok, example="tgen/shadow.yaml", seeds=MESH_SWEEP_SEEDS,
+         rcs=rcs, jobs_differing=differing, batches=[{k: b.get(k) for k in (
+             "replicas", "mesh_effective", "status")} for b in batches],
+         compile_cache=m.get("compile_cache"), wall_s=round(time.perf_counter() - run["t0"], 3),
+         stderr_tail=tail)
+    run["tmp"].cleanup()
+    return ok
+
+
+def batch_pop_order(host: dict, drop=()) -> dict:
+    """pop_order of a stacked ensemble snapshot ([R, H, ...] leaves): its
+    queue grids taken as R * H rows."""
+    grids = (".queue.time", ".queue.tie", ".queue.kind", ".queue.aux", ".queue.data")
+    return pop_order({k: v.reshape((-1,) + v.shape[2:]) if k in grids else v
+                      for k, v in host.items()}, drop)
+
+
+def mesh_phase(hosts: int, end_ns: int, main_final: dict, dev, started: dict
+               ) -> "tuple[bool, dict]":
+    """9d. mesh: the multi-device planes on MESH_LOGICAL_DEVICES logical
+    devices of the one card (see the constants). In the foreground,
+    sharded-10240 through TpuScheduler(parallelism=4), equal to the main
+    path's final state but for the per-shard diagnostics, at the oracle's
+    counters; then what mesh_start started at phase 9: the lossy grid cell
+    (mesh_lossy_run, a process of its own) and the mesh's CLI runs. The
+    sharded path runs with the kernel's launch count set to 0 just before
+    it and read just after. Returns (ok, record)."""
+    from shadow_tpu_torch.device import LOGICAL_DEVICES_ENV
+
+    prev = os.environ.get(LOGICAL_DEVICES_ENV)
+    os.environ.update(logical_env())
+    try:
+        ok, record = mesh_sharded(hosts, end_ns, main_final, dev)
+    finally:
+        if prev is None:
+            os.environ.pop(LOGICAL_DEVICES_ENV, None)
+        else:
+            os.environ[LOGICAL_DEVICES_ENV] = prev
+    lossy = mesh_lossy_finish(started["lossy"])
+    ok_clis = all([finish(r, started["ref"]) for r, finish in started["clis"]])
+    record["launches"].update(lossy.get("launches", {}))
+    record["walls"].update(lossy.get("walls", {}))
+    return ok and lossy.get("ok", False) and ok_clis, record
+
+
+def mesh_sharded(hosts: int, end_ns: int, main_final: dict, dev) -> "tuple[bool, dict]":
+    """sharded-10240: the bench world's hosts over MESH_SHARDS logical
+    devices (all_to_all, the auto bucket) to end_ns, against the main
+    path's final state and the oracle's counters."""
+    from shadow_tpu_torch.engine import megakernel as mk
+    from shadow_tpu_torch.runtime.scheduler import TpuScheduler
+
+    cfg, model, tables, st0 = bench_world(hosts, dev)
+    scfg = dataclasses.replace(cfg, exchange="all_to_all", a2a_capacity=0)
+    sched = TpuScheduler(model, tables, scfg, parallelism=MESH_SHARDS, rounds_per_chunk=16,
+                         device=dev)
+    cell = f"sharded-{hosts}"
+    sync(dev)
+    mk.PUMP_KERNEL.launches = 0
+    t0 = time.perf_counter()
+    final = sched.run(end_ns, start_state=st0)
+    sync(dev)
+    wall = round(time.perf_counter() - t0, 3)
+    launches = mk.PUMP_KERNEL.launches
+    bad = [k for k in host_leaves_equal(main_final, final) if k not in MESH_DROP]
+    got = bench_counters(final)
+    want = dict(events=BENCH_EVENTS, streams_done=BENCH_STREAMS_DONE, bytes_down=BENCH_BYTES_DOWN)
+    full = hosts == BENCH_HOSTS and end_ns == BENCH_END_NS
+    ok = (not bad and sched.num_devices == MESH_SHARDS and (got == want or not full)
+          and (launches > 0 and sched.engine == "megakernel" or dev.type == "cpu"))
+    line("mesh_sharded", ok=ok, cell=cell, shards=sched.num_devices,
+         logical_devices=[d.id for d in sched.devices], engine=sched.engine,
+         a2a_capacity=sched._runner.cfg.a2a_capacity, counters=got,
+         pinned=want if full else None, mismatched_leaves=bad, wall_s=wall,
+         kernel_launches=launches, sim_s_per_wall_s=end_ns / 1e9 / wall)
+    return ok, {"launches": {cell: launches}, "walls": {cell: wall}}
+
+
+def mesh_start(hosts: int, dev, ref: dict) -> dict:
+    """Start, at phase 9, what the mesh phase ends: the lossy grid cell in
+    a process of its own (this script with `--mesh-lossy`) and the mesh's
+    CLI runs (mesh_cli_runs, held against `ref`, the `run --replicas 2`
+    stats background_clis kept)."""
+    tmp = tempfile.TemporaryDirectory()
+    out = os.path.join(tmp.name, "mesh_lossy.json")
+    cmd = [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--mesh-lossy", out]
+    if dev.type == "cpu":
+        cmd += ["--rehearse-cpu", "--hosts", str(hosts)]
+    err_path = os.path.join(tmp.name, "stdout.txt")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=err, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, OMP_NUM_THREADS="1", **logical_env()))
+    STARTED.append(proc)
+    lossy = dict(proc=proc, out=out, stderr=err_path, tmp=tmp, t0=time.perf_counter())
+    return dict(lossy=lossy, clis=mesh_cli_runs(dev), ref=ref)
+
+
+def mesh_lossy_finish(run) -> dict:
+    """Wait for the lossy grid cell's process: print its lines and return
+    its record ({"ok": False} with a failing line if it failed)."""
+    rc = run["proc"].wait()
+    record = {"ok": False}
+    if rc == 0 and os.path.exists(run["out"]):
+        with open(run["out"]) as f:
+            record = json.load(f)
+        for text in record.pop("lines"):
+            print(text, flush=True)
+    if not record.get("ok"):
+        with open(run["stderr"]) as f:
+            line("mesh_lossy_process", ok=False, rc=rc, stdout_tail=f.read()[-3000:])
+    line("mesh_lossy_wall", wall_s=round(time.perf_counter() - run["t0"], 3))
+    run["tmp"].cleanup()
+    return record
+
+
+def mesh_lossy_run(hosts: int, dev, out_path: str) -> int:
+    """mesh-2x4-lossy-10240x2 in a process of its own: the lossy world x
+    MESH_REPLICAS on the MESH_GRID grid with the segment exchange's ring
+    to MESH_END_NS, plain, under a device loss of MESH_LOSS_DEVICE at
+    launch MESH_LOSS_AT (degraded to 2x2), and interrupted at
+    MESH_INTERRUPT_NS then resumed on MESH_RESUME_GRID; each replica
+    equal, in pop order and but for the per-shard diagnostics, to the
+    same batch through run_ensemble_until (held against the JAX package
+    by the tests). Each run with the launch count set to 0 just before it
+    and read just after. Writes {ok, launches, walls, lines} to
+    out_path."""
+    from shadow_tpu_torch.engine import megakernel as mk
+    from shadow_tpu_torch.engine.ensemble import init_ensemble_state, run_ensemble_until
+    from shadow_tpu_torch.engine.mesh import MeshPlan
+    from shadow_tpu_torch.engine.round import RunInterrupted
+    from shadow_tpu_torch.engine.state import state_to_host
+    from shadow_tpu_torch.netstack import bw_bits_per_sec_to_refill
+    from shadow_tpu_torch.runtime import chaos
+    from shadow_tpu_torch.runtime.checkpoint import (
+        CheckpointManager,
+        InterruptGuard,
+        load_checkpoint,
+        reshard_note,
+    )
+    from shadow_tpu_torch.runtime.mesh import MeshRunner
+    from shadow_tpu_torch.runtime.recovery import RecoveryPolicy
+
+    on_card = dev.type == "cuda"
+    record = {"ok": False, "launches": {}, "walls": {}}
+
+    def timed(name, fn):
+        sync(dev)
+        mk.PUMP_KERNEL.launches = 0
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            sync(dev)
+            record["walls"][name] = round(time.perf_counter() - t0, 3)
+            record["launches"][name] = mk.PUMP_KERNEL.launches
+
+    def check():
+        lcfg, lmodel, ltables, _ = lossy_world(hosts, dev)
+        lcfg = dataclasses.replace(lcfg, exchange="segment")
+        bw = bw_bits_per_sec_to_refill(20_000_000)
+        r, (rows, shards) = MESH_REPLICAS, MESH_GRID
+        cell = f"mesh-{rows}x{shards}-lossy-{hosts}x{r}"
+        ens0 = init_ensemble_state(lcfg, lmodel, r, 1, bw, bw, device=dev)
+        ref = timed("ensemble-reference", lambda: batch_pop_order(state_to_host(
+            run_ensemble_until(ens0, MESH_END_NS, lmodel, ltables, lcfg,
+                               rounds_per_chunk=MESH_RPC)), MESH_DROP))
+
+        def runner(grid):
+            return MeshRunner(lmodel, ltables, lcfg, MeshPlan(r, grid[1], grid[0]),
+                              seed_stride=1, rounds_per_chunk=MESH_RPC,
+                              tx_bytes_per_interval=bw, rx_bytes_per_interval=bw, device=dev)
+
+        def differ(out):
+            return snapshots_differ(ref, batch_pop_order(state_to_host(out), MESH_DROP))
+
+        plain = runner(MESH_GRID)
+        bad = differ(timed(cell, lambda: plain.run(MESH_END_NS, start_state=ens0)))
+        ok = not bad and (record["launches"][cell] > 0 or not on_card)
+        line("mesh_grid", ok=ok, cell=cell, grid=f"{rows}x{shards}", engine=plain.engine,
+             exchange=plain.cfg.exchange, mismatched_leaves_vs_ensemble=bad,
+             wall_s=record["walls"][cell], ensemble_wall_s=record["walls"]["ensemble-reference"],
+             kernel_launches=record["launches"][cell],
+             ensemble_launches=record["launches"]["ensemble-reference"],
+             logical_devices=list(plain._get_mesh().ids))
+        if not ok:
+            return False
+
+        lossy = runner(MESH_GRID)
+        fault = chaos.FaultPlan(seed=0, faults=[{"kind": "device-loss", "at": MESH_LOSS_AT,
+                                                 "target": str(MESH_LOSS_DEVICE)}])
+        name = f"{cell}-device-loss"
+        with chaos.installed(fault):
+            out = timed(name, lambda: lossy.run(MESH_END_NS, start_state=ens0,
+                                                recovery=RecoveryPolicy(max_recoveries=2)))
+        bad = differ(out)
+        del out
+        grid_ids = list(lossy._get_mesh().ids)
+        degraded = f"{lossy.plan.rows}x{lossy.plan.shards}"
+        ok = (not bad and degraded == "2x2" and len(lossy.mesh_degradations) == 1
+              and lossy.mesh_degradations[0].get("device") == MESH_LOSS_DEVICE
+              and MESH_LOSS_DEVICE not in grid_ids
+              and [x["kind"] for x in lossy.recovery_report] == ["device-loss"]
+              and (record["launches"][name] > 0 or not on_card))
+        line("mesh_device_loss", ok=ok, cell=cell, degraded_to=degraded,
+             degradations=lossy.mesh_degradations, recovery=lossy.recovery_report,
+             logical_devices=grid_ids, fired=fault.report().get("fired"),
+             mismatched_leaves_vs_ensemble=bad, wall_s=record["walls"][name],
+             kernel_launches=record["launches"][name])
+        if not ok:
+            return False
+
+        ckpt_dir = tempfile.TemporaryDirectory()
+        grid_from = f"{rows}x{shards}"
+        grid_to = f"{MESH_RESUME_GRID[0]}x{MESH_RESUME_GRID[1]}"
+        first = runner(MESH_GRID)
+        ckpt = CheckpointManager(ckpt_dir.name, 0, "mesh-smoke", layout=grid_from)
+        interrupted = False
+        try:
+            timed(f"{cell}-interrupted", lambda: first.run(
+                MESH_END_NS, start_state=ens0, checkpoints=ckpt,
+                guard=InterruptGuard(MESH_INTERRUPT_NS)))
+        except RunInterrupted:
+            interrupted = True
+        path = CheckpointManager.latest_path(ckpt_dir.name)
+        second = runner(MESH_RESUME_GRID)
+        bad, note, meta = ["no checkpoint"], "", {}
+        resumed = f"{cell}-resumed-{grid_to}"
+        if path is not None:
+            start, meta = load_checkpoint(path, second.initial_state(), "mesh-smoke",
+                                          layout=grid_to)
+            note = reshard_note(meta.get("mesh"), grid_to)
+            bad = differ(timed(resumed, lambda: second.run(MESH_END_NS, start_state=start)))
+        ckpt_dir.cleanup()
+        launches = record["launches"].get(resumed, 0)
+        ok = (interrupted and not bad and note == f", resharding {grid_from} -> {grid_to}"
+              and 0 < meta.get("now_ns", 0) < MESH_END_NS and (launches > 0 or not on_card))
+        line("mesh_resharded", ok=ok, cell=cell, interrupted=interrupted,
+             checkpoint_now_ns=meta.get("now_ns"), saved_grid=meta.get("mesh"),
+             resumed_on=grid_to, log_note=note, mismatched_leaves_vs_ensemble=bad,
+             walls=record["walls"], kernel_launches=launches)
+        return ok
+
+    record["ok"] = check()
+    record["lines"] = PRINTED
+    with open(out_path, "w") as f:
+        json.dump(record, f)
+    return 0 if record["ok"] else 1
+
+
 def main(argv=None) -> int:
     try:
         return run_phases(argv)
@@ -3481,6 +3998,12 @@ def run_phases(argv=None) -> int:
         "to OUT (the smoke starts this in a process of its own)",
     )
     ap.add_argument(
+        "--mesh-lossy", metavar="OUT",
+        help="only run the mesh phase's lossy grid cell (plain, under a device "
+        "loss, interrupted and resumed on another grid) and write its record to "
+        "OUT (the smoke starts this in a process of its own)",
+    )
+    ap.add_argument(
         "--cpu-ref", metavar="OUT",
         help="only hold the cpu-ref oracles against the engine on the "
         "reference tests' small worlds and write the records to OUT (the "
@@ -3512,6 +4035,10 @@ def run_phases(argv=None) -> int:
     if args.cpu_ref:
         return cpu_ref_run(torch.device("cpu") if args.rehearse_cpu else torch.device("cuda", 0),
                            args.cpu_ref)
+    if args.mesh_lossy:
+        return mesh_lossy_run(
+            args.hosts, torch.device("cpu") if args.rehearse_cpu else torch.device("cuda", 0),
+            args.mesh_lossy)
     if args.services_daemon:
         return services_daemon_run(
             torch.device("cpu") if args.rehearse_cpu else torch.device("cuda", 0),
@@ -3640,6 +4167,12 @@ def run_phases(argv=None) -> int:
          share_of_bound=bound_ms / ms_k, reckoning=reck, reps=reps, launch_ms=launch_ms,
          rows_per_warp=mk.ROWS_PER_WARP, stage=mk.STAGE)
     del twin
+    # one shard's rows of the burst (the mesh phase's sharded cell runs the
+    # kernel on such rows), held against the twin and timed
+    ok_sh, shard_launch, err = shard_stage(st_b, we, model, tables, stage_cfg, reps, dev)
+    max_abs_err = max(max_abs_err, err)
+    if not ok_sh:
+        return 1
     ok_e, err = edge_cases()
     max_abs_err = max(max_abs_err, err)
     if not ok_e:
@@ -3648,14 +4181,13 @@ def run_phases(argv=None) -> int:
     # 3a. wide_kernel: the wide instances (pump_k past MAX_K, onion past 32
     # sockets), each held against the twin and timed, and their main paths;
     # every CLI run and the onion cell's plain-engine run meanwhile
-    onion_plain, managed_cli, services_daemon = {}, {}, {}
+    onion_plain, managed_cli, services_daemon, phold_replicas = {}, {}, {}, {}
     managed_tmp = tempfile.TemporaryDirectory()
 
     def meanwhile():
         plain_run = onion_plain_start(args.hosts, ONION_END_NS, dev)
-        clis = background_clis(dev)
+        clis = background_clis(dev, phold_replicas)
         managed = managed_start(dev, managed_tmp.name)
-        daemon = services_daemon_start(dev)
 
         def finish():
             ok_clis = clis()
@@ -3664,7 +4196,6 @@ def run_phases(argv=None) -> int:
             # judged in the managed and services phases, which print what
             # differs
             managed_cli.update(started=managed, cli=managed_http_finish(managed["cli"]))
-            services_daemon.update(services_daemon_finish(daemon))
             return ok_clis and got is not None
         return finish
 
@@ -3804,6 +4335,13 @@ def run_phases(argv=None) -> int:
     if not models_phase(dev, args.hosts):
         return 1
 
+    # the mesh phase's lossy grid cell and CLI runs go on in processes of
+    # their own from here to the mesh phase (9d), the services' daemon
+    # part to the services phase (9c): started here, not beside the wide
+    # onion runs, whose phase the background runs already bound
+    mesh_started = mesh_start(args.hosts, dev, phold_replicas)
+    daemon = services_daemon_start(dev)
+
     # 9. the ensemble plane: tgen and onion replicas through the kernel,
     # a ragged batch
     ok9, ens_tgen, err = ensemble_tgen_phase(args.hosts, ENS_TGEN_END_NS, dev)
@@ -3822,6 +4360,7 @@ def run_phases(argv=None) -> int:
     # 9a. planes-10240: the segment exchange, compaction and dynamic
     # runahead through the kernel, against the main path and the twin
     ok_p, planes = planes_phase(args.hosts, args.end_ns, main_final, dev)
+    main_final_mesh = main_final  # the mesh phase's sharded cell is held against it
     del main_final
     max_err["tgen"] = max(max_err["tgen"], planes["max_abs_err"])
     if not ok_p:
@@ -3837,12 +4376,23 @@ def run_phases(argv=None) -> int:
         return 1
 
     # 9c. services: the full-width sweep with a preemption, and the
-    # daemon part that ran beside the wide onion runs
+    # daemon part that ran in a process of its own since phase 9
     t0 = time.perf_counter()
+    services_daemon.update(services_daemon_finish(daemon))
     ok_s, services_launches = services_phase(args.hosts, dev, services_daemon)
     line("services", ok=ok_s, seconds=round(time.perf_counter() - t0, 3),
          daemon_wall_s=services_daemon.get("wall_s"))
     if not ok_s:
+        return 1
+
+    # 9d. mesh: the sharded engine and the 2-D mesh on logical devices of
+    # the card, a device loss and a resume on another grid
+    t0 = time.perf_counter()
+    ok_mesh, mesh = mesh_phase(args.hosts, args.end_ns, main_final_mesh, dev, mesh_started)
+    del main_final_mesh
+    line("mesh", ok=ok_mesh, seconds=round(time.perf_counter() - t0, 3),
+         launches=mesh["launches"], walls=mesh["walls"])
+    if not ok_mesh:
         return 1
 
     if dev.type == "cpu":
@@ -3883,7 +4433,11 @@ def run_phases(argv=None) -> int:
     # launches on the paths of this slice's phases, besides the main path's
     more = {"tgen": {"recovery": recovery_launches, "checkpoint": checkpoint_launches,
                      "observability": observability_launches, "guards": guards_launches,
-                     **planes["launches"], "services": services_launches}}
+                     **planes["launches"], "services": services_launches,
+                     **{f"mesh:{k}": v for k, v in mesh["launches"].items()}}}
+    # the instance on mesh shards: the launches of the sharded and grid
+    # cells, one shard's burst launch timed with its bound
+    mesh_shards = {"tgen": dict(launches=mesh["launches"], **shard_launch)}
     # the launches planes-10240 timed: on compacted sub-states and with
     # dyn_runahead set
     planes_timed = {"tgen": planes["timed"]}
@@ -3901,6 +4455,7 @@ def run_phases(argv=None) -> int:
         "ensemble": ens_launch[m],
         "launches_on_other_paths": more.get(m, {}),
         "planes": planes_timed.get(m, {}),
+        "mesh_shards": mesh_shards.get(m, {}),
     } for m in mk.INSTANCES]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

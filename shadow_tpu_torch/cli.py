@@ -77,6 +77,16 @@ def main(argv: "list[str] | None" = None) -> int:
         "(default 1; general.replica_seed_stride)",
     )
     run_p.add_argument(
+        "--mesh", metavar="RxS",
+        help="lay the replica batch over a 2-D grid of logical devices: R "
+        "replica rows x S host-shards (hosts block-sharded inside each row; "
+        "replicas never communicate). The replica count is --replicas when "
+        "given (a multiple of R), else R; every replica equals the JAX "
+        "package's mesh run. A grid needs R*S logical devices: set "
+        "SHADOW_TPU_TORCH_LOGICAL_DEVICES for several on one device "
+        "(general.mesh)",
+    )
+    run_p.add_argument(
         "--checkpoint-dir", metavar="DIR",
         help="write versioned run checkpoints into DIR at --checkpoint-"
         "interval cadence; SIGINT/SIGTERM also write a final one "
@@ -308,8 +318,10 @@ def main(argv: "list[str] | None" = None) -> int:
     )
     serve_p.add_argument(
         "--mesh", metavar="RxS",
-        help="dispatch every packed batch over a 2-D Mesh(replica, "
-        "hosts) device grid (not yet ported)",
+        help="dispatch every packed batch over a 2-D grid of logical "
+        "devices, R replica rows x S host-shards; packing prefers batch "
+        "sizes that fill whole rows, and ragged or split batches degrade "
+        "their rows",
     )
     serve_p.add_argument(
         "--journal-compact-every", type=int, default=512, metavar="N",
@@ -377,7 +389,7 @@ def main(argv: "list[str] | None" = None) -> int:
     )
     mem_p.add_argument(
         "--mesh", metavar="SPEC",
-        help="price the RxS mesh-sharded state (e.g. '2x4'; not yet ported)",
+        help="price the RxS mesh-sharded state (e.g. '2x4')",
     )
     mem_p.add_argument(
         "--json", action="store_true",
@@ -422,7 +434,7 @@ def main(argv: "list[str] | None" = None) -> int:
                 xprof_dir=args.xprof_dir, xprof_chunks=args.xprof_chunks,
                 autotune=args.autotune, no_autotune=args.no_autotune,
                 chunk_watchdog=args.chunk_watchdog, chaos_seed=args.chaos_seed,
-                chaos_faults=args.chaos_fault,
+                chaos_faults=args.chaos_fault, mesh=args.mesh,
             )
         except CliUserError as e:
             print(f"shadow-tpu-torch: error: {e}", file=sys.stderr)

@@ -32,8 +32,8 @@ scheduler owns batching, so `general.replicas` must stay 1 here.
 
 Only expansion and validation live in this module (config layer, no
 device imports); packing and execution are runtime/sweep.py. A
-`sweep.mesh` grid belongs to the multi-device plane, which the port
-does not carry yet: it is refused with NotYetPorted.
+`sweep.mesh: RxS` grid runs every packed batch through the mesh plane
+(runtime/mesh.py MeshRunner).
 """
 
 from __future__ import annotations
@@ -134,10 +134,9 @@ def load_sweep_spec(
         raise ValueError("sweep.retry_backoff_s must be >= 0")
     mesh = s.pop("mesh", None)
     if mesh is not None:
-        from shadow_tpu_torch.config.options import NotYetPorted, canonical_mesh
+        from shadow_tpu_torch.config.options import canonical_mesh
 
-        canonical_mesh(mesh)  # loud on a bad grid spec
-        raise NotYetPorted("sweep.mesh (the 2-D mesh plane)")
+        mesh = canonical_mesh(mesh)  # loud on a bad grid spec
 
     base_cfg = s.pop("config", None)
     base_path = s.pop("base", None)

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from shadow_tpu_torch import equeue, rng
+from shadow_tpu_torch.device import logical_of
 from shadow_tpu_torch.engine.round import (
     PROBE_FIELDS,
     ChunkProbe,
@@ -367,6 +368,8 @@ def run_ensemble_until(
     tracker=None,
     watchdog_s: float = 0.0,
     launch=None,
+    capacity_error=None,
+    devices=None,
 ) -> SimState:
     """Host-side ensemble driver: chunks of `rounds_per_chunk` rounds over
     the whole batch until no replica has work left before end_time. `st`
@@ -386,7 +389,17 @@ def run_ensemble_until(
     before its overflow check. `watchdog_s` and the chaos plane's
     compile, stall and capacity seams are run_until's. `launch` (an
     EnsembleChunk from lower_ensemble_chunk, the compile cache's entry)
-    runs each chunk in place of the chunk this driver prepares itself."""
+    runs each chunk in place of the chunk this driver prepares itself
+    (the mesh driver passes its GridChunk).
+
+    `capacity_error(rows, live_state)` overrides how an overflow becomes
+    an exception (the mesh names (replica, shard) coordinates from the
+    live state: the chunk after the failing one, which the reference's
+    pipelined driver has in flight). `devices` (logical device ids; by
+    default the one the state lives on) arms the device-loss seams
+    (engine/round.py run_chunk): an injected `device-loss` at a chunk
+    launch ordinal, a CUDA failure of the card at a probe read, each a
+    DeviceLossError."""
     cfg = ensemble_engine_cfg(cfg)
     validate_runahead(cfg, tables)
     n = num_replicas(st)
@@ -411,18 +424,26 @@ def run_ensemble_until(
         with _tspan(tracker, "state_snapshot", chunk=chunks):
             return _patch_snapshot(state_to_host(stacked_view(st)), final_rows)
 
+    if devices is None:
+        devices = (logical_of(st.device).id,)
     chunks = 0
     pending = False  # a due snapshot of this chunk's state (see run_until)
     while True:
-        st, rows = run_chunk(run_chunk_rounds, st, chunks, tracker, engine, watchdog_s)
+        st, rows = run_chunk(run_chunk_rounds, st, chunks, tracker, engine, watchdog_s,
+                             devices=devices, max_chunks=max_chunks)
         chunks += 1
         rows = np.asarray(rows, dtype=np.int64)
         probe = _aggregate_probe(rows)
         observe_chunk(probe, chunks - 1)
         ahead = chunks < max_chunks
         if rows[:, _LANE["overflow"]].any():
-            err = _replica_capacity_error(rows)
-            attach_capacity_bytes(err, st)
+            live = st
+            if capacity_error is not None:
+                live = run_chunk_rounds(st) if ahead else st
+                err = capacity_error(rows, live)
+            else:
+                err = _replica_capacity_error(rows)
+            attach_capacity_bytes(err, live)
             raise err
         if on_rows is not None:
             on_rows(rows)

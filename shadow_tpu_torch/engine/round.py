@@ -1,6 +1,6 @@
-"""The conservative-PDES round engine (port of shadow_tpu/engine/round.py,
-single device: the dense and segment exchanges, active-set compaction,
-fixed, adaptive and dynamic runahead windows).
+"""The conservative-PDES round engine (port of shadow_tpu/engine/round.py:
+the dense and segment exchanges, on one device or between host shards,
+active-set compaction, fixed, adaptive and dynamic runahead windows).
 
 Each round is a window [start, window_end) in which every host drains
 its own event queue; cross-host packets stage into per-host outboxes
@@ -19,6 +19,13 @@ Every function here also takes an ensemble's rows view
 ends, rejected flags and the other per-world values as [R] tensors. Each
 replica's rows see only their own replica's values, as the reference's
 vmap over the replica axis gives them (engine/ensemble.py).
+
+Where the reference takes an `axis_name` (its engine under shard_map),
+run_round, _next_window_end, flush_outbox and state_probe take a
+ShardContext and the list of a world's shard states: the window's pmins
+and the traffic psum become reductions over the shards, the exchange's
+collectives (all_to_all buckets, all_gather, the segment ring) explicit
+moves between them (engine/sharded.py drives the rounds).
 """
 
 from __future__ import annotations
@@ -82,6 +89,40 @@ def _lane_seqs(valid: torch.Tensor, base: torch.Tensor):
 
 def _replace(obj, **kw):
     return dataclasses.replace(obj, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardContext:
+    """The port's counterpart of the reference's mesh axis (`axis_name`):
+    the S host shards of one world, or of one row of a mesh's replicas,
+    shard j holding hosts j * hosts_per_shard .. (j + 1) * hosts_per_shard
+    - 1 on devices[j]. One controller drives every shard (the
+    reference's shard_map has one too); the cross-shard steps of a round
+    are explicit steps between the shards' phases: the window's pmins and
+    the traffic psum are reductions over the shards' values on
+    devices[0] (pmin, pany), the exchange moves buckets with
+    `.to(device)` (_flush_shards_dense, _ring_exchange)."""
+
+    devices: tuple
+    hosts_per_shard: int
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def gather(self, xs) -> torch.Tensor:
+        """The shards' values stacked on devices[0]."""
+        return torch.stack([x.to(self.devices[0]) for x in xs])
+
+    def pmin(self, xs) -> torch.Tensor:
+        return self.gather(xs).amin(dim=0)
+
+    def pany(self, xs) -> torch.Tensor:
+        return self.gather(xs).any(dim=0)
+
+    def scatter(self, x) -> list:
+        """A value on devices[0] as each shard sees it, on its device."""
+        return [None if x is None else x.to(d) for d in self.devices]
 
 
 def bootstrap(st: SimState, model, cfg: EngineConfig) -> SimState:
@@ -341,12 +382,18 @@ def model_pump_capable(model) -> bool:
     )
 
 
-def flush_outbox(st: SimState, cfg: "EngineConfig | None" = None) -> SimState:
+def flush_outbox(st, cfg: "EngineConfig | None" = None, shards=None):
     """Round-boundary exchange: deliver staged packets into destination
-    queues (empty rounds skip the exchange entirely)."""
-    if not bool(st.outbox.valid.any()):
+    queues (empty rounds skip the exchange entirely). With `shards`, `st`
+    is the list of a world's shard states, and the exchange runs when any
+    shard has a packet staged (the reference's psum of the predicate):
+    every shard then takes part, as every device enters the collective."""
+    if shards is None:
+        if not bool(st.outbox.valid.any()):
+            return st
+    elif not bool(shards.pany([c.outbox.valid.any() for c in st])):
         return st
-    return _flush_outbox_traffic(st, cfg)
+    return _flush_outbox_traffic(st, cfg, shards)
 
 
 def _fresh_outbox(ob, pool_drop=None):
@@ -365,9 +412,11 @@ def _fresh_outbox(ob, pool_drop=None):
     )
 
 
-def _flush_outbox_traffic(st: SimState, cfg: "EngineConfig | None" = None) -> SimState:
+def _flush_outbox_traffic(st, cfg: "EngineConfig | None" = None, shards=None):
     if cfg is not None and cfg.exchange == "segment":
-        return _flush_segment(st, cfg)
+        return _flush_segment(st, cfg, shards)
+    if shards is not None:
+        return _flush_shards_dense(st, cfg, shards)
     ob = st.outbox
     h, o_cap = ob.valid.shape
     m = h * o_cap
@@ -412,54 +461,220 @@ def _pool_order(key, time, tie):
     return perm
 
 
-def _flush_segment(st: SimState, cfg: EngineConfig) -> SimState:
-    """The segment exchange (exchange="segment", single device): each
-    world's staged entries sorted stably by (destination, time, tie),
-    valid ones first, into a pool; the pool's first pool_capacity entries
-    (0: the whole outbox, never truncating) land through
-    equeue.push_many_segment, and the valid entries cut off count into
-    the outbox overflow of the world's first row. On an ensemble's rows
-    each replica has a pool of its own, as under the reference's vmap.
-    Pop order equals the dense exchange's; slot placement differs."""
+def _flush_segment(st, cfg: EngineConfig, shards=None):
+    """The segment exchange (exchange="segment"): each world's staged
+    entries sorted stably by (destination, time, tie), valid ones first,
+    into a pool; the pool's first pool_capacity entries (0: the whole
+    outbox, never truncating) land through equeue.push_many_segment, and
+    the valid entries cut off count into the outbox overflow of the
+    world's first row. On an ensemble's rows each replica has a pool of
+    its own, as under the reference's vmap. Pop order equals the dense
+    exchange's; slot placement differs. With `shards`, each shard pools
+    its own outbox and the pools move between shards over the ring
+    (_ring_exchange)."""
+    if shards is not None:
+        return _flush_shards_segment(st, cfg, shards)
     ob = st.outbox
     h, o_cap = ob.valid.shape
     worlds = replicas_of(st) or 1
     h_world = h // worlds
-    m = h_world * o_cap
-
-    def per_world(x):
-        return x.reshape((worlds, m) + tuple(x.shape[2:]))
-
-    valid, dst = per_world(ob.valid), per_world(ob.dst)
-    key = torch.where(valid, dst.to(torch.int64), 1 << 30)
-    perm = _pool_order(key, per_world(ob.time), per_world(ob.tie))
-    e_max = min(cfg.pool_capacity or m, m)
-    perm = perm[:, :e_max]
-    pool_drop = None
-    if e_max < m:
-        pool_drop = torch.clamp(valid.sum(dim=1) - e_max, min=0).to(torch.int32)
-
-    def pool(x):
-        x = per_world(x)
-        idx = perm.reshape(perm.shape + (1,) * (x.dim() - 2)).expand(
-            (worlds, e_max) + tuple(x.shape[2:]))
-        return torch.gather(x, 1, idx).reshape((worlds * e_max,) + tuple(x.shape[2:]))
-
-    valid_p, dst_p = pool(ob.valid), pool(ob.dst).to(torch.int64)
+    pool, e_max, pool_drop = _segment_pool(st, cfg)
+    valid_p, dst_p = pool["valid"].reshape(-1), pool["dst"].reshape(-1).to(torch.int64)
     mine = valid_p & (dst_p >= 0) & (dst_p < h_world)
     first_row = torch.arange(worlds * e_max, device=dst_p.device) // e_max * h_world
     queue = equeue.push_many_segment(
         st.queue,
         dst=dst_p + first_row,
         valid=mine,
-        time=pool(ob.time),
-        tie=pool(ob.tie),
+        time=pool["time"].reshape(-1),
+        tie=pool["tie"].reshape(-1),
         kind=torch.full((worlds * e_max,), KIND_PACKET, dtype=torch.int32, device=dst_p.device),
-        data=pool(ob.data),
-        aux=pool(ob.aux),
+        data=pool["data"].reshape((-1,) + tuple(pool["data"].shape[2:])),
+        aux=pool["aux"].reshape(-1),
         rows_per_world=h_world,
     )
     return _replace(st, queue=queue, outbox=_fresh_outbox(ob, pool_drop))
+
+
+_OUTBOX_FIELDS = ("valid", "dst", "time", "tie", "data", "aux")
+# the fill of an exchange bucket's empty slot, per outbox field
+_BUCKET_FILL = {"valid": False, "dst": 0, "time": TIME_MAX, "tie": 0, "data": 0, "aux": 0}
+
+
+def _outbox_lines(st: SimState) -> dict:
+    """Each world's staged entries of one state, outbox field by field, as
+    [W, M, ...] lines (M = the world's rows x outbox lanes, in row-major
+    order; W = 1 for a single world)."""
+    ob = st.outbox
+    worlds = replicas_of(st) or 1
+    return {k: getattr(ob, k).reshape((worlds, -1) + tuple(getattr(ob, k).shape[2:]))
+            for k in _OUTBOX_FIELDS}
+
+
+def _take(x, order):
+    """x ([W, M, ...]) with each line's entries in `order` ([W, M'])."""
+    idx = order.reshape(order.shape + (1,) * (x.dim() - 2)).expand(
+        tuple(order.shape) + tuple(x.shape[2:]))
+    return torch.gather(x, 1, idx)
+
+
+def _segment_pool(st: SimState, cfg: EngineConfig):
+    """One state's segment pools: (pool, e_max, pool_drop). `pool` holds
+    each world's first e_max staged entries in (destination, time, tie)
+    order, valid ones first, field by field as [W, e_max, ...];
+    pool_drop ([W] i32, or None when the pool holds the whole outbox)
+    counts the valid entries cut off."""
+    lines = _outbox_lines(st)
+    m = lines["valid"].shape[1]
+    key = torch.where(lines["valid"], lines["dst"].to(torch.int64), 1 << 30)
+    e_max = min(cfg.pool_capacity or m, m)
+    perm = _pool_order(key, lines["time"], lines["tie"])[:, :e_max]
+    pool_drop = None
+    if e_max < m:
+        pool_drop = torch.clamp(lines["valid"].sum(dim=1) - e_max, min=0).to(torch.int32)
+    return {k: _take(v, perm) for k, v in lines.items()}, e_max, pool_drop
+
+
+def _segment_rank(keys):
+    """Each entry's rank within its run of equal keys ([W, N] lines whose
+    equal keys are adjacent)."""
+    n = keys.shape[1]
+    pos = torch.arange(n, device=keys.device).expand_as(keys)
+    seg_start = torch.ones_like(keys, dtype=torch.bool)
+    seg_start[:, 1:] = keys[:, 1:] != keys[:, :-1]
+    return pos - torch.cummax(torch.where(seg_start, pos, -1), dim=1).values
+
+
+def _bucketize(x, sdst, sslot, d: int, cap: int, fill):
+    """x's entries ([W, N, ...]) placed at (sdst, sslot) of a [W, d, cap,
+    ...] bucket stack; an entry at (d, cap) is dropped."""
+    w, n = sdst.shape
+    buf = torch.full((w, d + 1, cap + 1) + tuple(x.shape[2:]), fill, dtype=x.dtype,
+                     device=x.device)
+    wi = torch.arange(w, device=x.device)[:, None].expand(w, n)
+    buf[wi, sdst, sslot] = x
+    return buf[:, :d, :cap]
+
+
+def _shard_buckets(lines: dict, shard_of, d: int, cap: int):
+    """A shard's per-peer buckets: entries grouped by destination shard
+    (`lines` already in that grouping, `shard_of` d for an invalid
+    entry), the r-th entry for peer p in slot r of p's bucket while r <
+    cap. Returns ({field: [W, d, cap, ...]}, [W] i32 count of the valid
+    entries that did not fit)."""
+    rank = _segment_rank(shard_of)
+    fits = lines["valid"] & (rank < cap)
+    sdst = torch.where(fits, shard_of, d)
+    sslot = torch.where(fits, rank, cap)
+    over = (lines["valid"] & ~fits).sum(dim=1).to(torch.int32)
+    return {k: _bucketize(v, sdst, sslot, d, cap, _BUCKET_FILL[k]) for k, v in lines.items()}, over
+
+
+def _ring_exchange(buckets: list, shards) -> list:
+    """The ring collective of the segment exchange: `buckets[i]` is shard
+    i's {field: [W, d, cap, ...]} per-peer stack. Shard i's bucket for
+    peer p moves to p at ring step (p - i) mod d, as the reference's
+    ppermute ring moves it; shard j receives its own bucket first, then
+    shard j - 1's, j - 2's, ... Returns each shard's received
+    {field: [W, d * cap, ...]}, on its device."""
+    d = shards.size
+    return [
+        {k: torch.cat([buckets[(j - s) % d][k][:, j].to(dev) for s in range(d)], dim=1)
+         for k in _OUTBOX_FIELDS}
+        for j, dev in enumerate(shards.devices)
+    ]
+
+
+def _land(st: SimState, recv: dict, shard: int, hosts_per_shard: int, push, **kw):
+    """Land a shard's received entries ({field: [W, N, ...]}, dst a host
+    id of the world) on its rows through `push` (push_many_sorted or
+    push_many_segment); entries for other shards' hosts are dropped."""
+    local = recv["dst"].to(torch.int64) - shard * hosts_per_shard
+    mine = recv["valid"] & (local >= 0) & (local < hosts_per_shard)
+    w, n = mine.shape
+    rows = local + torch.arange(w, device=local.device)[:, None] * hosts_per_shard
+    data = recv["data"]
+    return push(
+        st.queue,
+        dst=rows.reshape(-1),
+        valid=mine.reshape(-1),
+        time=recv["time"].reshape(-1),
+        tie=recv["tie"].reshape(-1),
+        kind=torch.full((w * n,), KIND_PACKET, dtype=torch.int32, device=local.device),
+        data=data.reshape((w * n,) + tuple(data.shape[2:])),
+        aux=recv["aux"].reshape(-1),
+        rows_per_world=hosts_per_shard,
+        **kw,
+    )
+
+
+def _flush_shards_dense(cells: list, cfg: "EngineConfig | None", shards) -> list:
+    """The dense exchange over a world's shards. all_to_all ("dense" is
+    its alias): each shard buckets its flattened outbox by destination
+    shard (a stable sort keeps emission order in a bucket) into
+    a2a_capacity slots per peer (<= 0: the whole outbox, never
+    overflowing), counting the valid entries past a full bucket into the
+    outbox overflow of its first row; shard j then lands the buckets the
+    shards addressed to it, in shard order. all_gather: every shard
+    lands every shard's whole outbox, in shard order, keeping its own
+    hosts' entries."""
+    mode = cfg.exchange if cfg is not None else "all_gather"
+    d, hl = shards.size, shards.hosts_per_shard
+    lines = [_outbox_lines(c) for c in cells]
+    over = [None] * d
+    if mode in ("all_to_all", "dense"):
+        m = lines[0]["valid"].shape[1]
+        cap = cfg.a2a_capacity if cfg.a2a_capacity > 0 else m
+        sent = []
+        for i, lin in enumerate(lines):
+            shard_of = torch.where(lin["valid"], lin["dst"].to(torch.int64) // hl, d)
+            _, order = torch.sort(shard_of, dim=1, stable=True)
+            buckets, over[i] = _shard_buckets(
+                {k: _take(v, order) for k, v in lin.items()},
+                torch.gather(shard_of, 1, order), d, cap)
+            sent.append(buckets)
+        recv = [
+            {k: torch.cat([sent[i][k][:, j].to(dev) for i in range(d)], dim=1)
+             for k in _OUTBOX_FIELDS}
+            for j, dev in enumerate(shards.devices)
+        ]
+    else:
+        recv = [
+            {k: torch.cat([lin[k].to(dev) for lin in lines], dim=1) for k in _OUTBOX_FIELDS}
+            for dev in shards.devices
+        ]
+    lanes = cfg.deliver_lanes if cfg is not None else 0
+    out = []
+    for j, c in enumerate(cells):
+        queue = _land(c, recv[j], j, hl, equeue.push_many_sorted,
+                      deliver_lanes=lanes if lanes > 0 else c.queue.capacity)
+        out.append(_replace(c, queue=queue, outbox=_fresh_outbox(c.outbox, over[j])))
+    return out
+
+
+def _flush_shards_segment(cells: list, cfg: EngineConfig, shards) -> list:
+    """The segment exchange over a world's shards: each shard pools its
+    outbox (_segment_pool), buckets the pool by destination shard (the
+    pool is destination-sorted, so the buckets fall out of the same rank
+    arithmetic as the dense all_to_all's) into a2a_capacity slots per
+    peer (<= 0: the whole pool), and the buckets move over the ring;
+    the pool's cut-off and the bucket overflow count into the outbox
+    overflow of the sending shard's first row."""
+    d, hl = shards.size, shards.hosts_per_shard
+    sent, over = [], []
+    for c in cells:
+        pool, e_max, pool_drop = _segment_pool(c, cfg)
+        cap = e_max if cfg.a2a_capacity <= 0 else min(cfg.a2a_capacity, e_max)
+        shard_of = torch.where(pool["valid"], pool["dst"].to(torch.int64) // hl, d)
+        buckets, ring_over = _shard_buckets(pool, shard_of, d, cap)
+        sent.append(buckets)
+        over.append(ring_over if pool_drop is None else ring_over + pool_drop)
+    recv = _ring_exchange(sent, shards)
+    return [
+        _replace(c, queue=_land(c, recv[j], j, hl, equeue.push_many_segment),
+                 outbox=_fresh_outbox(c.outbox, over[j]))
+        for j, c in enumerate(cells)
+    ]
 
 
 def _compact_rows(st: SimState, window_end, lanes: int):
@@ -521,8 +736,8 @@ def effective_engine(cfg: EngineConfig, device) -> str:
     return "pump" if cfg.pump_k > 0 else "plain"
 
 
-def run_round(st: SimState, window_end, model, tables: RoutingTables,
-              cfg: EngineConfig, counters=None, live=None) -> SimState:
+def run_round(st, window_end, model, tables: RoutingTables,
+              cfg: EngineConfig, counters=None, live=None, shards=None):
     """Drain all events < window_end on every host, then exchange packets.
     `counters` (a dict) gains "iters" when given.
 
@@ -533,7 +748,32 @@ def run_round(st: SimState, window_end, model, tables: RoutingTables,
     rejected an event. `live` ([R] bool) names the replicas whose chunk
     loop runs this round; the others' tracker marks stay as they were
     (they have no eligible event and no traffic, so nothing else of
-    theirs changes)."""
+    theirs changes).
+
+    With `shards` (a ShardContext), `st` is the list of one world's (or
+    one mesh row's) shard states, `tables` the list of their devices'
+    tables, and window_end and live are on shards.devices[0]: each shard
+    drains its own rows on its own device with its own loop, as each
+    device of the reference's shard_map does, and the exchange is the
+    one step that crosses shards."""
+    if shards is None:
+        st, iters = _drain(st, window_end, model, tables, cfg, counters, live)
+        st = flush_outbox(st, cfg)
+        return _close_round(st, window_end, cfg, iters, live)
+    ends, lives = shards.scatter(window_end), shards.scatter(live)
+    drained = [_drain(c, ends[j], model, tables[j], cfg, counters, lives[j])
+               for j, c in enumerate(st)]
+    cells = flush_outbox([c for c, _ in drained], cfg, shards)
+    return [_close_round(c, ends[j], cfg, drained[j][1], lives[j])
+            for j, c in enumerate(cells)]
+
+
+def _drain(st: SimState, window_end, model, tables: RoutingTables, cfg: EngineConfig,
+           counters=None, live=None):
+    """The drain loop of run_round on one state (a world, an ensemble's
+    rows view, or one shard of either), with the tracker's pre-exchange
+    marks. Returns (state, iterations): an int for one world, each
+    replica's count ([R] i32) on an ensemble's rows."""
     replicas = replicas_of(st)
     h_world = st.num_hosts // (replicas or 1)
     lanes = cfg.active_lanes
@@ -591,13 +831,6 @@ def run_round(st: SimState, window_end, model, tables: RoutingTables,
         iters += 1
     if counters is not None:
         counters["iters"] = counters.get("iters", 0) + iters
-
-    def queue_hwm(tr):
-        hwm = torch.maximum(tr.queue_hwm, st.queue.count)
-        if live is None:
-            return hwm
-        return _W(per_row(st, live), hwm, tr.queue_hwm)
-
     if cfg.tracker:
         tr = st.tracker
         exch = tr.exch_hwm.clone()
@@ -612,51 +845,79 @@ def run_round(st: SimState, window_end, model, tables: RoutingTables,
             tracker=_replace(
                 tr,
                 outbox_hwm=torch.maximum(tr.outbox_hwm, st.outbox.fill),
-                queue_hwm=queue_hwm(tr),
+                queue_hwm=_queue_hwm(st, tr, live),
                 exch_hwm=exch,
             ),
         )
-    st = flush_outbox(st, cfg)
+    return st, (iters if replicas is None else iters_r)
+
+
+def _queue_hwm(st: SimState, tr, live):
+    hwm = torch.maximum(tr.queue_hwm, st.queue.count)
+    if live is None:
+        return hwm
+    return _W(per_row(st, live), hwm, tr.queue_hwm)
+
+
+def _close_round(st: SimState, window_end, cfg: EngineConfig, iters, live) -> SimState:
+    """The end of run_round after the exchange: the queue high-water mark
+    of the landed packets, the iteration count on each world's first
+    row, and `now` at the window end."""
     if cfg.tracker:
-        st = _replace(st, tracker=_replace(st.tracker, queue_hwm=queue_hwm(st.tracker)))
+        st = _replace(st, tracker=_replace(st.tracker, queue_hwm=_queue_hwm(st, st.tracker, live)))
     iters_done = st.iters_done.clone()
-    if replicas is None:
+    if replicas_of(st) is None:
         iters_done[0] += iters
     else:
-        per_replica(st, iters_done)[:, 0] += iters_r
+        per_replica(st, iters_done)[:, 0] += iters
     return _replace(st, now=torch.maximum(st.now, window_end), iters_done=iters_done)
 
 
-def _next_window_end(st: SimState, end_time: int, cfg: EngineConfig, start,
-                     tables: "RoutingTables | None" = None):
+def _lookahead_bound(st: SimState, tables: RoutingTables):
+    """The adaptive window's bound on one state: min over its rows of
+    (next event + the host's node lookahead), per world on an ensemble's
+    rows."""
+    nt = equeue.next_time(st.queue)
+    la = tables.lookahead_ns[tables.host_node[st.host_id.to(torch.int64)].to(torch.int64)]
+    bound = nt + torch.minimum(la, TIME_MAX - nt)
+    return bound.amin() if replicas_of(st) is None else per_replica(st, bound).amin(dim=1)
+
+
+def _next_window_end(st, end_time: int, cfg: EngineConfig, start,
+                     tables: "RoutingTables | None" = None, shards=None):
     """The round's window end (an i64 scalar tensor; [R] on an
     ensemble's rows view, from each replica's own start and hosts):
     start + runahead, widened adaptively to min over hosts of (next
-    event + node lookahead), capped at end_time."""
+    event + node lookahead), capped at end_time. With `shards`, `st` and
+    `tables` are the lists of a world's shard states and their tables,
+    and the shards' least used latency and lookahead bound are reduced
+    over the shards (the reference's pmins), on shards.devices[0]."""
     start = torch.clamp(start, max=end_time)
     runahead = cfg.runahead_ns
     if cfg.use_dynamic_runahead:
         # the window is the least latency a packet has used (never below
         # the configured runahead); before any packet flew, the runahead
-        used = st.min_used_lat
+        used = st.min_used_lat if shards is None else shards.pmin(
+            [c.min_used_lat for c in st])
         runahead = _W(used == TIME_MAX, runahead, torch.clamp(used, min=runahead))
     floor = torch.clamp(start + runahead, max=end_time)
     # adaptive windows are off under dynamic runahead, where the delivery
     # clamp to the window end binds and a wider window would move
     # delivery times
+    one = tables if shards is None else (tables[0] if tables else None)
     adaptive = (
         cfg.adaptive_window
         and not cfg.use_dynamic_runahead
-        and tables is not None
-        and tables.lookahead_ns is not None
-        and tables.host_node is not None
+        and one is not None
+        and one.lookahead_ns is not None
+        and one.host_node is not None
     )
     if not adaptive:
         return floor
-    nt = equeue.next_time(st.queue)
-    la = tables.lookahead_ns[tables.host_node[st.host_id.to(torch.int64)].to(torch.int64)]
-    bound = nt + torch.minimum(la, TIME_MAX - nt)
-    w = bound.amin() if replicas_of(st) is None else per_replica(st, bound).amin(dim=1)
+    if shards is None:
+        w = _lookahead_bound(st, tables)
+    else:
+        w = shards.pmin([_lookahead_bound(c, t) for c, t in zip(st, tables)])
     return torch.maximum(floor, torch.clamp(w, max=end_time))
 
 
@@ -678,7 +939,14 @@ PROBE_FIELDS = (
 )
 
 
-def state_probe(st: SimState) -> torch.Tensor:
+# probe lanes the reference reduces over a mesh axis by pmin or pmax; the
+# rest by psum
+_PROBE_MIN = ("next_time",)
+_PROBE_MAX = ("now", "queue_hwm", "outbox_hwm", "exch_hwm", "rounds_live", "rounds_idle",
+              "win_ns_sum")
+
+
+def state_probe(st, shards=None) -> torch.Tensor:
     """[23] i64 summary the chunk loop reads (one fetch per chunk), the
     reference's lanes in its order: min pending time, total/queue/outbox
     overflow, now, events, packets, the tracker's per-kind events, the
@@ -687,7 +955,18 @@ def state_probe(st: SimState) -> torch.Tensor:
     iterations, the live lanes, the summed window widths and the
     exchange high-water mark (the tracker's lanes are 0 without
     cfg.tracker). An ensemble state (stacked or rows view) gives [R, 23],
-    one line per replica."""
+    one line per replica. With `shards`, `st` is the list of a world's
+    shard states and each lane is reduced over them as the reference
+    reduces it over its mesh axis (min, max, else sum), on
+    shards.devices[0]."""
+    if shards is not None:
+        lines = shards.gather([state_probe(c) for c in st])
+        out = lines.sum(dim=0)
+        for names, fn in ((_PROBE_MIN, torch.amin), (_PROBE_MAX, torch.amax)):
+            for name in names:
+                i = PROBE_FIELDS.index(name)
+                out[..., i] = fn(lines[..., i], dim=0)
+        return out
     single = replicas_of(st) is None
 
     def red(x, fn):
@@ -860,6 +1139,65 @@ class WatchdogExpired(RuntimeError):
         )
         self.chunk = chunk
         self.deadline_s = deadline_s
+
+
+class DeviceLossError(RuntimeError):
+    """A device (or the runtime under it) failed mid-run: a chunk's probe
+    read died with a CUDA runtime error that plausibly means the card is
+    gone (device_loss_from), or the chaos plane's `device-loss` fault
+    fired at a chunk launch. Recoverable on the mesh by degradation
+    (runtime/recovery.py's replan rung, runtime/mesh.py MeshRunner): roll
+    back to the retained snapshot, re-plan the batch onto the surviving
+    logical devices, replay leaf-exact. Outside the mesh it is terminal
+    but structured. `device_id` is the lost logical device's id when
+    known (a fault's target=N names it); `injected` marks the chaos
+    plane's loss. On one card every logical device shares its fate: a
+    real loss there takes them all, and only an injected loss can be
+    degraded onto survivors."""
+
+    def __init__(self, chunk: int, cause: "BaseException | None" = None,
+                 device_id: "int | None" = None):
+        detail = f": {cause}" if cause is not None else " (chaos plane)"
+        dev = f"device {device_id}" if device_id is not None else "a device"
+        super().__init__(f"lost {dev} at chunk {chunk}{detail}")
+        self.chunk = chunk
+        self.device_id = device_id
+        self.injected = cause is None
+
+
+# The CUDA runtime's texts (cudaGetErrorString) for failures that
+# plausibly mean the card or its runtime died: the allowlist the
+# translation below keys on, the counterpart of the reference's XLA
+# status prefixes (INTERNAL, UNAVAILABLE, ABORTED, CANCELLED, UNKNOWN).
+# Anything else surfaces as itself: out of memory (fewer devices make it
+# worse), invalid arguments, an illegal address or a device-side assert
+# (a kernel fault, which a replay would only repeat), a launch timeout.
+_DEVICE_LOSS_ERRORS = (
+    "unspecified launch failure",
+    "uncorrectable ECC error encountered",
+    "uncorrectable NVLink error",
+    "CUDA-capable device(s) is/are busy or unavailable",
+    "no CUDA-capable device is detected",
+    "unknown error",
+)
+
+
+def device_loss_from(err: BaseException, chunk: int) -> "DeviceLossError | None":
+    """Translate an exception raised by a chunk's probe read into a
+    DeviceLossError when it is a CUDA runtime failure
+    (torch.AcceleratorError, never a plain RuntimeError) whose text names
+    one of _DEVICE_LOSS_ERRORS, else None (the caller re-raises the
+    original). A DeviceLossError is returned as itself."""
+    if isinstance(err, DeviceLossError):
+        return err
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(err, accel):
+        head = str(err).lstrip().split("\n", 1)[0]
+        if head.startswith("CUDA error: "):
+            head = head[len("CUDA error: "):]
+        if any(head.startswith(text) for text in _DEVICE_LOSS_ERRORS):
+            return DeviceLossError(chunk, cause=err)
+    return None
 
 
 class EngineCompileError(RuntimeError):
@@ -1198,7 +1536,8 @@ def launch_chunk(launch, st, chunk: int, tracker, engine: str):
             return launch(st)
 
 
-def run_chunk(launch, st, chunk: int, tracker, engine: str, watchdog_s: float):
+def run_chunk(launch, st, chunk: int, tracker, engine: str, watchdog_s: float,
+              devices=None, max_chunks: "int | None" = None):
     """One chunk of a chunk loop (run_until, run_ensemble_until): its
     launch (launch_chunk), then its probe read in the `probe_fetch` span.
     Returns (state, probe as a list).
@@ -1212,7 +1551,16 @@ def run_chunk(launch, st, chunk: int, tracker, engine: str, watchdog_s: float):
     the card raises WatchdogExpired; so does the `stall` seam's sleep
     between them. With the watchdog armed, spans that `launch` itself
     records (a heartbeat's host_stats_fetch) carry the helper thread's
-    id."""
+    id.
+
+    `devices` (the logical device ids the state occupies) arms the
+    device-loss seams of the reference's ensemble and mesh driver: the
+    chaos plane's `device-loss` fault at each chunk launch ordinal, the
+    devices as the site's tags (a loss of a device the run does not
+    occupy never fires), and device_loss_from on the probe read. The
+    reference launches chunk N + 1 before it reads chunk N's probe, so
+    ordinal N + 1 (while below `max_chunks`) is consulted here before
+    this chunk's probe is read, ordinal 0 before chunk 0's launch."""
     t0 = 0.0
 
     def watched(s):
@@ -1222,9 +1570,30 @@ def run_chunk(launch, st, chunk: int, tracker, engine: str, watchdog_s: float):
             return launch(s)
         return _bounded(lambda: launch(s), watchdog_s, t0, chunk)
 
+    def loss_seam(at):
+        if devices is not None and chaos.active() is not None:
+            spec = chaos.fire("device-loss", at=at, tags=tuple(str(d) for d in devices))
+            if spec is not None:
+                raise chaos.injected_device_loss(at, spec)
+
+    if chunk == 0:
+        loss_seam(0)
     st = launch_chunk(watched, st, chunk, tracker, engine)
+    if max_chunks is None or chunk + 1 < max_chunks:
+        loss_seam(chunk + 1)
     with _tspan(tracker, "probe_fetch", chunk=chunk):
-        return st, _fetch_probe(state_probe(st), watchdog_s, chunk, t0)
+        try:
+            return st, _fetch_probe(state_probe(st), watchdog_s, chunk, t0)
+        except (WatchdogExpired, RunInterrupted, KeyboardInterrupt):
+            raise
+        except Exception as err:
+            # a card that died surfaces at the first read after a launch,
+            # as a CUDA runtime error: the typed loss the mesh's
+            # degradation rung acts on. Anything else is what it is.
+            loss = device_loss_from(err, chunk) if devices is not None else None
+            if loss is None:
+                raise
+            raise loss from err
 
 
 def run_until(
@@ -1240,6 +1609,8 @@ def run_until(
     on_state=None,
     tracker=None,
     watchdog_s: float = 0.0,
+    chunk=None,
+    capacity_detail=None,
 ) -> SimState:
     """Host-side driver: chunks of `rounds_per_chunk` rounds until no work
     remains before end_time. The caller's state is never modified (the
@@ -1282,7 +1653,13 @@ def run_until(
     launch (for the engine this config runs here), `stall` in chunk N's
     probe read, `capacity` after chunk N's probe is observed. The
     reference's pipelined loop reads chunk N's probe with chunk N + 1 in
-    flight, and names the sites by N as this loop does."""
+    flight, and names the sites by N as this loop does.
+
+    `chunk` (a callable `chunk(st, end_time, tables, counters)` running
+    rounds_per_chunk rounds, engine/sharded.py's GridChunk) replaces the
+    single-device rounds, and `capacity_detail(st)` the capacity error's
+    detail line (capacity_topk): the sharded engine's driver is this
+    loop with its chunk and its per-shard detail."""
     from shadow_tpu_torch.engine.state import state_to_host
 
     validate_runahead(cfg, tables)
@@ -1300,7 +1677,10 @@ def run_until(
     hb_probe = None  # a heartbeat decided at the last probe, due from this chunk
 
     def launch(s):
-        out = _run_chunk(s, end_time, model, tables, cfg, rounds_per_chunk, counters)
+        if chunk is None:
+            out = _run_chunk(s, end_time, model, tables, cfg, rounds_per_chunk, counters)
+        else:
+            out = chunk(s, end_time, tables, counters)
         nonlocal hb_probe
         if hb_probe is not None:
             heartbeat(hb_probe, out)
@@ -1324,7 +1704,8 @@ def run_until(
         if probe.overflow:
             err = _probe_capacity_error(probe)
             attach_capacity_bytes(err, st)  # shapes only: the next chunk's are the same
-            err.detail_of = lambda s=st: capacity_topk(launch(s) if ahead else s)
+            detail = capacity_detail or capacity_topk
+            err.detail_of = lambda s=st: detail(launch(s) if ahead else s)
             raise err
         if on_chunk is not None:
             on_chunk(probe)

@@ -30,10 +30,11 @@ from shadow_tpu_torch.utils.tree import tree_leaves_with_path, tree_map
 class EngineConfig:
     """Static engine parameters: the reference's EngineConfig field for
     field (shadow_tpu/engine/state.py documents each), so one config maps
-    onto both packages. The port reads all of them but a2a_capacity and
-    megakernel_tile, multi-device and TPU-tiling knobs with no effect
-    here, and ensemble (set by engine/ensemble.py), which changes nothing:
-    the engine reads the replica count from the state's shapes. engine:
+    onto both packages. The port reads all of them but megakernel_tile, a
+    TPU-tiling knob with no effect here (a2a_capacity sizes the sharded
+    exchange's buckets, engine/sharded.py), and ensemble (set by
+    engine/ensemble.py), which changes nothing: the engine reads the
+    replica count from the state's shapes. engine:
     "auto" (the megakernel on the card, else pump when pump_k > 0, else
     plain), "plain", "pump" or "megakernel" (the CUDA kernel on the card,
     its twin on the CPU) — all bit-identical."""

@@ -42,13 +42,18 @@ The seams the port carries:
                     (runtime/compile_cache.py): a rebuild with a warning.
   ``http-drop``     drop HTTP request number `at` with a structured 503
                     (runtime/httpapi.py).
+  ``device-loss``   raise a DeviceLossError at chunk-launch ordinal `at`
+                    of the ensemble and mesh drivers (engine/round.py
+                    run_chunk; `target` = the lost logical device id, a
+                    site tagged with the devices the run occupies): the
+                    mesh's degradation rung (runtime/mesh.py), terminal
+                    outside the mesh.
   ``lease-steal``   rewrite the running batch's claim file to a foreign
                     owner at lease renewal `at` (runtime/daemon.py): the
                     batch parks through a checkpoint and re-queues.
 
 The plan parses every kind of the reference's catalog
-(config/options.py FAULT_KINDS); the manager refuses, with NotYetPorted,
-a plan that names a kind whose seam is not ported (LATER_KINDS).
+(config/options.py FAULT_KINDS), and every kind has its seam here.
 
 The one deliberate difference from the reference: its compile seam
 wraps any exception raised by chunk 0's launch into EngineCompileError,
@@ -77,10 +82,6 @@ AUTO_AT_MAX = 4
 # length
 MAX_FIRED_RECORDS = 100
 MAX_FIRED_LOGS = 5
-
-# fault kinds whose seams belong to planes the port does not carry yet
-# (the multi-device mesh)
-LATER_KINDS = ("device-loss",)
 
 
 @dataclasses.dataclass
@@ -298,6 +299,23 @@ def injected_capacity_error(at, spec: "FaultSpec | None" = None):
     err.queue_overflow = 1
     err.injected = True
     return err
+
+
+def injected_device_loss(at, spec: "FaultSpec | None" = None):
+    """The DeviceLossError a `device-loss` fault raises at a chunk-launch
+    seam (engine/round.py run_chunk): structurally a real CUDA failure's
+    translation (engine/round.py device_loss_from), tagged `injected`,
+    carrying the lost logical device's id when the fault's `target`
+    names one."""
+    from shadow_tpu_torch.engine.round import DeviceLossError
+
+    device_id = None
+    if spec is not None and spec.target is not None:
+        try:
+            device_id = int(spec.target)
+        except ValueError:
+            device_id = None
+    return DeviceLossError(at, device_id=device_id)
 
 
 @contextlib.contextmanager

@@ -132,6 +132,14 @@ def grid_label(grid: "str | None") -> str:
     return grid or "single-device"
 
 
+def reshard_note(saved_grid: "str | None", layout: "str | None") -> str:
+    """The ", resharding A -> B" suffix of a resume's log line when the
+    resume changes the grid, empty when it does not."""
+    if saved_grid == layout:
+        return ""
+    return f", resharding {grid_label(saved_grid)} -> {grid_label(layout)}"
+
+
 def _mismatch_message(path: str, meta: dict, fingerprint: str,
                       detail: "dict | None", layout: "str | None") -> str:
     """The resume-refusal message: both grids and the offending

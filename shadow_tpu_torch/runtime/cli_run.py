@@ -38,7 +38,8 @@ def run_from_config(path: str, device: str = "cuda", show_config: bool = False,
                     xprof_dir: "str | None" = None, xprof_chunks: "str | None" = None,
                     autotune: "float | None" = None, no_autotune: bool = False,
                     chunk_watchdog: "float | None" = None, chaos_seed: "int | None" = None,
-                    chaos_faults: "list[str] | None" = None) -> int:
+                    chaos_faults: "list[str] | None" = None,
+                    mesh: "str | None" = None) -> int:
     try:
         config = load_config_file(path)
     except (ValueError, OSError, yaml.YAMLError) as e:
@@ -76,6 +77,13 @@ def run_from_config(path: str, device: str = "cuda", show_config: bool = False,
         if replica_seed_stride < 1:
             raise CliUserError("--replica-seed-stride must be >= 1")
         config.general.replica_seed_stride = replica_seed_stride
+    if mesh is not None:
+        from shadow_tpu_torch.config.options import canonical_mesh
+
+        try:
+            config.general.mesh = canonical_mesh(mesh)
+        except ValueError as e:
+            raise CliUserError(f"invalid --mesh: {e}") from e
     if chunk_watchdog is not None:
         if chunk_watchdog < 0:
             raise CliUserError("--chunk-watchdog must be >= 0")
@@ -178,12 +186,18 @@ def run_mem(path: str, hbm_gb: "float | None" = None, replicas: "int | None" = N
             raise CliUserError(f"invalid --mesh: {e}") from e
     set_level(config.general.log_level)
     try:
-        # the world is validated as a run validates it; nothing is placed
-        # on a device (device="cpu" only names where tables would live)
-        world = Manager(config, device="cpu").build_world()
+        # the world is validated as a run validates it (a mesh against the
+        # CPU's logical devices); nothing is placed on a device
+        # (device="cpu" only names where tables would live)
+        manager = Manager(config, device="cpu")
+        world = manager.build_world()
     except (ValueError, OSError) as e:
         raise CliUserError(str(e)) from e
-    report = memtrack.price_state(priced_state(world, config.general.replicas), world.ecfg)
+    # a mesh run holds init_mesh_state's stack: the ensemble's shapes for
+    # the plan's replica count (the grid splits it, adding no bytes)
+    plan = manager.mesh_plan
+    replicas = plan.replicas if plan is not None else config.general.replicas
+    report = memtrack.price_state(priced_state(world, replicas), world.ecfg)
     if json_out:
         print(json.dumps(report, indent=2))
     else:
@@ -311,8 +325,7 @@ def run_serve(
             parse_http_addr(http)
         except ValueError as e:
             raise CliUserError(str(e)) from e
-    from shadow_tpu_torch.config.options import NotYetPorted
-    from shadow_tpu_torch.runtime.chaos import LATER_KINDS, parse_fault_arg
+    from shadow_tpu_torch.runtime.chaos import parse_fault_arg
 
     faults = []
     for arg in chaos_faults or []:
@@ -320,8 +333,6 @@ def run_serve(
             faults.append(parse_fault_arg(arg))
         except ValueError as e:
             raise CliUserError(f"invalid --chaos-fault {arg!r}: {e}") from e
-        if faults[-1]["kind"] in LATER_KINDS:
-            raise CliUserError(str(NotYetPorted(f"chaos fault kind {faults[-1]['kind']!r}")))
     if mesh is not None:
         from shadow_tpu_torch.config.options import canonical_mesh
 

@@ -33,6 +33,11 @@ chaos fault pins this). `runtime` is `torch-<version>/cpu`, or
 `torch-<version>/cuda-<card name>-sm<major><minor>-cuda<toolkit>` on the
 card: a library built for one card and toolkit is loadable only there.
 
+A mesh batch (runtime/mesh.py) keys its prepared grid chunk
+(engine/sharded.py GridChunk, from engine/mesh.py lower_mesh_chunk) under
+(key, "mesh", rows, shards, rounds_per_chunk): one build per world and
+grid, the kernel's library loaded once for all the grid's shards.
+
 The payload is the pickled prepared chunk (its model, canonical static
 cfg, rounds per chunk, engine, and on the card the kernel instance, its
 dynamic shared memory and the library's source digest) and, where the
@@ -218,11 +223,20 @@ def runtime_version(device) -> str:
 
 def serialize_chunk(exe) -> bytes:
     """The payload of a prepared chunk (module docstring): the chunk
-    itself and, where it runs the kernel, the library's bytes."""
+    itself (an ensemble's, or a mesh's with its grid of logical devices)
+    and, where it runs the kernel, the library's bytes."""
     from shadow_tpu_torch.engine.ensemble import EnsembleChunk
+    from shadow_tpu_torch.engine.sharded import GridChunk
 
-    if not isinstance(exe, EnsembleChunk):
-        raise TypeError(f"{type(exe).__name__} is not a prepared ensemble chunk")
+    if isinstance(exe, GridChunk):
+        chunk = GridChunk(exe.model, exe.cfg, exe.rounds_per_chunk, exe.grid, exe.engine)
+        chunk.instance, chunk.dynamic_smem = exe.instance, exe.dynamic_smem
+        chunk.library_tag = exe.library_tag
+    elif isinstance(exe, EnsembleChunk):
+        chunk = EnsembleChunk(exe.model, exe.cfg, exe.rounds_per_chunk, exe.engine,
+                              exe.instance, exe.dynamic_smem, exe.library_tag)
+    else:
+        raise TypeError(f"{type(exe).__name__} is not a prepared ensemble or mesh chunk")
     library = None
     if exe.library_tag is not None:
         from shadow_tpu_torch.engine.megakernel import PUMP_KERNEL
@@ -230,8 +244,6 @@ def serialize_chunk(exe) -> bytes:
         if exe.library_tag != PUMP_KERNEL.tag():
             raise ValueError("the kernel's source changed since this chunk was prepared")
         library = PUMP_KERNEL.library_path().read_bytes()
-    chunk = EnsembleChunk(exe.model, exe.cfg, exe.rounds_per_chunk, exe.engine,
-                          exe.instance, exe.dynamic_smem, exe.library_tag)
     return pickle.dumps({"chunk": chunk, "library": library})
 
 

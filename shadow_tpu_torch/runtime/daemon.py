@@ -57,9 +57,10 @@ Three serving-layer extensions ride the same admission path
 The compile cache is a PersistentCompileCache
 (runtime/compile_cache.py) rooted in the spool, so a restarted daemon
 — or a fleet peer — pays zero builds for worlds any daemon has already
-prepared (on the card: no nvcc). Not carried: the 2-D mesh
-(`serve --mesh`, the multi-device plane), refused with NotYetPorted.
-The chaos
+prepared (on the card: no nvcc). `serve --mesh RxS` dispatches every
+batch over a grid of logical devices (runtime/mesh.py), and a batch
+checkpointed on one grid resumes on whatever grid the restarted daemon
+has, the journal naming both. The chaos
 plane closes the loop: ``daemon-kill`` / ``spool-corrupt`` /
 ``cache-corrupt`` faults (runtime/chaos.py) drive the soak test
 (tests/test_daemon_soak.py) — 100+ jobs, 3 tenants, faults firing, and
@@ -640,10 +641,6 @@ class DaemonService(SweepService):
     ):
         from shadow_tpu_torch.device import resolve_device
 
-        if mesh is not None:
-            from shadow_tpu_torch.config.options import NotYetPorted
-
-            raise NotYetPorted("serve --mesh (the 2-D mesh plane)")
         device = resolve_device(device)
         self.spool_dir = os.path.abspath(spool_dir)
         for sub in ("incoming", "accepted", "rejected", "journal",
@@ -656,6 +653,7 @@ class DaemonService(SweepService):
             jobs=[],
             retry_max=retry_max,
             retry_backoff_s=retry_backoff_s,
+            mesh=mesh,
         )
         cache = None
         if persist_cache:
@@ -700,11 +698,12 @@ class DaemonService(SweepService):
         self.tenant_service: "dict[str, float]" = {}  # weighted sim-ns
         # per-tenant device-seconds SERVED (resource-class quotas want
         # device time, not job counts): wall-seconds of batch execution
-        # on the batch's one device, accumulated at chunk cadence; the
-        # quota classes below enforce budgets against it
+        # times the logical devices its grid occupies, accumulated at
+        # chunk cadence; the quota classes below enforce budgets against it
         self.tenant_device_seconds: "dict[str, float]" = {}
         self._batch_wall_anchor: "float | None" = None
         self._anchor_tenant: str = default_tenant
+        self._anchor_devices: int = 1
         self.resume_report: "dict | None" = None
         self.pending: "list[Batch]" = []
         self._stop = False
@@ -984,11 +983,16 @@ class DaemonService(SweepService):
 
             ckpt_dir = os.path.join(self._batch_dir(b), "ckpts")
             path = CheckpointManager.latest_path(ckpt_dir)
+            saved_grid = None
             if path is not None:
                 # only resume the exact simulated WORLD the checkpoint
-                # was written for — anything else restarts from scratch
+                # was written for — anything else restarts from scratch.
+                # The fingerprint does not pin the grid: a checkpoint
+                # written on another mesh resumes here, resharded onto
+                # this daemon's grid at dispatch
                 try:
                     meta = peek_checkpoint_meta(path)
+                    saved_grid = meta.get("mesh")
                     want = config_fingerprint(self._batch_config(b))
                     if meta.get("fingerprint") != want:
                         path = None
@@ -1000,6 +1004,11 @@ class DaemonService(SweepService):
                 "jobs": [j.name for j in b.jobs],
                 "checkpoint": path,
             }
+            if path is not None:
+                # the grid the checkpoint was written on, and the grid this
+                # daemon resumes it on
+                entry["mesh"] = saved_grid
+                entry["mesh_resume"] = self._batch_grid(b)
             out.append(entry)
         return out
 
@@ -1588,10 +1597,15 @@ class DaemonService(SweepService):
     def _on_batch_start(self, batch: Batch, depth: int) -> None:
         from shadow_tpu_torch.runtime import chaos
 
+        grid = self._batch_grid(batch)
         self.journal.append(
             "batch-start", key=batch.dir_key or f"b{batch.index:03d}",
             jobs=[j.name for j in batch.jobs], tenant=batch.tenant,
             resume=batch.resume_ckpt, queue_depth=depth,
+            # the grid this dispatch runs on: with the resume records'
+            # `mesh` entries, the journal says which grid wrote each
+            # checkpoint and which grid each restart resumed it on
+            **({"mesh": grid} if grid else {}),
         )
         # device-seconds accounting anchor (accounting only, no
         # enforcement): chunk ticks accumulate wall x devices from here,
@@ -1600,6 +1614,7 @@ class DaemonService(SweepService):
         # reaching one)
         self._flush_device_seconds()
         self._anchor_tenant = batch.tenant or self.default_tenant
+        self._anchor_devices = self._batch_devices(batch)
         self._batch_wall_anchor = time.monotonic()
         if chaos.fire("daemon-kill", at=self._batch_ord,
                       tags=("batch-start",)) is not None:
@@ -1635,8 +1650,8 @@ class DaemonService(SweepService):
 
     def _accrue_device_seconds(self, rearm: bool) -> None:
         """ONE definition of the device-seconds accounting step: wall
-        since the anchor on the batch's one device, credited to its
-        tenant. `rearm` keeps the anchor running (the
+        since the anchor times the devices the batch's grid occupies,
+        credited to its tenant. `rearm` keeps the anchor running (the
         chunk-tick cadence); False disarms it (the flush seams)."""
         if self._batch_wall_anchor is None:
             return
@@ -1644,9 +1659,20 @@ class DaemonService(SweepService):
         t = self._anchor_tenant
         self.tenant_device_seconds[t] = (
             self.tenant_device_seconds.get(t, 0.0)
-            + (now - self._batch_wall_anchor)
+            + (now - self._batch_wall_anchor) * self._anchor_devices
         )
         self._batch_wall_anchor = now if rearm else None
+
+    def _batch_devices(self, batch: Batch) -> int:
+        """Logical devices the batch's grid occupies (1 on the
+        single-device ensemble plane), the device-seconds multiplier:
+        the requested grid (a degradation mid-batch over-counts, the
+        conservative direction)."""
+        grid = self._batch_grid(batch)
+        if grid is None:
+            return 1
+        rows, shards = (int(x) for x in grid.split("x"))
+        return rows * shards
 
     def _flush_device_seconds(self) -> None:
         """Account the tail between the last chunk tick and now against

@@ -108,6 +108,12 @@ _REPLAYED_CMDS = {
 # full payload columns, so a count cap alone would not bound memory on
 # high-traffic runs
 _REPLAY_LOG_MAX_BYTES = 256 * 1024 * 1024
+# A spawned worker imports torch and the port before it answers "ready".
+# That start-up is bounded on its own, by the larger of this and the RPC
+# timeout: the RPC timeout catches a worker that stopped mid-RPC, and a
+# short one (a test's 5 s) must not take a worker still starting on a
+# loaded machine for a hung one.
+_STARTUP_TIMEOUT_S = 120.0
 
 
 def _replay_msg_cost(msg) -> int:
@@ -554,7 +560,7 @@ class ParallelHybridScheduler:
             self._spawn(w)
         try:
             for w in range(k):
-                self._expect(self._recv(w), "ready")
+                self._expect(self._recv(w, self._startup_timeout_s), "ready")
         except _WorkerDied as d:
             # a worker that cannot even START is a deterministic failure:
             # no respawn — reap the whole fleet and fail cleanly instead
@@ -590,9 +596,8 @@ class ParallelHybridScheduler:
         manager forever. A hung worker is killed before raising, so the
         process is always reaped."""
         proc, conn = self._workers[w]
-        deadline = _walltime.monotonic() + (
-            timeout if timeout is not None else self.rpc_timeout_s
-        )
+        limit = timeout if timeout is not None else self.rpc_timeout_s
+        deadline = _walltime.monotonic() + limit
         while True:
             try:
                 if conn.poll(0.2):
@@ -610,7 +615,12 @@ class ParallelHybridScheduler:
             if _walltime.monotonic() > deadline:
                 proc.kill()
                 proc.join(5)
-                raise _WorkerDied(w, f"hung past the {self.rpc_timeout_s}s RPC timeout")
+                what = "start-up" if limit != self.rpc_timeout_s else "RPC"
+                raise _WorkerDied(w, f"hung past the {limit}s {what} timeout")
+
+    @property
+    def _startup_timeout_s(self) -> float:
+        return max(self.rpc_timeout_s, _STARTUP_TIMEOUT_S)
 
     def _send(self, w: int, msg) -> None:
         try:
@@ -659,7 +669,7 @@ class ParallelHybridScheduler:
         proc.join(5)
         self._spawn(w)
         try:
-            self._expect(self._recv(w), "ready")
+            self._expect(self._recv(w, self._startup_timeout_s), "ready")
             for m in self._cmd_log[w]:
                 self._send(w, m)
                 # replies are discarded: the parent already consumed the

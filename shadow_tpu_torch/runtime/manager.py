@@ -1,16 +1,15 @@
 """Manager: build the simulated world from config and run it (port of
-shadow_tpu/runtime/manager.py, reduced to single-device runs: scripted
-worlds, one or an ensemble of seeded replicas, on the device engine or
-the cpu-ref oracle; managed worlds of real executables on the host
-kernel, alone or coupled to the device engine, with parallel kernel
-workers).
+shadow_tpu/runtime/manager.py: scripted worlds, one or an ensemble of
+seeded replicas, on the device engine (one device, hosts sharded over
+`general.parallelism` logical devices, or a `general.mesh` grid) or the
+cpu-ref oracle; managed worlds of real executables on the host kernel,
+alone or coupled to the device engine, with parallel kernel workers).
 
 Resolve the graph, expand host specs, assign IPs, map hosts to graph
 nodes, build the model, plan rounds_per_chunk (the autotuner), run the
 scheduler with heartbeats under the chaos plane's fault plan, and write
 `sim-stats.json`, the processed config and the hosts file into the data
-directory. Features of the reference that the port does not carry yet
-raise NotYetPorted while the world is validated, before anything runs.
+directory.
 """
 
 from __future__ import annotations
@@ -24,8 +23,7 @@ import time
 import numpy as np
 
 from shadow_tpu_torch.config import ConfigOptions
-from shadow_tpu_torch.config.options import NotYetPorted
-from shadow_tpu_torch.device import resolve_device
+from shadow_tpu_torch.device import resolve_device, visible_devices
 from shadow_tpu_torch.engine.state import EngineConfig
 from shadow_tpu_torch.graph import IpAssignment, NetworkGraph, compute_routing
 from shadow_tpu_torch.graph.network_graph import ONE_GBIT_SWITCH_GML
@@ -84,8 +82,8 @@ class SimResults:
 
 
 def _reject_ensemble(config: ConfigOptions, managed_mode: bool) -> None:
-    """The reference's refusals of an ensemble (general.replicas > 1),
-    with its messages; a 2-D mesh stays NotYetPorted (_reject_unported)."""
+    """The reference's refusals of an ensemble (general.replicas > 1)
+    without a mesh, with its messages (a mesh: Manager._resolve_mesh)."""
     g = config.general
     if g.replicas <= 1 or g.mesh:
         return
@@ -109,35 +107,16 @@ def _reject_ensemble(config: ConfigOptions, managed_mode: bool) -> None:
         )
 
 
-def _reject_unported(config: ConfigOptions, managed_mode: bool = False) -> None:
-    """Config-time refusal of everything outside the port's slices,
-    chaos faults whose seams belong to a later plane included. Parallel
-    kernel workers serve managed worlds; a scripted world's
-    parallelism > 1 is the multi-device plane."""
-    from shadow_tpu_torch.runtime.chaos import LATER_KINDS
-
-    g = config.general
-    checks = [
-        (bool(g.mesh), "general.mesh (the 2-D mesh plane)"),
-        (g.parallelism > 1 and not managed_mode,
-         "general.parallelism > 1 (multi-device sharding)"),
-    ]
-    checks += [(f["kind"] in LATER_KINDS, f"chaos fault kind {f['kind']!r}")
-               for f in config.chaos.faults]
-    for bad, what in checks:
-        if bad:
-            raise NotYetPorted(what)
-
-
 class Manager:
     def __init__(self, config: ConfigOptions, device="cuda"):
         self.config = config
         self.graph = self._load_graph()
         self.hosts = self._expand_hosts()
         self.managed_mode = self._validate_process_specs()
+        mesh = self._validate_mesh()
         _reject_ensemble(config, self.managed_mode)
-        _reject_unported(config, self.managed_mode)
         self.device = resolve_device(device)
+        self.mesh_plan = self._resolve_mesh(mesh)
         self.ip = IpAssignment()
         for h in self.hosts:
             if h.ip >= 0:
@@ -145,6 +124,63 @@ class Manager:
         for h in self.hosts:
             if h.ip < 0:
                 h.ip = self.ip.assign_auto(h.index)
+
+    def _validate_mesh(self):
+        """The reference's refusals of general.mesh, with its messages, at
+        construction (construction = world validation). Returns the
+        MeshPlan the grid asks for, or None without a mesh: the run's
+        replica count is general.replicas when > 1 (each of the R grid
+        rows carries replicas/R), else the grid's R."""
+        g = self.config.general
+        if not g.mesh:
+            return None
+        from shadow_tpu_torch.config.options import parse_mesh
+        from shadow_tpu_torch.engine.mesh import MeshPlan
+
+        rows, shards = parse_mesh(g.mesh)
+        if self.managed_mode:
+            raise ValueError(
+                "general.mesh supports scripted-model runs only; managed "
+                "guests are live OS processes and cannot be laid out on a "
+                "device mesh (docs/parallelism.md)"
+            )
+        if self.config.experimental.scheduler != "tpu":
+            raise ValueError(
+                "general.mesh requires experimental.scheduler: tpu (the "
+                "mesh plane dispatches the device engine)"
+            )
+        if g.parallelism > 1:
+            raise ValueError(
+                "general.mesh IS the sharding plane — drop "
+                "general.parallelism > 1 (the mesh's S axis replaces it)"
+            )
+        replicas = g.replicas if g.replicas > 1 else rows
+        if replicas % rows:
+            raise ValueError(
+                f"general.replicas={replicas} must be a multiple of the "
+                f"mesh's replica rows ({g.mesh}): each row carries "
+                "replicas/R vmapped replicas"
+            )
+        if len(self.hosts) % shards:
+            raise ValueError(
+                f"{len(self.hosts)} hosts must divide evenly over the "
+                f"mesh's {shards} host-shard(s) ({g.mesh})"
+            )
+        return MeshPlan(replicas=replicas, shards=shards, rows=rows)
+
+    def _resolve_mesh(self, plan):
+        """The mesh plan, refused at construction when its grid needs more
+        logical devices than this device type presents (device.py:
+        SHADOW_TPU_TORCH_LOGICAL_DEVICES per physical device)."""
+        if plan is None:
+            return None
+        visible = len(visible_devices(self.device))
+        if plan.devices_needed > visible:
+            raise ValueError(
+                f"general.mesh {self.config.general.mesh} needs {plan.devices_needed} "
+                f"devices, {visible} visible"
+            )
+        return plan
 
     def _validate_process_specs(self) -> bool:
         """Classify the run as scripted-model or managed-executable mode and
@@ -352,9 +388,12 @@ class Manager:
                     overrides[knob] = meta[knob]
             if any(overrides.get(k) != getattr(ecfg, k) for k in overrides):
                 ecfg = dataclasses.replace(ecfg, **overrides)
+        layout = None
+        if self.mesh_plan is not None:
+            layout = f"{self.mesh_plan.rows}x{self.mesh_plan.shards}"
         ckpt = CheckpointManager(
             g.checkpoint_dir, g.checkpoint_interval_ns, fingerprint,
-            detail=fingerprint_dict(self.config),
+            layout=layout, detail=fingerprint_dict(self.config),
         )
         return ecfg, ckpt, InterruptGuard(), resume_path
 
@@ -409,7 +448,17 @@ class Manager:
             watchdog_s=cfgo.experimental.chunk_watchdog_s,
             device=self.device,
         )
-        if replicas > 1:
+        if self.mesh_plan is not None:
+            # the 2-D mesh plane: replicas x host shards on a grid of
+            # logical devices, with EnsembleRunner's run() surface
+            from shadow_tpu_torch.runtime.mesh import MeshRunner
+
+            replicas = self.mesh_plan.replicas
+            sched = MeshRunner(
+                world.model, world.tables, ecfg, self.mesh_plan,
+                seed_stride=cfgo.general.replica_seed_stride, **common,
+            )
+        elif replicas > 1:
             # the ensemble plane: R seeded replicas as one batch
             from shadow_tpu_torch.runtime.ensemble import EnsembleRunner
 
@@ -419,15 +468,19 @@ class Manager:
             )
         else:
             sched = make_scheduler(cfgo.experimental.scheduler, world.model, world.tables,
-                                   ecfg, world.host_node, **common)
+                                   ecfg, world.host_node,
+                                   parallelism=cfgo.general.parallelism, **common)
         oracle = isinstance(sched, CpuRefScheduler)
         end = cfgo.general.stop_time_ns
         hb_ns = cfgo.general.heartbeat_interval_ns
         last_hb = [0]
         # occupancy denominator, set before the run so heartbeat lines and
-        # mid-run metrics divide correctly: an ensemble's iteration count
-        # sums R drain loops of H lanes each
-        num_shards = replicas if replicas > 1 else 1
+        # mid-run metrics divide correctly: the iteration count sums one
+        # drain loop per replica and shard, each over its share of lanes
+        if self.mesh_plan is not None:
+            num_shards = self.mesh_plan.replicas * self.mesh_plan.shards
+        else:
+            num_shards = replicas if replicas > 1 else getattr(sched, "num_devices", 1)
         if tracker is not None:
             tracker.num_shards = num_shards
         recorder.num_shards = num_shards
@@ -456,6 +509,9 @@ class Manager:
                 )
 
         rep_note = f"{replicas} replicas, " if replicas > 1 else ""
+        if self.mesh_plan is not None:
+            rep_note = (f"{replicas} replicas on a {self.mesh_plan.rows}x"
+                        f"{self.mesh_plan.shards} mesh, ")
         eng_note = "" if oracle else f"engine={sched.engine}, device={self.device}, "
         slog("info", 0, "manager",
              f"starting: {len(self.hosts)} hosts, {rep_note}scheduler={sched.name}, "
@@ -520,6 +576,20 @@ class Manager:
             # what the autotuner decided and on what evidence
             results.extra_stats["autotune"] = autotune_plan.as_dict()
         self._fold_chaos(results)
+        if self.mesh_plan is not None:
+            # requested and effective grid: a device loss may have
+            # re-planned the batch mid-run, and a degraded run says so
+            eff = getattr(sched, "plan", self.mesh_plan)
+            results.extra_stats["mesh"] = {
+                "replicas": eff.replicas,
+                "shards": eff.shards,
+                "rows": eff.rows,
+                "requested": f"{self.mesh_plan.rows}x{self.mesh_plan.shards}",
+                "effective": f"{eff.rows}x{eff.shards}",
+            }
+            degradations = getattr(sched, "mesh_degradations", [])
+            if degradations:
+                results.extra_stats["mesh"]["degradations"] = list(degradations)
         host_tensors = None
         if replicas > 1:
             # per-replica sections and the aggregate mean/stddev/CI block,
@@ -563,6 +633,11 @@ class Manager:
                                                 else sched.engine),
             "kernel_launches": {"pump_megakernel": PUMP_KERNEL.launches - launches0},
         }
+        if not oracle and (self.mesh_plan is not None or getattr(sched, "num_devices", 1) > 1):
+            # the logical devices the run's shards ran on (device.py)
+            grid = sched._get_mesh().ids if self.mesh_plan is not None else tuple(
+                d.id for d in sched.devices)
+            results.extra_stats["execution"]["logical_devices"] = list(grid)
         slog("info", end, "manager",
              f"finished: {results.events_handled} events in {wall:.2f}s wall "
              f"({results.sim_sec_per_wall_sec:.2f} sim-s/wall-s)")
@@ -577,17 +652,21 @@ class Manager:
         cfgo = self.config
         resume_state = None
         if resume_path is not None:
-            from shadow_tpu_torch.runtime.checkpoint import load_checkpoint
+            from shadow_tpu_torch.runtime.checkpoint import load_checkpoint, reshard_note
 
             # resume_path came from latest_path, which verified the
-            # sha-256 digest moments ago: skip the second full hash
+            # sha-256 digest moments ago: skip the second full hash. The
+            # snapshot is layout-free: another grid than the one it was
+            # saved on is fine (the chunk reshards at dispatch); only a
+            # fingerprint mismatch refuses, naming the keys
             resume_state, meta = load_checkpoint(
                 resume_path, sched.initial_state(), ckpt.fingerprint,
-                check_digest=False, detail=ckpt.detail,
+                check_digest=False, detail=ckpt.detail, layout=ckpt.layout,
             )
             slog("info", meta["now_ns"], "manager",
                  f"resuming from checkpoint {resume_path} "
-                 f"(sim time {fmt_time_ns(meta['now_ns'])})")
+                 f"(sim time {fmt_time_ns(meta['now_ns'])}"
+                 f"{reshard_note(meta.get('mesh'), ckpt.layout)})")
         recovery = None
         if cfgo.experimental.recover:
             from shadow_tpu_torch.runtime.recovery import RecoveryPolicy
@@ -656,7 +735,21 @@ class Manager:
         probe_runner = None
         shape_key = ""
         reps = cfgo.general.replicas
-        if reps > 1:
+        if self.mesh_plan is not None:
+            from shadow_tpu_torch.engine.mesh import init_mesh_state, run_mesh_until
+
+            plan = self.mesh_plan
+            shape_key = f"mesh{plan.rows}x{plan.shards}r{plan.replicas}"
+
+            def probe_state():
+                return init_mesh_state(ecfg, model, plan, cfgo.general.replica_seed_stride,
+                                       device=dev, **refills)
+
+            def probe_runner(st, end_ns, rpc, pcfg, ptracker):
+                run_mesh_until(st, end_ns, model, tables, pcfg, plan, rounds_per_chunk=rpc,
+                               tracker=ptracker)
+
+        elif reps > 1:
             from shadow_tpu_torch.engine.ensemble import init_ensemble_state, run_ensemble_until
 
             shape_key = f"r{reps}"
@@ -715,7 +808,7 @@ class Manager:
             from shadow_tpu_torch.engine.round import host_stats
 
             hs = host_tensors if host_tensors is not None else host_stats(final_state)
-            if self.config.general.replicas > 1:
+            if self.config.general.replicas > 1 or self.mesh_plan is not None:
                 # an ensemble's [R, H] tensors, flattened for the fold
                 # (exact per-replica splits are in the `ensemble` block)
                 from shadow_tpu_torch.runtime.ensemble import flatten_host_stats
@@ -742,10 +835,10 @@ class Manager:
             heartbeat_ns=g.heartbeat_interval_ns if g.tracker else 0,
             trace_path=g.trace_file,
             clear_line=progress.clear if progress is not None else None,
-            # per-host heartbeat lines name one host per row; an
-            # ensemble's per-host tensors are [R, H], so heartbeats stay
-            # off there (aggregates still ride the probe)
-            host_heartbeats=g.tracker and g.replicas <= 1,
+            # per-host heartbeat lines name one host per row; ensemble
+            # and mesh runs' per-host tensors are [R, H], so heartbeats
+            # stay off there (aggregates still ride the probe)
+            host_heartbeats=g.tracker and g.replicas <= 1 and not g.mesh,
             counters=g.tracker,
         )
 

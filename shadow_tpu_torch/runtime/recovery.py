@@ -24,8 +24,12 @@ it does not live inside them.
 
 The chunk watchdog's rung (WatchdogExpired) rolls back the same way but
 keeps the shapes: the abandoned chunk is re-dispatched from the retained
-snapshot, a `watchdog` record beside the `capacity` ones. The reference's
-device-loss rung belongs to the multi-device planes, not ported yet.
+snapshot, a `watchdog` record beside the `capacity` ones. The device-loss
+rung (DeviceLossError, with a `replan_fn`: the mesh runner's) keeps the
+shapes too: the runner re-plans its grid onto the surviving logical
+devices and the batch replays from the snapshot on the smaller grid, a
+`device-loss` record naming both grids. Without a replan (outside the
+mesh, or with no rung left) a device loss is terminal.
 """
 
 from __future__ import annotations
@@ -34,7 +38,12 @@ import dataclasses
 
 import numpy as np
 
-from shadow_tpu_torch.engine.round import CapacityError, WatchdogExpired, run_until
+from shadow_tpu_torch.engine.round import (
+    CapacityError,
+    DeviceLossError,
+    WatchdogExpired,
+    run_until,
+)
 from shadow_tpu_torch.engine.state import (
     fmt_bytes,
     grow_state,
@@ -123,6 +132,7 @@ def run_until_recovering(
     runner_factory=None,
     grow_fn=None,
     watchdog_s: float = 0.0,
+    replan_fn=None,
 ):
     """run_until with the recovery loop wrapped around it. Returns
     (final_state, recoveries), recoveries being the list of recovery
@@ -137,7 +147,10 @@ def run_until_recovering(
     recorder (runtime/flightrec.py); a terminal error writes the black
     box with what the run survived. A WatchdogExpired (`watchdog_s` > 0
     arms the default chunk loop's watchdog) takes the same rollback with
-    the shapes kept."""
+    the shapes kept. `replan_fn(err)` arms the device-loss rung: it
+    installs the next smaller grid on the runner and returns the reshape
+    record ({"grid_from", "grid_to", "devices", ...}), or None when no
+    rung is left."""
     policy = policy or RecoveryPolicy()
     grow = grow_fn or grow_state
 
@@ -173,8 +186,14 @@ def run_until_recovering(
         try:
             final = runner_factory(cur_cfg)(cur_st, on_state=tap)
             return final, recoveries
-        except (CapacityError, WatchdogExpired) as err:
-            if len(recoveries) >= policy.max_recoveries:
+        except (CapacityError, WatchdogExpired, DeviceLossError) as err:
+            is_loss = isinstance(err, DeviceLossError)
+            replanned = None
+            if is_loss and len(recoveries) < policy.max_recoveries:
+                # re-plan before the budget check, so a loss with no rung
+                # left takes the terminal path with its history
+                replanned = replan_fn(err) if replan_fn is not None else None
+            if len(recoveries) >= policy.max_recoveries or (is_loss and replanned is None):
                 # terminal: what the run survived before it died rides the
                 # exception, and the black box is written (its last sample
                 # is the failing chunk's probe: the chunk loops record it
@@ -218,7 +237,36 @@ def run_until_recovering(
                     )
                     flightrec.post_mortem(err, recoveries=len(recoveries))
                     raise err from fetch_err
-            if isinstance(err, WatchdogExpired):
+            if is_loss:
+                # the device is gone, not the buffers: keep the config and
+                # the shapes (the [R, H, ...] state is layout-free) and
+                # replay from the snapshot on the grid the replan installed
+                new_cfg, grown = cur_cfg, base
+                record = {
+                    "kind": "device-loss",
+                    "chunk": err.chunk,
+                    "replay_from_ns": from_ns,
+                    **replanned,
+                }
+                if err.device_id is not None:
+                    record["device"] = err.device_id
+                if getattr(err, "injected", False):
+                    record["injected"] = True  # chaos plane, not a real loss
+                if checkpoints is not None and record.get("grid_to"):
+                    # checkpoints after the reshape carry the grid the run
+                    # now dispatches on as their layout
+                    checkpoints.layout = record["grid_to"]
+                slog(
+                    "warning", from_ns, "recovery",
+                    f"device loss at chunk {err.chunk}"
+                    + (f" (device {err.device_id})" if err.device_id is not None else "")
+                    + f"; degrading mesh {record.get('grid_from', '?')}"
+                    f" -> {record.get('grid_to', '?')} and replaying "
+                    f"from sim time {from_ns} ns "
+                    f"(recovery {len(recoveries) + 1}/{policy.max_recoveries})",
+                )
+                recoveries.append(record)
+            elif isinstance(err, WatchdogExpired):
                 # the dispatch stalled, not the buffers: abandon the chunk,
                 # keep the shapes, re-dispatch from the retained snapshot
                 # (never from the abandoned chunk's tensors, which its

@@ -1,8 +1,10 @@
-"""The Scheduler seam (port of shadow_tpu/runtime/scheduler.py, reduced
-to the single-device engine): which engine steps the simulation.
+"""The Scheduler seam (port of shadow_tpu/runtime/scheduler.py): which
+engine steps the simulation.
 
-  * TpuScheduler — the device engine on one device. The config value
-    `scheduler: tpu` names it, so the repo's YAML files run unchanged.
+  * TpuScheduler — the device engine: on one device, or with the hosts
+    block-sharded over the visible logical devices (device.py) by
+    engine/sharded.py ShardedRunner. The config value `scheduler: tpu`
+    names it, so the repo's YAML files run unchanged.
   * CpuRefScheduler — the pure-Python conformance oracle (cpu_ref/;
     slow, and independent of the engine's code, so device results can be
     diffed against it).
@@ -10,23 +12,30 @@ to the single-device engine): which engine steps the simulation.
 
 from __future__ import annotations
 
-from shadow_tpu_torch.device import resolve_device
+from shadow_tpu_torch.device import resolve_device, visible_devices
 from shadow_tpu_torch.engine.round import (
     bootstrap,
     effective_engine,
     model_pump_capable,
     run_until,
 )
+from shadow_tpu_torch.engine.sharded import ShardedRunner
 from shadow_tpu_torch.engine.state import EngineConfig, init_state
 from shadow_tpu_torch.graph.routing import RoutingTables
 
 
 class TpuScheduler:
-    """The device engine on one device (`cuda` unless asked for `cpu`)."""
+    """The device engine (`cuda` unless asked for `cpu`): on one device,
+    or over `parallelism` logical devices (0: all visible), as the
+    reference shards over its jax devices. The count shrinks to the
+    largest one that divides the hosts; with one device visible (no
+    SHADOW_TPU_TORCH_LOGICAL_DEVICES) every run is a single-device run.
+    The shards run the engine the single-device run would: the pump
+    kernel on the card, on each shard's rows."""
 
     name = "tpu"
 
-    def __init__(self, model, tables: RoutingTables, cfg: EngineConfig, *,
+    def __init__(self, model, tables: RoutingTables, cfg: EngineConfig, *, parallelism: int = 0,
                  rounds_per_chunk: int = 256, tx_bytes_per_interval=None,
                  rx_bytes_per_interval=None, watchdog_s: float = 0.0, device="cuda"):
         self.device = resolve_device(device)
@@ -37,10 +46,21 @@ class TpuScheduler:
         self.tx_bytes_per_interval = tx_bytes_per_interval
         self.rx_bytes_per_interval = rx_bytes_per_interval
         self.watchdog_s = watchdog_s
+        devices = visible_devices(self.device)
+        n = parallelism if parallelism > 0 else len(devices)
+        n = min(n, len(devices))
+        # shard only when it divides evenly; otherwise fewer devices
+        while n > 1 and cfg.num_hosts % n != 0:
+            n -= 1
+        self.num_devices = n
+        self.devices = devices[:n]
         # the engine run_round actually executes for this model here
         self.engine = (
             effective_engine(cfg, self.device) if model_pump_capable(model) else "plain"
         )
+        self._runner = None
+        if n > 1:
+            self._runner = ShardedRunner(self.devices, model, self.tables, cfg, rounds_per_chunk)
 
     def initial_state(self):
         """The bootstrapped t=0 state: also the template a resume loads a
@@ -60,6 +80,20 @@ class TpuScheduler:
         fallback ladder at a lower engine."""
 
         def factory(cfg):
+            if self._runner is not None:
+                # the config as given reuses the runner built for it; a
+                # regrown or lower-rung config gets its own
+                runner = self._runner if cfg == self.cfg else ShardedRunner(
+                    self.devices, self.model, self.tables, cfg, self.rounds_per_chunk)
+
+                def run(st, on_state=None):
+                    return runner.run_until(
+                        st, end_time_ns, max_chunks=max_chunks, on_chunk=on_chunk,
+                        tracker=tracker, on_state=on_state, watchdog_s=self.watchdog_s,
+                    )
+
+                return run
+
             def run(st, on_state=None):
                 return run_until(
                     st, end_time_ns, self.model, self.tables, cfg,
@@ -88,9 +122,9 @@ class TpuScheduler:
 
 
 def _run_guarded(sched, end_time_ns, on_chunk, max_chunks, start_state, checkpoints, guard,
-                 recovery, tracker, grow_fn=None):
-    """TpuScheduler.run and EnsembleRunner.run: the recovery loop inside
-    the engine fallback ladder."""
+                 recovery, tracker, grow_fn=None, replan_fn=None):
+    """TpuScheduler.run, EnsembleRunner.run and MeshRunner.run: the
+    recovery loop inside the engine fallback ladder."""
     from shadow_tpu_torch.runtime.chaos import run_with_engine_ladder
     from shadow_tpu_torch.runtime.recovery import RecoveryPolicy, run_until_recovering
 
@@ -106,7 +140,7 @@ def _run_guarded(sched, end_time_ns, on_chunk, max_chunks, start_state, checkpoi
             st, end_time_ns, cfg=cfg,
             policy=recovery or RecoveryPolicy(max_recoveries=0),
             checkpoints=checkpoints, guard=guard, tracker=tracker,
-            runner_factory=factory, grow_fn=grow_fn,
+            runner_factory=factory, grow_fn=grow_fn, replan_fn=replan_fn,
         )
 
     sched.engine_fallbacks = []
@@ -161,11 +195,12 @@ class CpuRefScheduler:
         return self.ref
 
 
-def make_scheduler(name: str, model, tables, cfg, host_node, rounds_per_chunk=256,
-                   tx_bytes_per_interval=None, rx_bytes_per_interval=None,
-                   watchdog_s=0.0, device="cuda"):
+def make_scheduler(name: str, model, tables, cfg, host_node, parallelism=0,
+                   rounds_per_chunk=256, tx_bytes_per_interval=None,
+                   rx_bytes_per_interval=None, watchdog_s=0.0, device="cuda"):
     if name == "tpu":
-        return TpuScheduler(model, tables, cfg, rounds_per_chunk=rounds_per_chunk,
+        return TpuScheduler(model, tables, cfg, parallelism=parallelism,
+                            rounds_per_chunk=rounds_per_chunk,
                             tx_bytes_per_interval=tx_bytes_per_interval,
                             rx_bytes_per_interval=rx_bytes_per_interval,
                             watchdog_s=watchdog_s, device=device)

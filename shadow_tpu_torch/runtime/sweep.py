@@ -41,8 +41,11 @@ CPU (`device="cpu"`, `sweep --device cpu`); on the card a batch of a
 model with a kernel instance launches the pump kernel over its R * H
 rows every drain iteration, and a kernel that fails to build or launch
 fails the batch (the split/retry/quarantine ladder), never runs the
-plain twin. Not carried: the 2-D mesh batches (`sweep.mesh`, the
-multi-device plane), refused with NotYetPorted where they are asked for.
+plain twin. With `sweep.mesh: RxS` every batch runs through the
+mesh plane (runtime/mesh.py MeshRunner) on a grid of logical devices, its
+rows degraded for ragged or split batches (MeshPlan.for_batch); a batch
+that loses a device finishes on a smaller grid, recorded in the
+manifest (`mesh_effective`, `mesh_degradations`).
 Each job's sim-stats.json gains the port's `execution` section (device,
 engine, the batch and its kernel launches).
 """
@@ -104,6 +107,10 @@ class Batch:
     error: "str | None" = None
     failure: "str | None" = None  # structured kind: capacity/watchdog/...
     engine_fallbacks: "list[dict]" = dataclasses.field(default_factory=list)
+    # the elastic-mesh record: the grid the batch finished on (a device
+    # loss may have shrunk it mid-run) and the reshapes the runner made
+    mesh_effective: "str | None" = None
+    mesh_degradations: "list[dict]" = dataclasses.field(default_factory=list)
     # pump kernel launches while the batch ran (the port's `execution`)
     kernel_launches: int = 0
 
@@ -214,6 +221,7 @@ class _Preempted(Exception):
 
 
 def _failure_kind(err: BaseException) -> str:
+    from shadow_tpu_torch.engine.round import DeviceLossError
     from shadow_tpu_torch.runtime.checkpoint import CheckpointError
 
     if isinstance(err, CapacityError):
@@ -224,7 +232,8 @@ def _failure_kind(err: BaseException) -> str:
         return "compile"
     if isinstance(err, CheckpointError):
         return "checkpoint"
-    # the reference's "device-loss" kind comes with the multi-device plane
+    if isinstance(err, DeviceLossError):
+        return "device-loss"
     return type(err).__name__
 
 
@@ -257,15 +266,20 @@ class SweepService:
         from shadow_tpu_torch.device import resolve_device
 
         self.spec = spec
+        # 2-D mesh batches (SweepSpec.mesh): (replica rows, host shards)
+        # of the grid every batch dispatches on, or None for the
+        # single-device ensemble plane
+        self.mesh = None
         if getattr(spec, "mesh", None):
-            from shadow_tpu_torch.config.options import NotYetPorted
+            from shadow_tpu_torch.config.options import parse_mesh
 
-            raise NotYetPorted("sweep.mesh (the 2-D mesh plane)")
+            self.mesh = parse_mesh(spec.mesh)
         self.device = resolve_device(device)
         # injectable cache: the daemon passes a PersistentCompileCache
         # so prepared chunks survive restarts (runtime/compile_cache.py)
         self.cache = cache if cache is not None else CompileCache()
-        self.batches = pack_jobs(spec.jobs, spec.capacity)
+        self.batches = pack_jobs(spec.jobs, spec.capacity,
+                                 mesh_rows=self.mesh[0] if self.mesh else 1)
         self.clock_ns = 0  # virtual clock: cumulative sim-time executed
         self.job_progress: "dict[str, dict]" = {
             j.name: {"now_ns": 0, "events": 0} for j in spec.jobs
@@ -320,6 +334,12 @@ class SweepService:
                     "experimental.scheduler: tpu (jobs batch through the "
                     "vmapped ensemble plane)"
                 )
+            if self.mesh is not None and len(mgr.hosts) % self.mesh[1]:
+                raise ValueError(
+                    f"sweep.jobs.{j.entry}: {len(mgr.hosts)} hosts must "
+                    f"divide evenly over the sweep mesh's {self.mesh[1]} "
+                    f"host-shard(s) ({self.spec.mesh})"
+                )
             self._group_mgr[j.group_key] = mgr
 
     def enqueue(self, jobs: "list[SweepJob]", tenant: "str | None" = None,
@@ -334,7 +354,8 @@ class SweepService:
         for j in jobs:
             self.job_progress.setdefault(j.name, {"now_ns": 0, "events": 0})
             self.job_series.setdefault(j.name, [])
-        batches = pack_jobs(jobs, self.spec.capacity)
+        batches = pack_jobs(jobs, self.spec.capacity,
+                            mesh_rows=self.mesh[0] if self.mesh else 1)
         for b in batches:
             b.index = len(self.batches)
             b.tenant = tenant
@@ -354,6 +375,7 @@ class SweepService:
             "sweep": self.spec.name,
             "jobs": len(self.spec.jobs),
             "capacity": self.spec.capacity,
+            **({"mesh": self.spec.mesh} if self.mesh else {}),
             "batches": [b.describe() for b in self.batches],
         }
 
@@ -661,6 +683,19 @@ class SweepService:
             "continues",
         )
 
+    def _batch_grid(self, batch: Batch) -> "str | None":
+        """The grid this batch dispatches on (the service mesh with its
+        rows degraded for a ragged or split batch, MeshPlan.for_batch),
+        or None on the single-device ensemble plane: one definition for
+        the batch config, the runner's plan, the checkpoint layout and
+        the daemon's journal records."""
+        if self.mesh is None:
+            return None
+        from shadow_tpu_torch.engine.mesh import MeshPlan
+
+        plan = MeshPlan.for_batch(batch.replicas, self.mesh[0], self.mesh[1])
+        return f"{plan.rows}x{plan.shards}"
+
     def _batch_config(self, batch: Batch) -> ConfigOptions:
         """The ensemble config a batch runs under: the first job's
         resolved raw config with the replica axis folded in. Sound
@@ -672,6 +707,12 @@ class SweepService:
         g["replicas"] = batch.replicas
         g["replica_seed_stride"] = batch.stride
         g["data_directory"] = self._batch_dir(batch)
+        grid = self._batch_grid(batch)
+        if grid is not None:
+            # execution geometry only: the fingerprint hashes the replica
+            # count, not the grid, so a checkpoint written here resumes
+            # on any grid a restarted service ends up with
+            g["mesh"] = grid
         return ConfigOptions.from_dict(raw)
 
     def _batch_dir(self, batch: Batch) -> str:
@@ -737,11 +778,7 @@ class SweepService:
                 del series[:-64]
                 self._on_progress(name, point)
 
-        runner = EnsembleRunner(
-            world.model,
-            world.tables,
-            ecfg,
-            num_replicas=batch.replicas,
+        common = dict(
             seed_stride=batch.stride,
             rounds_per_chunk=cfgo.experimental.rounds_per_chunk,
             tx_bytes_per_interval=world.tx_refill,
@@ -752,19 +789,36 @@ class SweepService:
             watchdog_s=cfgo.experimental.chunk_watchdog_s,
             device=self.device,
         )
+        if self.mesh is not None:
+            # a mesh batch: the same [R] job batch on a grid of logical
+            # devices; the compile cache keys its chunk under the grid's
+            # shape (MeshRunner._launch_for), so same-shape batches share
+            # one build
+            from shadow_tpu_torch.runtime.mesh import MeshRunner
+
+            runner = MeshRunner(world.model, world.tables, ecfg, mgr.mesh_plan, **common)
+        else:
+            runner = EnsembleRunner(world.model, world.tables, ecfg,
+                                    num_replicas=batch.replicas, **common)
 
         start_state = None
         start_now = 0
+        grid = self._batch_grid(batch)
         if batch.resume_ckpt is not None:
+            from shadow_tpu_torch.runtime.checkpoint import reshard_note
+
             # resume_ckpt came from latest_path, which verified the
-            # sha-256 digest moments ago — skip the second full hash
+            # sha-256 digest moments ago — skip the second full hash. The
+            # snapshot is layout-free: one written on another grid (before
+            # a crash or a degradation) reshards onto this batch's grid
             start_state, meta = load_checkpoint(
                 batch.resume_ckpt, runner.initial_state(), fingerprint,
-                check_digest=False, detail=fingerprint_dict(cfgo),
+                check_digest=False, detail=fingerprint_dict(cfgo), layout=grid,
             )
             start_now = int(meta["now_ns"])
             slog("info", start_now, "sweep",
-                 f"batch {batch.index} resuming from {batch.resume_ckpt}")
+                 f"batch {batch.index} resuming from {batch.resume_ckpt}"
+                 f"{reshard_note(meta.get('mesh'), grid)}")
 
         ckpt_dir = os.path.join(self._batch_dir(batch), "ckpts")
         # one-shot sweeps: interval 0, no periodic cadence — the only
@@ -772,7 +826,7 @@ class SweepService:
         # Daemon mode uses the config's cadence (crash-loss bound).
         ckpt = CheckpointManager(
             ckpt_dir, self._ckpt_interval_ns(cfgo), fingerprint,
-            detail=fingerprint_dict(cfgo),
+            layout=grid, detail=fingerprint_dict(cfgo),
         )
         guard = _PreemptGuard()
         recovery = None
@@ -882,12 +936,22 @@ class SweepService:
             batch.engine_fallbacks = list(
                 getattr(runner, "engine_fallbacks", [])
             )
+            batch.mesh_degradations = list(getattr(runner, "mesh_degradations", []))
+            if self.mesh is not None:
+                # a degraded-then-failed batch still names the grid it
+                # died on
+                batch.mesh_effective = f"{runner.plan.rows}x{runner.plan.shards}"
             raise
         batch.wall_seconds += time.perf_counter() - t0
         batch.kernel_launches += PUMP_KERNEL.launches - launches0
         batch.status = "done"
         batch.recoveries = len(runner.recovery_report)
         batch.engine_fallbacks = list(getattr(runner, "engine_fallbacks", []))
+        if self.mesh is not None:
+            # the grid the batch finished on: a device loss mid-batch
+            # degrades the runner's plan instead of quarantining the jobs
+            batch.mesh_effective = f"{runner.plan.rows}x{runner.plan.shards}"
+            batch.mesh_degradations = list(getattr(runner, "mesh_degradations", []))
         self._write_batch_outputs(batch, final, end, runner)
 
     # --- per-job outputs -------------------------------------------------
@@ -1071,6 +1135,7 @@ class SweepService:
         return {
             "sweep": self.spec.name,
             "output_dir": self.spec.output_dir,
+            **({"mesh": self.spec.mesh} if self.mesh else {}),
             "wall_seconds": round(wall, 4),
             "service_clock_ns": self.clock_ns,
             "jobs_total": len(self.spec.jobs),
@@ -1096,6 +1161,10 @@ class SweepService:
                  **({"failure": b.failure} if b.failure else {}),
                  **({"engine_fallbacks": b.engine_fallbacks}
                     if b.engine_fallbacks else {}),
+                 **({"mesh_effective": b.mesh_effective}
+                    if b.mesh_effective else {}),
+                 **({"mesh_degradations": b.mesh_degradations}
+                    if b.mesh_degradations else {}),
                  **({"error": b.error[:300]} if b.error else {})}
                 for b in self.batches
             ],

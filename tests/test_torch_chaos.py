@@ -36,7 +36,7 @@ from shadow_tpu.runtime.checkpoint import load_checkpoint as j_load_checkpoint
 from shadow_tpu.runtime.recovery import RecoveryPolicy as JRecoveryPolicy
 from shadow_tpu.runtime.recovery import run_until_recovering as j_run_until_recovering
 from shadow_tpu.simtime import NS_PER_MS
-from shadow_tpu_torch.config.options import ChaosOptions, NotYetPorted
+from shadow_tpu_torch.config.options import ChaosOptions
 from shadow_tpu_torch.engine.round import EngineCompileError, run_until
 from shadow_tpu_torch.engine.state import EngineConfig, state_from_numpy, state_to_host
 from shadow_tpu_torch.runtime import chaos
@@ -495,17 +495,21 @@ def test_cli_resume_falls_back_past_a_damaged_checkpoint(tmp_path, monkeypatch, 
 
 
 def test_later_fault_kinds_are_refused(tmp_path):
-    """A plan naming a kind whose seam belongs to a later plane is
-    refused at construction, before anything runs."""
-    from shadow_tpu_torch.runtime.cli_run import CliUserError, run_from_config
+    """Every kind of the reference's catalog has its seam in the port now
+    (the multi-device planes carry `device-loss`): the manager takes a
+    plan naming it, and `run` with device-loss@1 on a single world, whose
+    chunk loop has no device-loss seam (the reference's neither), ends as
+    the JAX package's run does, nothing fired."""
+    from shadow_tpu.cli import main as j_main
+    from shadow_tpu_torch.cli import main as t_main
+    from shadow_tpu_torch.config import load_config_file
+    from shadow_tpu_torch.runtime.manager import Manager
 
-    for kind in chaos.LATER_KINDS:
-        with pytest.raises(CliUserError, match=f"chaos fault kind '{kind}' is not yet ported"):
-            run_from_config(str(_config(tmp_path, "port")), device="cpu",
-                            chaos_faults=[f"{kind}@1"])
-    with pytest.raises(NotYetPorted, match="'device-loss'"):
-        from shadow_tpu_torch.config import load_config_file
-        from shadow_tpu_torch.runtime.manager import Manager
-
-        Manager(load_config_file(str(_config(
-            tmp_path, "yaml", "chaos:\n  faults:\n    - kind: device-loss\n"))), device="cpu")
+    assert not hasattr(chaos, "LATER_KINDS")
+    Manager(load_config_file(str(_config(
+        tmp_path, "yaml", "chaos:\n  faults:\n    - kind: device-loss\n"))), device="cpu")
+    for main, name in ((j_main, "ref"), (t_main, "port")):
+        assert _run(main, _config(tmp_path, name), "--chaos-fault", "device-loss@1") == 0
+    want, got = (_stats(tmp_path / n / "sim-stats.json") for n in ("ref", "port"))
+    assert got == want
+    assert got["chaos"]["fired"] == []

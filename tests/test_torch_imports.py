@@ -6,9 +6,10 @@ recorder, the memory observatory), the run-loop guards and cpu-ref
 oracles (GUARDS) and the managed-process modules (MANAGED: the host
 kernel, the device plane's model, the hybrid schedulers and their
 workers, pcap) and the services (SERVICES: sweep specs, the compile
-cache, the sweep scheduler, the daemon, its HTTP front door) are named
-on their own: each is imported alone in a fresh interpreter, and each
-is in the source scan."""
+cache, the sweep scheduler, the daemon, its HTTP front door) and the
+multi-device planes (MULTI_DEVICE: the logical devices, the sharded
+engine, the 2-D mesh and its runner) are named on their own: each is
+imported alone in a fresh interpreter, and each is in the source scan."""
 
 import ast
 import pathlib
@@ -64,6 +65,14 @@ SERVICES = (
     "shadow_tpu_torch.runtime.httpapi",
 )
 
+# the multi-device planes: logical devices, the sharded engine, the mesh
+MULTI_DEVICE = (
+    "shadow_tpu_torch.device",
+    "shadow_tpu_torch.engine.sharded",
+    "shadow_tpu_torch.engine.mesh",
+    "shadow_tpu_torch.runtime.mesh",
+)
+
 
 def _forbidden(module: str) -> bool:
     # exact package names: shadow_tpu_torch merely starts with "shadow_tpu"
@@ -106,7 +115,7 @@ def test_source_imports_no_jax(path):
     assert not bad, f"{path}: imports {bad}"
 
 
-@pytest.mark.parametrize("module", OBSERVABILITY + GUARDS + MANAGED + SERVICES)
+@pytest.mark.parametrize("module", OBSERVABILITY + GUARDS + MANAGED + SERVICES + MULTI_DEVICE)
 def test_observability_module_imports_no_jax(module):
     """A fresh interpreter imports the module alone (and through it what
     it needs of the port): no jax, flax or shadow_tpu module loads, and

@@ -168,7 +168,7 @@ def test_mem_json_matches_shadow_tpu_mem(example, capsys):
         assert got["total_bytes"] == TGEN_TOTAL
 
 
-def test_mem_table_replicas_and_refusals(tmp_path, capsys):
+def test_mem_table_replicas_and_refusals(tmp_path, capsys, monkeypatch):
     path = str(REPO / "examples" / EXAMPLES["tgen"])
     assert t_main(["mem", path, "--hbm-gb", "16"]) == 0
     out = capsys.readouterr().out
@@ -177,9 +177,14 @@ def test_mem_table_replicas_and_refusals(tmp_path, capsys):
     assert "hosts fit in 16 GiB HBM" in out
     assert t_main(["mem", path, "--replicas", "3", "--json"]) == 0
     assert json.loads(capsys.readouterr().out)["total_bytes"] == 3 * TGEN_TOTAL
-    # the mesh plane stays refused, user mistakes are one-line errors
+    # a mesh prices its replicas' stack; a grid of more logical devices
+    # than are visible is refused as the reference refuses it; user
+    # mistakes are one-line errors
     assert t_main(["mem", path, "--mesh", "2x1"]) == 1
-    assert "general.mesh (the 2-D mesh plane) is not yet ported" in capsys.readouterr().err
+    assert "general.mesh 2x1 needs 2 devices, 1 visible" in capsys.readouterr().err
+    monkeypatch.setenv("SHADOW_TPU_TORCH_LOGICAL_DEVICES", "2")
+    assert t_main(["mem", path, "--mesh", "2x1", "--json"]) == 0
+    assert json.loads(capsys.readouterr().out)["total_bytes"] == 2 * TGEN_TOTAL
     assert t_main(["mem", str(tmp_path / "nope.yaml")]) == 1
     assert "shadow-tpu-torch: error:" in capsys.readouterr().err
 

@@ -15,7 +15,7 @@ from test_torch_models import chip_smoke
 from test_torch_slice import _stats
 
 from shadow_tpu_torch.config.options import load_config_str
-from shadow_tpu_torch.runtime.manager import _reject_unported
+from shadow_tpu_torch.runtime.manager import Manager
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PLANES = "  active_lanes: 16\n  use_dynamic_runahead: true\n"
@@ -42,10 +42,12 @@ def _planes_example(tmp_path=None, name="") -> str:
 
 
 def test_port_config_accepts_compaction_and_dynamic_runahead():
+    """The manager takes the planes' config (world validation, which
+    refused what the port did not carry before every plane was ported)."""
     config = load_config_str(_planes_example())
     assert config.experimental.active_lanes == 16
     assert config.experimental.use_dynamic_runahead
-    _reject_unported(config)
+    assert not Manager(config, device="cpu").managed_mode
 
 
 def test_port_cli_planes_sim_stats_match_shadow_tpu_run(tmp_path):

@@ -20,7 +20,6 @@ import shadow_tpu_torch.config.sweep as t_cfg
 import shadow_tpu_torch.runtime.compile_cache as t_cc
 import shadow_tpu_torch.runtime.daemon as t_daemon
 import shadow_tpu_torch.runtime.sweep as t_sweep
-from shadow_tpu_torch.config.options import NotYetPorted
 
 PACKAGES = {"ref": (j_cfg, j_sweep, j_cc, j_daemon), "port": (t_cfg, t_sweep, t_cc, t_daemon)}
 
@@ -193,9 +192,10 @@ def test_spec_refusals_match_shadow_tpu(what):
 
 
 def test_spec_mesh_is_not_yet_ported():
-    raw = {"sweep": {"config": BASE, "mesh": "2x4", "jobs": [{"name": "a", "seeds": [0]}]}}
-    with pytest.raises(NotYetPorted, match="sweep.mesh"):
-        t_cfg.load_sweep_spec(raw)
+    """`sweep.mesh` is ported: the spec loads with its canonical grid, as
+    in the JAX package; a bad grid spec is refused."""
+    raw = {"sweep": {"config": BASE, "mesh": "2X4", "jobs": [{"name": "a", "seeds": [0]}]}}
+    assert t_cfg.load_sweep_spec(raw).mesh == j_cfg.load_sweep_spec(raw).mesh == "2x4"
     with pytest.raises(ValueError, match="mesh"):
         t_cfg.load_sweep_spec({"sweep": {**raw["sweep"], "mesh": "2by4"}})
 
