@@ -4,7 +4,11 @@
 
 Phases, each printing one line; any failure exits non-zero:
   1. identify the card (nvidia-smi name/power limit, torch and CUDA versions);
-  2. build the pump megakernel from csrc/ with nvcc (sm_90a);
+  2. build the pump megakernel from csrc/ with nvcc (sm_90a): the library
+     of the default TCP shape (4 out-of-order ranges, 4 segments a flush)
+     here, those of the shapes phase's shapes (8, 8) and (2, 2) in threads
+     beside it and phase 3, then waited for (nvcc's seconds, registers
+     and spill bytes per instance);
   3. kernel vs its plain twin at full width: the bench world (10,240 hosts,
      32-node lossy graph, 100 Mbit shaped hosts, tgen 100 KB streams over
      TCP, tracker on) advanced on the card into the burst, then one kernel
@@ -103,8 +107,8 @@ Phases, each printing one line; any failure exits non-zero:
      kernel run, kernel against twin at its end; ensemble-ragged, 10,235
      hosts x 2 replicas (a warp owns rows of both), kernel against twin;
   9a. planes-10240, the reference's other execution planes through the
-     kernel: the bench world to 0.5 s with exchange "segment", with
-     active_lanes 1,280 (H / 8) and with both, each at the oracle's
+     kernel: the bench world to 0.5 s with exchange "segment" and with
+     it and active_lanes 1,280 (H / 8), each at the oracle's
      counters and equal to the main path's final state (queues in pop
      order; iters_done and lanes_live apart under compaction), and with
      use_dynamic_runahead through the kernel engine and the twin engine,
@@ -123,7 +127,7 @@ Phases, each printing one line; any failure exits non-zero:
      worker-kill fault: guest stdout, strace files and sim-stats equal,
      the killed worker respawned once; the three ways again in this
      process, their packet event logs equal as sorted multisets; then
-     hybrid-http-matrix-256, tools/bench_hybrid.py's world cut to 512
+     hybrid-http-matrix-128, tools/bench_hybrid.py's world cut to 256
      examples/http-matrix guests (4 kernel workers; the CLI runs start
      beside the wide onion runs, phase 3a) through the port's
      ParallelHybridScheduler with the device state on the card: every
@@ -158,10 +162,22 @@ Phases, each printing one line; any failure exits non-zero:
      1x2 (its log naming the reshard), each equal to `run --replicas 2`
      on it, and a `sweep` of examples/tgen (stop time cut) with `mesh:
      2x2` equal job for job to the same sweep without one, one build;
+  9e. shapes: models registered at TCP shapes other than (4, 4) through
+     the kernel's libraries of those shapes: tgen_ooo8 (8 ranges, 8
+     segments) on the services world at 10,240 hosts to 60 ms through the
+     port's Manager in this process, engine "auto" (the kernel,
+     tgen@8x8) and at pump_k 40 (tgen_wide@8x8), each equal to the plain
+     engine's run of the same config in host_stats and model counters;
+     its kernel vs twin at the 26 ms burst at pump_k 8, 16 and 40, timed
+     with its bound; onion_r2s2 (2 ranges, 2 segments) on the onion
+     cell's world through the kernel (onion@2x2) to 37 ms in a process of
+     its own since phase 9, and its kernel vs twin on that run's states
+     at 29 and 37 ms, timed;
  10. the narrow instances' R = 1 launch times beside the earlier record,
      the wide instances' launch times beside theirs before the redesign,
      the kernels JSON line (one entry per template instance of the
-     kernel), the card line, and the final JSON line.
+     kernel, and per instance at another TCP shape), the card line, and
+     the final JSON line.
 
 Imports torch, numpy and the port only (no jax, nothing of shadow_tpu/).
 """
@@ -433,24 +449,25 @@ TCP_FIELDS = (
 # tools/bench_hybrid.py's world at the repro in BENCH_HYBRID_r03.json
 # (`python tools/bench_hybrid.py 512 4 1 12000`) cut to MATRIX_PAIRS
 # pairs, because the smoke's time limit does not hold 512 on a slow host
-# (147 s there, 1,024 guests): two sites 10 ms apart with 1 ms
+# (147 s there, 1,024 guests), nor 256 beside the shapes phase (66-96 s):
+# two sites 10 ms apart with 1 ms
 # self-latency, MATRIX_PAIRS examples/http-matrix client/server pairs,
 # MATRIX_WORKERS kernel workers, MATRIX_FETCHES fetch of MATRIX_BYTES,
 # MATRIX_SIM_NS of sim time. MATRIX_STATS are the JAX package's counters
-# for that run on the CPU (`python tools/bench_hybrid.py 256 4 1 12000`,
+# for that run on the CPU (`python tools/bench_hybrid.py 128 4 1 12000`,
 # JAX_PLATFORMS=cpu).
 MANAGED_HTTP = "http/shadow.yaml"
 MANAGED_GUESTS = ("http_server", "http_client")
 MANAGED_KILL = "worker-kill@2"
 MANAGED_SERIAL = "  scheduler: managed\n"
 MANAGED_PARALLELISM = 2
-MATRIX_PAIRS = 256
+MATRIX_PAIRS = 128
 MATRIX_WORKERS = 4
 MATRIX_FETCHES = 1
 MATRIX_BYTES = 12_000
 MATRIX_SIM_NS = 30_000_000_000
 MATRIX_SEED = 7
-MATRIX_STATS = {"syscalls": 7_936, "packets": 7_936, "device_passes": 529}
+MATRIX_STATS = {"syscalls": 3_968, "packets": 3_968, "device_passes": 385}
 # services-10240 (phase 9c), the sweep in the foreground: a tgen world in
 # lossy_world's style (40 KB responses, 30 ms pause, 20 Mbit hosts, loss
 # 0.05 between SERVICES_NODES nodes, queue 192, outbox 32) at full width,
@@ -517,6 +534,22 @@ MESH_CLI_RESUME_GRID = "1x2"
 MESH_CLI_INTERRUPT_NS = 250_000_000
 MESH_SWEEP_STOP = ('stop_time: "4 s"', 'stop_time: "1 s"')
 MESH_SWEEP_SEEDS = 4
+# shapes (phase 9e): models registered at a TCP shape (out-of-order
+# ranges, segments per flush) other than tgen's (4, 4), each its base
+# model's own args: tgen_ooo8 (TGEN_TCP apart from the shape) for a
+# deeper out-of-order buffer on lossy, high-delay paths, and onion_r2s2
+# (1 + 2 x circuits_per_relay sockets). tgen_ooo8 drives services_world at
+# full width to SHAPES_END_NS through the port's Manager (engine auto, and
+# at pump_k SHAPES_WIDE_K for the wide instance), held against the plain
+# engine's run of the same config; its kernel vs the twin, timed, at the
+# burst (LOSSY_MID_NS_SHAPED) at pump_k 8, 16 and SHAPES_WIDE_K. onion_r2s2
+# runs onion_world through the kernel in a process of its own from phase
+# 9 (`--onion-shape OUT`) and keeps its states at ONION_SHAPE_NS, where
+# its launches take P2 and P3 events, for kernel vs twin here
+SHAPE_MODELS = {"tgen_ooo8": ("tgen", (8, 8)), "onion_r2s2": ("onion", (2, 2))}
+SHAPES_END_NS = 60_000_000
+SHAPES_WIDE_K = 40
+ONION_SHAPE_NS = (29_000_000, 37_000_000)
 # H100 SXM device-memory rate (NVIDIA data sheet) for the bound column
 HBM_BYTES_PER_S = 3.35e12
 # non-tensor-core 32-bit rate (NVIDIA data sheet, FP32), the op yardstick
@@ -532,6 +565,24 @@ def line(phase: str, **kw) -> None:
     text = json.dumps({"phase": phase, **kw})
     PRINTED.append(text)
     print(text, flush=True)
+
+
+def with_tcp_shape(model, shape):
+    """`model` with its TCP params at `shape` (out-of-order ranges,
+    segments per flush), every other field kept."""
+    p = dataclasses.replace(model.tcp_params, ooo_ranges=shape[0], segs_per_flush=shape[1])
+    return dataclasses.replace(model, tcp_params=p)
+
+
+def register_shape_models(registry) -> None:
+    """Register SHAPE_MODELS in `registry` (a package's models/registry
+    module): each is that package's own builder of its base model (the
+    base's args, parsed as for it) with the TCP params at its shape."""
+    def at_shape(build, shape):
+        return lambda num_hosts, args: with_tcp_shape(build(num_hosts, args), shape)
+
+    for name, (base, shape) in SHAPE_MODELS.items():
+        registry.register_model(name, at_shape(getattr(registry, f"_build_{base}"), shape))
 
 
 def bench_graph(seed: int = 7):
@@ -594,18 +645,19 @@ def bench_world(num_hosts: int, device, seed: int = 7, outbox_capacity: int = 32
     return cfg, model, tables, bootstrap(st, model, cfg)
 
 
-def onion_world(num_hosts: int, device, seed: int = 7, circuits_per_relay: int = 8):
+def onion_world(num_hosts: int, device, seed: int = 7, circuits_per_relay: int = 8,
+                path: str = "onion"):
     """The onion cell: the bench graph and shaping (host i on node i % 32,
     100 Mbit up and down), ONION_CLIENT_SHARE of the hosts clients and the
     rest relays, examples/onion/onion.yaml's onion args and capacities
     (circuits_per_relay at its default of 8, so 17 sockets per host; the
-    wide_kernel phase raises it)."""
+    wide_kernel phase raises it), the model built by the registered
+    builder `path` from those args."""
     from shadow_tpu_torch.engine.round import bootstrap
     from shadow_tpu_torch.engine.state import EngineConfig, init_state
     from shadow_tpu_torch.graph import compute_routing
-    from shadow_tpu_torch.models.overlay.onion import OnionModel
+    from shadow_tpu_torch.models.registry import build_model
     from shadow_tpu_torch.netstack import bw_bits_per_sec_to_refill
-    from shadow_tpu_torch.simtime import NS_PER_MS
 
     graph = bench_graph(seed)
     tables = compute_routing(graph, block=64, device=device).with_hosts(
@@ -622,33 +674,18 @@ def onion_world(num_hosts: int, device, seed: int = 7, circuits_per_relay: int =
         max_iters_per_round=256,
         tracker=True,
     )
-    model = OnionModel(
-        num_hosts=num_hosts, num_clients=clients, num_relays=num_hosts - clients,
-        hops=3, cell_bytes=512, req_cells=2, resp_cells=20, pause_ns=100 * NS_PER_MS,
-        circuits_per_relay=circuits_per_relay,
-    )
+    model = build_model(path, num_hosts, {
+        "relays": num_hosts - clients, "hops": 3, "cell": 512, "req_cells": 2,
+        "resp_cells": 20, "pause": "100 ms", "circuits": circuits_per_relay})
     bw = bw_bits_per_sec_to_refill(100_000_000)
     st = init_state(cfg, model.init(device), tx_bytes_per_interval=bw,
                     rx_bytes_per_interval=bw, device=device)
     return cfg, model, tables, bootstrap(st, model, cfg)
 
 
-def lossy_world(num_hosts: int, device, shaped: bool = True, loss: float = 0.05, seed: int = 11,
-                n_nodes: int = 5):
-    """A tgen world in the style of tests/test_pump.py (lossy edges between
-    graph nodes, 20 Mbit hosts when shaped), written against the port.
-    Host i sits on node i % n_nodes; with 5 nodes at 4,096 hosts, unlike
-    the bench world, a client and its server sit on different nodes: loss
-    draws drop packets and recovery runs. (At 10,240 hosts a client's
-    first server, num_hosts / 2 rows on, shares its node when n_nodes
-    divides 5,120; 6 nodes do not.)"""
-    from shadow_tpu_torch.engine.round import bootstrap
-    from shadow_tpu_torch.engine.state import EngineConfig, init_state
-    from shadow_tpu_torch.graph import NetworkGraph, compute_routing
-    from shadow_tpu_torch.models.tgen import TgenModel
-    from shadow_tpu_torch.netstack import bw_bits_per_sec_to_refill
-    from shadow_tpu_torch.simtime import NS_PER_MS
-
+def lossy_gml(n_nodes: int, loss: float, seed: int) -> str:
+    """lossy_world's graph: 2 ms self-loops, 2-8 ms (drawn from `seed`)
+    and `loss` between nodes."""
     rng_py = random.Random(seed)
     lines = ["graph [", "  directed 0"]
     for i in range(n_nodes):
@@ -661,7 +698,27 @@ def lossy_world(num_hosts: int, device, shaped: bool = True, loss: float = 0.05,
                 f'  edge [ source {i} target {j} latency "{lat} ms" packet_loss {loss} ]'
             )
     lines.append("]")
-    graph = NetworkGraph.from_gml("\n".join(lines))
+    return "\n".join(lines)
+
+
+def lossy_world(num_hosts: int, device, shaped: bool = True, loss: float = 0.05, seed: int = 11,
+                n_nodes: int = 5, tcp_shape=None):
+    """A tgen world in the style of tests/test_pump.py (lossy edges between
+    graph nodes, 20 Mbit hosts when shaped), written against the port.
+    Host i sits on node i % n_nodes; with 5 nodes at 4,096 hosts, unlike
+    the bench world, a client and its server sit on different nodes: loss
+    draws drop packets and recovery runs. (At 10,240 hosts a client's
+    first server, num_hosts / 2 rows on, shares its node when n_nodes
+    divides 5,120; 6 nodes do not.) `tcp_shape` (out-of-order ranges,
+    segments per flush) replaces TGEN_TCP's (4, 4)."""
+    from shadow_tpu_torch.engine.round import bootstrap
+    from shadow_tpu_torch.engine.state import EngineConfig, init_state
+    from shadow_tpu_torch.graph import NetworkGraph, compute_routing
+    from shadow_tpu_torch.models.tgen import TgenModel
+    from shadow_tpu_torch.netstack import bw_bits_per_sec_to_refill
+    from shadow_tpu_torch.simtime import NS_PER_MS
+
+    graph = NetworkGraph.from_gml(lossy_gml(n_nodes, loss, seed))
     tables = compute_routing(graph, device=device).with_hosts(
         [i % n_nodes for i in range(num_hosts)]
     )
@@ -675,6 +732,8 @@ def lossy_world(num_hosts: int, device, shaped: bool = True, loss: float = 0.05,
         num_servers=num_hosts - num_hosts // 2, resp_bytes=40_000,
         pause_ns=30 * NS_PER_MS,
     )
+    if tcp_shape is not None:
+        model = with_tcp_shape(model, tcp_shape)
     bw = bw_bits_per_sec_to_refill(20_000_000) if shaped else None
     st = init_state(cfg, model.init(device), tx_bytes_per_interval=bw,
                     rx_bytes_per_interval=bw, device=device)
@@ -781,15 +840,17 @@ def deferring_queue(st, we: int, n: int, seed: int = 0, group: int = 1):
     return st
 
 
-def ptxas_resources(log: str) -> dict:
-    """Registers and stack frame per thread and static shared memory per
-    block of each template instance of the pump kernel (by instance
-    name: the model's, "_wide" for its wide instance), from nvcc's
-    -Xptxas -v log."""
-    from shadow_tpu_torch.engine.megakernel import INSTANCES, MODEL_IDS
+def ptxas_resources(log: str, shape=None) -> dict:
+    """Registers, stack frame and spill stores and loads per thread and
+    static shared memory per block of each template instance of the pump
+    kernel in one library (by instance name: the model's, "_wide" for
+    its wide instance, "@<ranges>x<segments>" for a library of another
+    TCP shape than the default), from nvcc's -Xptxas -v log."""
+    from shadow_tpu_torch.engine.megakernel import INSTANCES, MODEL_IDS, TCP_SHAPE, instance_name
 
     names = {v: k for k, v in MODEL_IDS.items()}
-    out = {m: dict(regs=None, stack_bytes=None, smem_bytes=None) for m in INSTANCES}
+    keys = ("regs", "stack_bytes", "spill_store_bytes", "spill_load_bytes", "smem_bytes")
+    out = {m: dict.fromkeys(keys) for m in INSTANCES}
     inside = None
     for ln in log.splitlines():
         if "Compiling entry function" in ln or "Function properties for" in ln:
@@ -799,12 +860,16 @@ def ptxas_resources(log: str) -> dict:
                 inside = names[int(m.group(1))] + ("_wide" if m.group(2) == "1" else "")
             continue
         for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"),
+                         ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                         ("spill_load_bytes", r"(\d+) bytes spill loads"),
                          ("regs", r"Used (\d+) registers"),
                          ("smem_bytes", r"(\d+) bytes smem")):
             m = re.search(pat, ln)
             if inside and m:
                 out[inside][key] = int(m.group(1))
-    return out
+    shape = TCP_SHAPE if shape is None else tuple(shape)
+    return {instance_name(m.removesuffix("_wide"), m.endswith("_wide"), shape): v
+            for m, v in out.items()}
 
 
 def sync(dev) -> None:
@@ -2805,8 +2870,11 @@ def planes_phase(hosts: int, end_ns: int, main_ref: dict, dev) -> "tuple[bool, d
         return (out, mk.PUMP_KERNEL.launches_by_model["tgen"], counters.get("iters", 0),
                 time.perf_counter() - t0)
 
-    # bench-10240 through the kernel: segment, compaction, both
-    variants = {"segment": dict(exchange="segment"), "compact": dict(active_lanes=lanes),
+    # bench-10240 through the kernel: segment, and segment with compaction
+    # (compaction alone, 488 launches in ~19 s, is cut for the shapes
+    # phase: the segment-compact run and the compacted launches below
+    # still hold it)
+    variants = {"segment": dict(exchange="segment"),
                 "segment-compact": dict(exchange="segment", active_lanes=lanes)}
     for name, kw in variants.items():
         vcfg = dataclasses.replace(cfg, **kw)
@@ -3215,28 +3283,21 @@ def managed_phase(dev, hosts: int, full: bool, started: dict, cli: dict) -> bool
     return hybrid_matrix_phase(dev, bins, tmp, pairs, full)
 
 
-def services_world(hosts: int, stop_ns: int) -> dict:
+def services_world(hosts: int, stop_ns: int, path: str = "tgen", args=None) -> dict:
     """The services cell's world as a config mapping (SERVICES_* above):
     lossy_world's graph style written as GML inline, host groups one a
-    node, the first half of the nodes holding the clients."""
-    rng_py = random.Random(11)
-    lines = ["graph [", "  directed 0"]
-    for i in range(SERVICES_NODES):
-        lines.append(f"  node [ id {i} ]")
-        lines.append(f'  edge [ source {i} target {i} latency "2 ms" ]')
-    for i in range(SERVICES_NODES):
-        for j in range(i + 1, SERVICES_NODES):
-            lines.append(f'  edge [ source {i} target {j} latency "{rng_py.randrange(2, 9)} ms" '
-                         f"packet_loss 0.05 ]")
-    lines.append("]")
+    node, the first half of the nodes holding the clients; `path` names
+    the registered model, `args` its args (tgen's by default)."""
     half, per_half = hosts // 2, SERVICES_NODES // 2
     sizes = [half // per_half + (i < half % per_half) for i in range(per_half)]
     sizes += [(hosts - half) // per_half + (i < (hosts - half) % per_half)
               for i in range(per_half)]
-    proc = {"path": "tgen", "args": {"clients": half, "resp_bytes": 40_000, "pause": "30 ms"}}
+    if args is None:
+        args = {"clients": half, "resp_bytes": 40_000, "pause": "30 ms"}
+    proc = {"path": path, "args": args}
     return {
         "general": {"stop_time": f"{stop_ns} ns", "heartbeat_interval": None, "tracker": True},
-        "network": {"graph": {"type": "gml", "inline": "\n".join(lines) + "\n"}},
+        "network": {"graph": {"type": "gml", "inline": lossy_gml(SERVICES_NODES, 0.05, 11) + "\n"}},
         "experimental": {"rounds_per_chunk": SERVICES_RPC, "queue_capacity": 192,
                          "outbox_capacity": 32},
         "hosts": {f"n{i}": {"network_node_id": i, "quantity": q, "bandwidth_up": "20 Mbit",
@@ -3559,6 +3620,270 @@ def services_phase(hosts: int, dev, daemon: dict) -> "tuple[bool, int]":
     ok_d = bool(daemon.get("ok"))
     line("services_daemon", **{k: v for k, v in daemon.items()})
     return ok and ok_d, launches
+
+def shape_builds_start() -> dict:
+    """Build the libraries of SHAPE_MODELS' TCP shapes, one nvcc each in a
+    thread of this process, started beside the default shape's build
+    (phase 2) and going on through phase 3: a handle for
+    shape_builds_finish."""
+    from shadow_tpu_torch.engine import megakernel as mk
+
+    started = {}
+    t0 = time.perf_counter()
+    for name, (_, shape) in SHAPE_MODELS.items():
+        rec = {"shape": shape}
+
+        def build(rec=rec):
+            try:
+                mk.PUMP_KERNEL.library(rec["shape"])
+            except Exception as err:  # shape_builds_finish fails the smoke with it
+                rec["error"] = err
+            rec["done_s"] = time.perf_counter() - t0
+
+        rec["thread"] = threading.Thread(target=build, daemon=True)
+        rec["thread"].start()
+        started[name] = rec
+    return started
+
+
+def shape_builds_finish(started) -> "tuple[bool, dict]":
+    """Wait for shape_builds_start's builds and print a `build_shapes`
+    line: per shape nvcc's seconds, its ptxas lines (registers, stack,
+    spill stores and loads) and each instance's resources, or nvcc's
+    output where a build failed (which fails the smoke: no twin runs in a
+    kernel's place). Returns (ok, resources by instance name)."""
+    from shadow_tpu_torch.engine import megakernel as mk
+
+    t0 = time.perf_counter()
+    ok, resources, out = True, {}, {}
+    for name, rec in started.items():
+        rec["thread"].join()
+        shape = rec["shape"]
+        if "error" in rec:
+            ok = False
+            out[name] = dict(shape=list(shape), error=str(rec["error"])[-6000:])
+            continue
+        log = mk.PUMP_KERNEL.build_log[shape]
+        res = ptxas_resources(log, shape)
+        resources.update(res)
+        out[name] = dict(
+            shape=list(shape), nvcc_seconds=mk.PUMP_KERNEL.build_seconds.get(shape),
+            done_s=round(rec["done_s"], 3), instances=res,
+            ptxas=[ln.strip() for ln in log.splitlines()
+                   if "registers" in ln or "spill" in ln or "stack frame" in ln])
+    line("build_shapes", ok=ok, waited_s=round(time.perf_counter() - t0, 3), **out)
+    return ok, resources
+
+
+def onion_shape_run(hosts: int, dev, out_path: str) -> int:
+    """onion_r2s2's main path, for a process of its own (`--onion-shape
+    OUT`): SHAPE_MODELS' onion_r2s2 on onion_world (engine "auto": the
+    kernel's onion instance at (2, 2) on the card) to each of
+    ONION_SHAPE_NS in turn, the launches counted from 0 just before; its
+    state at each (torch.save, OUT.<i>.pt) and its record (OUT, JSON)."""
+    from shadow_tpu_torch.engine import megakernel as mk
+    from shadow_tpu_torch.engine.round import effective_engine, run_until
+    from shadow_tpu_torch.models import registry
+
+    register_shape_models(registry)
+    cfg, model, tables, st = onion_world(hosts, dev, path="onion_r2s2")
+    name = mk.kernel_instance(model, mk.resolve_stage_cfg(cfg))
+    if dev.type == "cuda":
+        mk.PUMP_KERNEL.library(mk.tcp_shape(model))  # built, or loaded, before the wall
+    counters, states, saving = {}, [], 0.0
+    sync(dev)
+    mk.PUMP_KERNEL.launches_by_model[name] = 0
+    t0 = time.perf_counter()
+    for i, at in enumerate(ONION_SHAPE_NS):
+        st = run_until(st, at, model, tables, cfg, rounds_per_chunk=16, counters=counters)
+        sync(dev)
+        t1 = time.perf_counter()
+        torch.save(st, f"{out_path}.{i}.pt")
+        states.append(f"{out_path}.{i}.pt")
+        saving += time.perf_counter() - t1
+    wall = time.perf_counter() - t0 - saving
+    record = dict(instance=name, engine=effective_engine(cfg, dev), hosts=hosts,
+                  clients=model.num_clients, relays=model.num_relays,
+                  sockets=model.tcp_params.num_sockets, shape=list(mk.tcp_shape(model)),
+                  at_ns=list(ONION_SHAPE_NS), wall_s=round(wall, 3),
+                  sim_s_per_wall_s=ONION_SHAPE_NS[-1] / 1e9 / wall,
+                  iters=counters.get("iters"), launches=mk.PUMP_KERNEL.launches_by_model[name],
+                  events=int(st.events_handled.sum()), states=states, **onion_counts(st))
+    with open(out_path, "w") as f:
+        json.dump(record, f)
+    return 0
+
+
+def onion_shape_start(hosts: int, dev) -> dict:
+    """Start onion_shape_run in a process of its own (this script with
+    `--onion-shape`): a handle for onion_shape_finish."""
+    tmp = tempfile.TemporaryDirectory()
+    out = os.path.join(tmp.name, "onion_shape.json")
+    cmd = [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--onion-shape", out]
+    if dev.type == "cpu":
+        cmd += ["--rehearse-cpu", "--hosts", str(hosts)]
+    err_path = os.path.join(tmp.name, "stderr.txt")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=err, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, OMP_NUM_THREADS="1"))
+    STARTED.append(proc)
+    return dict(proc=proc, out=out, stderr=err_path, tmp=tmp)
+
+
+def onion_shape_finish(run) -> "dict | None":
+    """Wait for onion_shape_run: its record, or None (with nvcc's or the
+    run's output in a failing line)."""
+    if run["proc"].wait() == 0:
+        with open(run["out"]) as f:
+            return json.load(f)
+    with open(run["stderr"]) as f:
+        line("onion_shape_main_path", ok=False, output=f.read()[-6000:])
+    return None
+
+
+def shapes_phase(hosts: int, dev, onion_run) -> "tuple[bool, dict, float]":
+    """shapes (phase 9e): SHAPE_MODELS through the kernel at their TCP
+    shapes. tgen_ooo8, registered, runs services_world at full width to
+    SHAPES_END_NS through the port's Manager in this process (the front
+    door behind `run`), engine "auto", which the card resolves to the
+    kernel (tgen@8x8), then at pump_k SHAPES_WIDE_K (tgen_wide@8x8), each
+    with the launch counts set to 0 just before and read just after; its
+    host_stats and model counters must equal the plain engine's run of
+    the same config. Its kernel vs the twin at the burst
+    (LOSSY_MID_NS_SHAPED) at pump_k 8, 16 and SHAPES_WIDE_K, timed alone
+    with its bound. onion_r2s2's main path ran in a process of its own
+    (onion_shape_run, `onion_run` its handle); its kernel vs the twin on
+    that run's states, timed. Returns (ok, the instances' numbers for the
+    kernels line, largest error)."""
+    import yaml
+
+    from shadow_tpu_torch import equeue
+    from shadow_tpu_torch.config.options import load_config_str
+    from shadow_tpu_torch.engine import megakernel as mk
+    from shadow_tpu_torch.engine.round import _next_window_end, host_stats, run_until
+    from shadow_tpu_torch.models import registry
+    from shadow_tpu_torch.runtime.manager import Manager
+    from shadow_tpu_torch.runtime.scheduler import TpuScheduler
+
+    class KeptManager(Manager):
+        """The front door's run, keeping its final state."""
+
+        def _run_device(self, *args, **kw):
+            self.final = super()._run_device(*args, **kw)
+            return self.final
+
+    register_shape_models(registry)
+    tmp = tempfile.TemporaryDirectory()
+
+    def config(engine: str, pump_k: int = 0):
+        world = services_world(hosts, SHAPES_END_NS, path="tgen_ooo8")
+        world["general"]["data_directory"] = os.path.join(tmp.name, f"{engine}-{pump_k}")
+        world["experimental"].update(engine=engine, pump_k=pump_k)
+        return load_config_str(yaml.safe_dump(world))
+
+    def tgen_counts(st):
+        m = st.model
+        return {k: int(getattr(m, k).sum())
+                for k in ("streams_started", "streams_done", "bytes_down", "resets")}
+
+    entries, err, ok = {}, 0.0, True
+    runs = {}
+    for label, engine, pump_k in (("plain", "plain", 0), ("auto", "auto", 0),
+                                  ("auto_wide", "auto", SHAPES_WIDE_K)):
+        mgr = KeptManager(config(engine, pump_k), device=dev)
+        world = mgr.build_world()
+        name = mk.kernel_instance(world.model, mk.resolve_stage_cfg(world.ecfg))
+        del world
+        sync(dev)
+        mk.PUMP_KERNEL.launches_by_model[name] = 0
+        t0 = time.perf_counter()
+        res = mgr.run()
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = mk.PUMP_KERNEL.launches_by_model[name]
+        with open(os.path.join(mgr.config.general.data_directory, "sim-stats.json")) as f:
+            execution = json.load(f)["execution"]
+        final = mgr.final
+        runs[label] = dict(hs=host_stats(final), counts=tgen_counts(final), instance=name,
+                           launches=launches if engine == "auto" else 0, wall_s=round(wall, 3),
+                           engine=execution["engine"], events=res.events_handled,
+                           dropped=res.packets_dropped,
+                           ranges_in_use_max=int((final.model.tcp.ooo[..., 0] >= 0).sum(-1).max()))
+        del final, mgr
+    want = runs["plain"]
+    for label in ("auto", "auto_wide"):
+        got = runs[label]
+        diff = [k for k in want["hs"] if k not in ("iters_done", "lanes_live")
+                and not np.array_equal(want["hs"][k], got["hs"][k])]
+        on_card = dev.type == "cpu" or (got["engine"] == "megakernel" and got["launches"] > 0)
+        ok_r = on_card and not diff and got["counts"] == want["counts"] and want["dropped"] > 0
+        line("shapes_main_path", ok=ok_r, cell=f"services-{hosts}-tgen_ooo8", run=label,
+             path="tgen_ooo8", shape=list(SHAPE_MODELS["tgen_ooo8"][1]), hosts=hosts,
+             end_ns=SHAPES_END_NS, instance=got["instance"], engine=got["engine"],
+             kernel_launches=got["launches"], wall_s=got["wall_s"],
+             sim_s_per_wall_s=SHAPES_END_NS / 1e9 / got["wall_s"], plain_wall_s=want["wall_s"],
+             events=got["events"], packets_dropped=got["dropped"],
+             ranges_in_use_max=got["ranges_in_use_max"], differing=diff, **got["counts"])
+        ok = ok and ok_r
+        entries[got["instance"]] = dict(launches=got["launches"])
+    if not ok:
+        return False, entries, err
+
+    # kernel vs twin at the burst, on the state the plain engine reaches
+    # from the config's initial state
+    world = Manager(config("auto"), device=dev).build_world()
+    model, tables, cfg = world.model, world.tables, world.ecfg
+    st0 = TpuScheduler(model, tables, cfg, rounds_per_chunk=SERVICES_RPC,
+                       tx_bytes_per_interval=world.tx_refill,
+                       rx_bytes_per_interval=world.rx_refill, device=dev).initial_state()
+    st_b = run_until(st0, LOSSY_MID_NS_SHAPED, model, tables,
+                     dataclasses.replace(cfg, engine="plain"), rounds_per_chunk=SERVICES_RPC)
+    del st0
+    we = _next_window_end(st_b, 10**9, cfg, equeue.next_time(st_b.queue).amin(), tables)
+    for k in (8, 16, SHAPES_WIDE_K):
+        scfg = dataclasses.replace(mk.resolve_stage_cfg(cfg), pump_k=k)
+        name = mk.kernel_instance(model, scfg)
+        ok_s, numbers, e = timed_stage("shapes_kernel_vs_twin", st_b, we, model, tables, scfg, 20,
+                                       dev, must_take=True, instance=name, launch=f"burst_k{k}",
+                                       at_ns=LOSSY_MID_NS_SHAPED, hosts=hosts)
+        err = max(err, e)
+        ok = ok and ok_s
+        if k in (8, SHAPES_WIDE_K):
+            entries[name].update(numbers)
+        else:
+            entries[name]["burst_k16"] = numbers
+    del st_b
+
+    # onion_r2s2: its main path's record and states
+    rec = onion_shape_finish(onion_run)
+    if rec is None:
+        return False, entries, err
+    name = rec["instance"]
+    ok_o = dev.type == "cpu" or (rec["engine"] == "megakernel" and rec["launches"] > 0)
+    line("onion_shape_main_path", ok=ok_o, **{k: v for k, v in rec.items() if k != "states"})
+    ok = ok and ok_o
+    ocfg, omodel, otables, _ = onion_world(hosts, dev, path="onion_r2s2")
+    scfg = mk.resolve_stage_cfg(ocfg)
+    entries[name] = dict(launches=rec["launches"])
+    for i, (at, path) in enumerate(zip(rec["at_ns"], rec["states"])):
+        st = torch.load(path, map_location=dev, weights_only=False)
+        we = _next_window_end(st, ONION_WINDOW_CAP_NS, ocfg, equeue.next_time(st.queue).amin(),
+                              otables)
+        ok_s, numbers, e = timed_stage("shapes_kernel_vs_twin", st, we, omodel, otables, scfg,
+                                       20, dev, must_take=True, instance=name,
+                                       launch=f"main_path_{at // 1_000_000}ms", at_ns=at,
+                                       hosts=hosts)
+        err = max(err, e)
+        ok = ok and ok_s
+        if i == 0:
+            entries[name].update(numbers)
+        else:
+            entries[name][f"at_{at // 1_000_000}ms"] = numbers
+        del st
+    onion_run["tmp"].cleanup()
+    tmp.cleanup()
+    return ok, entries, err
+
 
 def logical_env() -> dict:
     """The environment that presents MESH_LOGICAL_DEVICES logical devices
@@ -4004,6 +4329,12 @@ def run_phases(argv=None) -> int:
         "OUT (the smoke starts this in a process of its own)",
     )
     ap.add_argument(
+        "--onion-shape", metavar="OUT",
+        help="only run onion_r2s2's main path (the shapes phase's onion cell) "
+        "and write its record and states beside OUT (the smoke starts this "
+        "in a process of its own)",
+    )
+    ap.add_argument(
         "--cpu-ref", metavar="OUT",
         help="only hold the cpu-ref oracles against the engine on the "
         "reference tests' small worlds and write the records to OUT (the "
@@ -4032,6 +4363,10 @@ def run_phases(argv=None) -> int:
     if args.onion_plain:
         dev = torch.device("cpu") if args.rehearse_cpu else torch.device("cuda", 0)
         return onion_plain_run(args.hosts, ONION_END_NS, dev, args.onion_plain)
+    if args.onion_shape:
+        return onion_shape_run(
+            args.hosts, torch.device("cpu") if args.rehearse_cpu else torch.device("cuda", 0),
+            args.onion_shape)
     if args.cpu_ref:
         return cpu_ref_run(torch.device("cpu") if args.rehearse_cpu else torch.device("cuda", 0),
                            args.cpu_ref)
@@ -4054,14 +4389,18 @@ def run_phases(argv=None) -> int:
         line("card", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
              kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
-        # 2. build
+        # 2. build: the default shape's library here, the shapes phase's
+        # libraries in threads beside it and phase 3
+        shape_builds = shape_builds_start()
         t0 = time.perf_counter()
         mk.PUMP_KERNEL.library()
-        resources = ptxas_resources(mk.PUMP_KERNEL.build_log)
-        ptxas = [ln.strip() for ln in mk.PUMP_KERNEL.build_log.splitlines()
+        build_log = mk.PUMP_KERNEL.build_log[mk.TCP_SHAPE]
+        resources = ptxas_resources(build_log)
+        ptxas = [ln.strip() for ln in build_log.splitlines()
                  if "registers" in ln or "spill" in ln or "stack frame" in ln]
         line("build", seconds=round(time.perf_counter() - t0, 3),
-             nvcc_seconds=mk.PUMP_KERNEL.build_seconds, ptxas=ptxas, instances=resources)
+             nvcc_seconds=mk.PUMP_KERNEL.build_seconds.get(mk.TCP_SHAPE), ptxas=ptxas,
+             instances=resources)
 
     # 3. kernel vs twin at full width, in the burst
     cfg, model, tables, st0 = bench_world(args.hosts, dev)
@@ -4177,6 +4516,11 @@ def run_phases(argv=None) -> int:
     max_abs_err = max(max_abs_err, err)
     if not ok_e:
         return 1
+    shape_resources = {}
+    if dev.type == "cuda":
+        ok_b, shape_resources = shape_builds_finish(shape_builds)
+        if not ok_b:
+            return 1
 
     # 3a. wide_kernel: the wide instances (pump_k past MAX_K, onion past 32
     # sockets), each held against the twin and timed, and their main paths;
@@ -4341,6 +4685,7 @@ def run_phases(argv=None) -> int:
     # onion runs, whose phase the background runs already bound
     mesh_started = mesh_start(args.hosts, dev, phold_replicas)
     daemon = services_daemon_start(dev)
+    onion_shape = onion_shape_start(args.hosts, dev)
 
     # 9. the ensemble plane: tgen and onion replicas through the kernel,
     # a ragged batch
@@ -4395,6 +4740,17 @@ def run_phases(argv=None) -> int:
     if not ok_mesh:
         return 1
 
+    # 9e. shapes: tgen_ooo8 through the front door and the kernel at
+    # (8, 8), its plain run, kernel vs twin; onion_r2s2's run at (2, 2)
+    # in a process of its own since phase 9, kernel vs twin on its states
+    t0 = time.perf_counter()
+    ok_sh, shapes, err_sh = shapes_phase(args.hosts, dev, onion_shape)
+    line("shapes", ok=ok_sh, seconds=round(time.perf_counter() - t0, 3),
+         instances={k: {n: v for n, v in e.items() if not isinstance(v, dict)}
+                    for k, e in shapes.items()})
+    if not ok_sh:
+        return 1
+
     if dev.type == "cpu":
         line("rehearsal_done", note="no result: the kernel runs only on the card")
         return 3
@@ -4441,6 +4797,14 @@ def run_phases(argv=None) -> int:
     # the launches planes-10240 timed: on compacted sub-states and with
     # dyn_runahead set
     planes_timed = {"tgen": planes["timed"]}
+    # the instances at the shapes phase's TCP shapes: their main paths'
+    # launches, their timed launches, their libraries' ptxas resources
+    for m, e in shapes.items():
+        launches_by_model[m] = e["launches"]
+        timing[m] = {k: v for k, v in e.items() if k != "launches"}
+        max_err[m] = err_sh
+        resources[m] = shape_resources[m]
+        ensemble[m], ens_launch[m] = [], None
     print(json.dumps({"kernels": [{
         "name": f"pump_megakernel[{m}]",
         "route": "cuda",
@@ -4456,7 +4820,7 @@ def run_phases(argv=None) -> int:
         "launches_on_other_paths": more.get(m, {}),
         "planes": planes_timed.get(m, {}),
         "mesh_shards": mesh_shards.get(m, {}),
-    } for m in mk.INSTANCES]}), flush=True)
+    } for m in (*mk.INSTANCES, *shapes)]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

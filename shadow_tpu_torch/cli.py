@@ -1,9 +1,10 @@
 """`python -m shadow_tpu_torch run CONFIG` (port of shadow_tpu/cli.py:
-the `run`, `sweep`, `serve`, `submit`, `mem` and `metrics`
-subcommands). `run`, `sweep` and `serve` run on the GPU unless
-`--device cpu` is given; `submit` drops a job spec into a daemon's
-spool; `mem` prices a config's state without allocating it, and
-`metrics` renders a recorded metrics series."""
+the `run`, `sweep`, `serve`, `submit`, `mem`, `metrics` and
+`shm-cleanup` subcommands). `run`, `sweep` and `serve` run on the GPU
+unless `--device cpu` is given; `submit` drops a job spec into a
+daemon's spool; `mem` prices a config's state without allocating it,
+`metrics` renders a recorded metrics series, and `shm-cleanup` removes
+the host kernel's shared-memory blocks that no live process maps."""
 
 from __future__ import annotations
 
@@ -417,6 +418,11 @@ def main(argv: "list[str] | None" = None) -> int:
         "--max-updates", type=int, default=None, metavar="N",
         help="stop --follow after N re-renders (default: until Ctrl-C)",
     )
+    sub.add_parser(
+        "shm-cleanup",
+        help="remove stale shared-memory blocks left by crashed runs "
+        "(the reference's --shm-cleanup, main.rs:333)",
+    )
     args = parser.parse_args(argv)
 
     if args.command == "run":
@@ -520,5 +526,45 @@ def main(argv: "list[str] | None" = None) -> int:
             print(f"shadow-tpu-torch: error: {e}", file=sys.stderr)
             return 1
         return 0
+    if args.command == "shm-cleanup":
+        return shm_cleanup()
     parser.print_help()
     return 2
+
+
+def shm_cleanup(shm_dir: str = "/dev/shm") -> int:
+    """Remove shadow-tpu shm blocks no live process has mapped
+    (reference: shm_cleanup.rs checks owner liveness the same way).
+    Blocks are named shadow-tpu-<tag>-* (hostk/ipc.py makes them)."""
+    import pathlib
+    import time
+
+    def mapped_paths():
+        mapped = set()
+        for maps in pathlib.Path("/proc").glob("[0-9]*/maps"):
+            try:
+                for line in maps.read_text().splitlines():
+                    if "shadow-tpu-" in line:
+                        mapped.add(line.split(maxsplit=5)[-1].split(" (deleted)")[0])
+            except OSError:
+                continue  # process went away mid-scan
+        return mapped
+
+    live = mapped_paths()
+    removed = 0
+    now = time.time()
+    for p in pathlib.Path(shm_dir).glob("shadow-tpu-*"):
+        if str(p) in live:
+            continue  # a running simulation still maps this block
+        try:
+            if now - p.stat().st_mtime < 5:
+                continue  # created moments ago: may not be mapped yet
+        except OSError:
+            continue
+        try:
+            p.unlink()
+            removed += 1
+        except OSError:
+            pass
+    print(f"shm-cleanup: removed {removed} stale block(s) from {shm_dir}")
+    return 0

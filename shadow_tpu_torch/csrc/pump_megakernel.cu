@@ -55,8 +55,8 @@
 //    are written once at the end. The defer FIFO, and the socket-matching
 //    fields of each row's S sockets (kept up to date), live in shared
 //    memory; the per-event range sets and segment lanes are register
-//    arrays, sized at compile time for TCP's one shape (NR, NSEG) and
-//    indexed only by unrolled loops.
+//    arrays, sized at compile time for the library's TCP shape (NR, NSEG)
+//    and indexed only by unrolled loops.
 // C. The landing, per lane: leftover defers go to the row's free columns
 //    after the pops in column order (the free columns found in A merged
 //    with the popped slots), with overflow counted as push_self_lanes
@@ -147,9 +147,19 @@ constexpr int TGEN_MAX_S = 8, ONION_MAX_S = 32;
 // int64 words of a wide instance's defer-FIFO entry in device scratch:
 // time, tie, kind, aux, then the payload's 8 int32 lanes in 4 words
 constexpr int FIFO_WORDS = 8;
-// TCP's shape, the one shape the kernel is built for: out-of-order ranges
-// and segments per flush (TGEN_TCP); the wrapper refuses any other
-constexpr int NR = 4, NSEG = 4;
+// TCP's shape: out-of-order ranges and segments per flush. They size the
+// per-event range sets and segment lanes (register arrays, unrolled
+// loops), so a library is built per shape: the wrapper passes
+// -DPUMP_NR=r -DPUMP_NSEG=s for any shape but the default, tgen's (4, 4)
+// (TGEN_TCP), and launches a model's rows on its own shape's library.
+// Shared memory does not depend on the shape.
+#ifndef PUMP_NR
+#define PUMP_NR 4
+#endif
+#ifndef PUMP_NSEG
+#define PUMP_NSEG 4
+#endif
+constexpr int NR = PUMP_NR, NSEG = PUMP_NSEG;
 constexpr int WARP = 32;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
@@ -184,6 +194,9 @@ static_assert(ONION_MAX_S <= 32 && ROWS_PER_WARP <= WARP && STAGE == WARP && STA
               "layout");
 static_assert(WIDE_MAX_SC <= 255 && WIDE_LIST_CAP <= 127,
               "wide layout: list entries index the stage in a byte");
+// a range set's hit and overlap masks are 32 bits; the wrapper's limit
+// (megakernel.MAX_TCP_SHAPE) is below that
+static_assert(NR >= 1 && NR <= 32 && NSEG >= 1, "TCP shape");
 
 }  // namespace
 

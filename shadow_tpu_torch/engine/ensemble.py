@@ -330,7 +330,7 @@ def lower_ensemble_chunk(st: SimState, end_time: int, rounds_per_chunk: int, mod
         from shadow_tpu_torch.engine import megakernel as mk
 
         kcfg = mk.resolve_stage_cfg(cfg)
-        mk.PUMP_KERNEL.library()
+        mk.PUMP_KERNEL.library(mk.tcp_shape(model))
         rows = rows_view(st)
         r = num_replicas(st)
         window_end = torch.zeros((r,), dtype=torch.int64, device=device)
@@ -347,7 +347,7 @@ def lower_ensemble_chunk(st: SimState, end_time: int, rounds_per_chunk: int, mod
                 f"shared memory, more than the {limit} B a block may have on {device}")
         chunk.instance = mk.kernel_instance(model, kcfg)
         chunk.dynamic_smem = smem
-        chunk.library_tag = mk.PUMP_KERNEL.tag()
+        chunk.library_tag = mk.PUMP_KERNEL.tag(mk.tcp_shape(model))
     if device.type == "cuda":
         chunk.build_peak_bytes = int(torch.cuda.max_memory_allocated(device))
     return chunk
@@ -430,7 +430,7 @@ def run_ensemble_until(
     pending = False  # a due snapshot of this chunk's state (see run_until)
     while True:
         st, rows = run_chunk(run_chunk_rounds, st, chunks, tracker, engine, watchdog_s,
-                             devices=devices, max_chunks=max_chunks)
+                             devices=devices, max_chunks=max_chunks, model=model)
         chunks += 1
         rows = np.asarray(rows, dtype=np.int64)
         probe = _aggregate_probe(rows)

@@ -10,7 +10,9 @@ the microsteps, updating the state in place. Its plain twin is
 engine/pump.py::pump_stage.
 
 The kernel carries the pump rules (`pump_spec.block` and `apply`) of
-the models that have them, tgen and onion, as template instances: a
+the models that have them, tgen and onion (their exact types: a model
+of any other type, a subclass included, is refused), as template
+instances: a
 narrow one each, which holds a row's list, defer FIFO and socket fields
 in shared memory sized at compile time (pump_k <= MAX_K, at most
 MAX_SOCKETS sockets per row), and a wide one each, which takes any
@@ -20,13 +22,19 @@ entries per pass, WIDE_FIFO_CAP FIFO entries per row and
 WIDE_MATCH_WORDS match words per warp; what is past the last two goes
 to device scratch that `kernel_args` allocates. `kernel_args` picks the
 instance (the narrow one wherever it fits) and refuses any other model.
+The TCP shape (out-of-order ranges, segments per flush) sizes the
+per-event register arrays, so the source is built into one library per
+shape, each on its shape's first use (the default, tgen's (4, 4), with
+nvcc's plain flags; any other up to MAX_TCP_SHAPE with -DPUMP_NR and
+-DPUMP_NSEG), as Pallas specializes the reference's kernel per shape
+when it traces.
 `megakernel_stage` dispatches on where the state lives: on the card it
 launches the kernel (or raises — there is no fallback), on the CPU it
 runs the twin. An ensemble's rows view (engine/state.py::rows_view) is
 one launch over all R * H rows: the window end, `min_used_lat` and the
 rejected flag are [R], and each row reads and writes its replica's. The
 kernel is built with nvcc from the repo's own source on first use, into
-build/shadow_tpu_torch/ at the repo root, as a plain C shared library
+build/shadow_tpu_torch/ at the repo root, as plain C shared libraries
 loaded with ctypes.
 """
 
@@ -38,6 +46,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -98,8 +107,9 @@ _FIELDS = (
 
 # The kernel's compile-time layout, as csrc/pump_megakernel.cu declares
 # it: host rows per warp, queue slots a row stages in shared memory, and
-# the one TCP shape (out-of-order ranges, segments per flush) it is built
-# for; the list entries a narrow instance holds (its pump_k limit) and
+# the default TCP shape (out-of-order ranges, segments per flush: the
+# source's PUMP_NR and PUMP_NSEG defaults, tgen's); the list entries a
+# narrow instance holds (its pump_k limit) and
 # the int64 words of a wide instance's defer-FIFO entry in device
 # scratch; a wide instance's caps on its dynamic shared memory: list
 # entries per pass, FIFO entries per row (pump_k past it: the rest in
@@ -119,9 +129,44 @@ WIDE_MATCH_WORDS = 2048
 # built for (the source's MODEL_* and *_MAX_S).
 MODEL_IDS = {"tgen": 0, "onion": 1}
 MAX_SOCKETS = {"tgen": 8, "onion": 32}
-# every template instance, by name: "<model>" (narrow), "<model>_wide"
+# every template instance, by name: "<model>" (narrow), "<model>_wide";
+# at a TCP shape other than TCP_SHAPE the name carries it: "tgen@8x8"
 INSTANCES = tuple(MODEL_IDS) + tuple(f"{m}_wide" for m in MODEL_IDS)
 _MODEL_NAMES = {v: k for k, v in MODEL_IDS.items()}
+# The largest TCP shape a library is built for, each of (ranges,
+# segments) from 1 up to it. The per-event range sets (four, of 2 x int64
+# a range) and segment lanes (a payload of 8 int32 each) live in
+# registers: from (8, 8) on they pass the 255 a thread may hold and spill
+# to local memory, at (16, 16) 728-996 bytes a thread (ptxas, sm_90a),
+# and further past it.
+MAX_TCP_SHAPE = (16, 16)
+
+
+def tcp_shape(model) -> "tuple[int, int]":
+    """`model`'s TCP shape: (out-of-order ranges, segments per flush);
+    TCP_SHAPE for a model without TCP (or none)."""
+    p = getattr(model, "tcp_params", None)
+    return TCP_SHAPE if p is None else (p.ooo_ranges, p.segs_per_flush)
+
+
+def check_tcp_shape(shape) -> "tuple[int, int]":
+    """`shape` as a tuple, or NotYetPorted past MAX_TCP_SHAPE."""
+    r, s = (int(x) for x in shape)
+    if not (1 <= r <= MAX_TCP_SHAPE[0] and 1 <= s <= MAX_TCP_SHAPE[1]):
+        raise NotYetPorted(
+            f"the pump megakernel for TCP with {r} out-of-order ranges and {s} segments per "
+            f"flush: a library is built for 1 to {MAX_TCP_SHAPE[0]} ranges and 1 to "
+            f"{MAX_TCP_SHAPE[1]} segments (registers: the per-event range sets and segment "
+            "lanes spill past a thread's 255 from (8, 8) on, 728-996 bytes a thread at "
+            "(16, 16), further past it)")
+    return (r, s)
+
+
+def instance_name(model_name: str, wide: bool, shape) -> str:
+    """The name a launch counts under: INSTANCES' at the default shape,
+    with "@<ranges>x<segments>" at any other."""
+    name = f"{model_name}_wide" if wide else model_name
+    return name if tuple(shape) == TCP_SHAPE else f"{name}@{shape[0]}x{shape[1]}"
 
 
 class PumpArgs(ctypes.Structure):
@@ -132,39 +177,64 @@ class PumpArgs(ctypes.Structure):
 
 
 class PumpMegakernel:
-    """The built kernel and its launch counters. `launches` counts kernel
-    launches only (the CPU twin does not count); `launches_by_model`
-    splits them by the template instance launched (INSTANCES)."""
+    """The built kernel, a library per TCP shape, and its launch counters.
+    `launches` counts kernel launches only (the CPU twin does not count);
+    `launches_by_model` splits them by the instance launched and its
+    shape (instance_name: INSTANCES at the default shape). nvcc's time
+    and output per shape built are in `build_seconds` and `build_log`."""
 
     def __init__(self):
         self.launches = 0
         self.launches_by_model = dict.fromkeys(INSTANCES, 0)
-        self.build_seconds = None
-        self.build_log = ""
-        self._lib = None
+        self.build_seconds = {}
+        self.build_log = {}
+        self._libs = {}
+        self._locks = {}
+        self._lock = threading.Lock()
         self._codel = {}
 
-    def library(self) -> ctypes.CDLL:
-        """Build (first use) and load the shared library."""
-        if self._lib is None:
-            self._lib = self._build()
-        return self._lib
+    def library(self, shape=TCP_SHAPE) -> ctypes.CDLL:
+        """Build (first use) and load `shape`'s shared library. Threads
+        may build several shapes at once; one shape is built once."""
+        shape = check_tcp_shape(shape)
+        lib = self._libs.get(shape)
+        if lib is None:
+            with self._lock:
+                lock = self._locks.setdefault(shape, threading.Lock())
+            with lock:
+                lib = self._libs.get(shape)
+                if lib is None:
+                    lib = self._libs[shape] = self._build(shape)
+        return lib
 
     @staticmethod
-    def tag() -> str:
-        """The build's identity: a digest of the source and nvcc's flags
-        (the library's file name carries it)."""
-        src = SOURCE.read_bytes()
-        return hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    def defines(shape=TCP_SHAPE) -> tuple:
+        """nvcc's -D flags for `shape`: none at the default, which the
+        source's own defaults build."""
+        r, s = check_tcp_shape(shape)
+        return () if (r, s) == TCP_SHAPE else (f"-DPUMP_NR={r}", f"-DPUMP_NSEG={s}")
 
-    def library_path(self) -> Path:
-        return BUILD_DIR / f"pump_megakernel_{self.tag()}.so"
+    @classmethod
+    def nvcc_command(cls, nvcc: str, out, shape=TCP_SHAPE) -> list:
+        return [nvcc, *NVCC_FLAGS, *cls.defines(shape), "-o", str(out), str(SOURCE)]
 
-    def install_library(self, data: bytes) -> None:
-        """Put a library built earlier from this very source (its bytes,
-        e.g. from a persistent compile cache) where library() loads it,
-        so the next load runs no nvcc. A library already there is kept."""
-        out = self.library_path()
+    @classmethod
+    def tag(cls, shape=TCP_SHAPE) -> str:
+        """A build's identity: its shape and a digest of the source and
+        nvcc's flags (the library's file name carries it)."""
+        flags = " ".join(NVCC_FLAGS + cls.defines(shape)).encode()
+        digest = hashlib.sha256(SOURCE.read_bytes() + flags).hexdigest()[:16]
+        return f"{shape[0]}x{shape[1]}-{digest}"
+
+    def library_path(self, shape=TCP_SHAPE) -> Path:
+        return BUILD_DIR / f"pump_megakernel_{self.tag(shape)}.so"
+
+    def install_library(self, data: bytes, shape=TCP_SHAPE) -> None:
+        """Put a library built earlier from this very source at `shape`
+        (its bytes, e.g. from a persistent compile cache) where
+        library(shape) loads it, so the next load runs no nvcc. A library
+        already there is kept."""
+        out = self.library_path(shape)
         if out.exists():
             return
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -172,13 +242,14 @@ class PumpMegakernel:
         tmp.write_bytes(data)
         os.replace(tmp, out)
 
-    def _build(self) -> ctypes.CDLL:
+    def _build(self, shape) -> ctypes.CDLL:
         """nvcc's output (the -Xptxas -v resource report) is kept beside
-        the library, so a later process that loads it still has it."""
-        out = self.library_path()
+        the library, so a later process that loads it still has it. A
+        build that fails raises with nvcc's output."""
+        out = self.library_path(shape)
         log = out.with_suffix(".log")
         if out.exists():
-            self.build_log = log.read_text() if log.exists() else ""
+            self.build_log[shape] = log.read_text() if log.exists() else ""
         else:
             nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
             if not os.path.exists(nvcc):
@@ -186,15 +257,14 @@ class PumpMegakernel:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             t0 = time.perf_counter()
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True,
-            )
-            self.build_seconds = time.perf_counter() - t0
-            self.build_log = proc.stdout + proc.stderr
+            proc = subprocess.run(self.nvcc_command(nvcc, tmp, shape),
+                                  capture_output=True, text=True)
+            self.build_seconds[shape] = time.perf_counter() - t0
+            self.build_log[shape] = proc.stdout + proc.stderr
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {SOURCE}:\n{self.build_log}")
-            log.write_text(self.build_log)
+                raise RuntimeError(
+                    f"nvcc failed to build {SOURCE} at TCP shape {shape}:\n{self.build_log[shape]}")
+            log.write_text(self.build_log[shape])
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))
         lib.pump_megakernel_launch.argtypes = [ctypes.POINTER(PumpArgs), ctypes.c_void_p]
@@ -218,42 +288,53 @@ class PumpMegakernel:
         """Bytes of dynamic shared memory a launch with `args` takes (a
         wide instance's, sized from pump_k and the socket count; 0 for a
         narrow one)."""
-        return self.library().pump_megakernel_dynamic_smem(ctypes.byref(args))
+        lib = self.library((args.R, args.segs_per_flush))
+        return lib.pump_megakernel_dynamic_smem(ctypes.byref(args))
 
     def launch(self, args: PumpArgs, device) -> None:
-        lib = self.library()
+        """Launch on the library of args' TCP shape (R, segs_per_flush)."""
+        shape = (args.R, args.segs_per_flush)
+        lib = self.library(shape)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.pump_megakernel_launch(ctypes.byref(args), ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(f"pump megakernel launch failed: CUDA error {err}")
         self.launches += 1
-        name = _MODEL_NAMES[args.model]
-        self.launches_by_model[f"{name}_wide" if args.wide else name] += 1
+        name = instance_name(_MODEL_NAMES[args.model], bool(args.wide), shape)
+        self.launches_by_model[name] = self.launches_by_model.get(name, 0) + 1
 
 
 PUMP_KERNEL = PumpMegakernel()
 
 
 def kernel_model(model) -> str:
-    """The name of the kernel instance that carries `model`'s pump rules;
-    NotYetPorted for a model without one (never a silent twin run)."""
+    """The model whose pump rules (pump_spec.block and apply) a kernel
+    instance carries: tgen's or onion's, for a model of exactly that
+    type. Any other model with a pump_spec, a subclass included (it may
+    override the rules), gets NotYetPorted: never another model's rules,
+    never a silent twin run."""
     from shadow_tpu_torch.models.overlay.onion import OnionModel
     from shadow_tpu_torch.models.tgen import TgenModel
 
-    if isinstance(model, TgenModel):
-        return "tgen"
-    if isinstance(model, OnionModel):
-        return "onion"
-    raise NotYetPorted(f"the pump megakernel for model {type(model).__name__}")
+    name = {TgenModel: "tgen", OnionModel: "onion"}.get(type(model))
+    if name is None:
+        raise NotYetPorted(
+            f"the pump megakernel for model {type(model).__name__}: the kernel carries the "
+            "pump rules of TgenModel and OnionModel only; `engine: pump` runs this model's "
+            "own rules on the card through the twin")
+    return name
+
+
+def _wide(name: str, model, cfg: EngineConfig) -> bool:
+    return cfg.pump_k > MAX_K or model.tcp_params.num_sockets > MAX_SOCKETS[name]
 
 
 def kernel_instance(model, cfg: EngineConfig) -> str:
-    """The template instance a launch for `model` at cfg.pump_k runs: the
-    model's narrow instance where its list and sockets fit, else its wide
-    one (INSTANCES)."""
+    """The instance a launch for `model` at cfg.pump_k runs: the model's
+    narrow one where its list and sockets fit, else its wide one, at the
+    model's TCP shape (instance_name)."""
     name = kernel_model(model)
-    narrow = cfg.pump_k <= MAX_K and model.tcp_params.num_sockets <= MAX_SOCKETS[name]
-    return name if narrow else f"{name}_wide"
+    return instance_name(name, _wide(name, model, cfg), tcp_shape(model))
 
 
 def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTables,
@@ -264,10 +345,12 @@ def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTa
     points at. A wide instance gets its scratch here, only for what its
     shared memory does not hold: the defer-FIFO entries past
     WIDE_FIFO_CAP, and the socket-match words when a warp's are more than
-    WIDE_MATCH_WORDS. Returns (args, tensors): keep `tensors` alive until
-    the launch is enqueued."""
+    WIDE_MATCH_WORDS. The model's TCP shape, within MAX_TCP_SHAPE, picks
+    the library (R and segs_per_flush in the struct); ooo and sacked are
+    checked at its R ranges. Returns (args, tensors): keep `tensors`
+    alive until the launch is enqueued."""
     instance = kernel_model(model)
-    wide = kernel_instance(model, cfg) != instance
+    wide = _wide(instance, model, cfg)
     p = model.tcp_params
     q, ob, net, ts, tr = st.queue, st.outbox, st.net, st.model.tcp, st.tracker
     h, cap = q.time.shape
@@ -276,11 +359,8 @@ def kernel_args(st: SimState, window_end: torch.Tensor, model, tables: RoutingTa
     if replicas is not None and h % replicas:
         raise ValueError(f"pump megakernel: {h} rows do not split into {replicas} replicas")
     o = ob.valid.shape[1]
-    s, r = p.num_sockets, p.ooo_ranges
-    if (r, p.segs_per_flush) != TCP_SHAPE:
-        raise NotYetPorted(
-            f"the pump megakernel for TCP with {r} out-of-order ranges and "
-            f"{p.segs_per_flush} segments per flush (it is built for {TCP_SHAPE})")
+    s = p.num_sockets
+    r, _ = check_tcp_shape(tcp_shape(model))
     n = tables.lat_ns.shape[0]
     g = tables.host_node.shape[0]
     words = -(-ROWS_PER_WARP * s // 32)

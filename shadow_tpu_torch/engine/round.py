@@ -1516,28 +1516,28 @@ def observe_chunk(probe, chunk: int) -> None:
         raise chaos.injected_capacity_error(chunk, injected)
 
 
-def launch_chunk(launch, st, chunk: int, tracker, engine: str):
+def launch_chunk(launch, st, chunk: int, tracker, engine: str, model=None):
     """One chunk launch of a chunk loop, in its tracker span. Chunk 0 is
     where the engine's chunk program is first built (the kernel's nvcc
-    build on the card, done here before `launch` is called, so a watched
-    launch's deadline does not count it, as the reference's compile is
-    outside its deadline): it runs inside the chaos plane's compile seam,
-    where only an injected `compile` fault becomes an
-    EngineCompileError."""
+    build on the card, of the library for `model`'s TCP shape, done here
+    before `launch` is called, so a watched launch's deadline does not
+    count it, as the reference's compile is outside its deadline): it
+    runs inside the chaos plane's compile seam, where only an injected
+    `compile` fault becomes an EngineCompileError."""
     if chunk:
         with _tspan(tracker, "chunk_launch", chunk=chunk):
             return launch(st)
     with chaos.compile_seam(engine):
         with _tspan(tracker, "compile+launch", chunk=0):
             if engine == "megakernel" and st.device.type == "cuda":
-                from shadow_tpu_torch.engine.megakernel import PUMP_KERNEL
+                from shadow_tpu_torch.engine.megakernel import PUMP_KERNEL, tcp_shape
 
-                PUMP_KERNEL.library()
+                PUMP_KERNEL.library(tcp_shape(model))
             return launch(st)
 
 
 def run_chunk(launch, st, chunk: int, tracker, engine: str, watchdog_s: float,
-              devices=None, max_chunks: "int | None" = None):
+              devices=None, max_chunks: "int | None" = None, model=None):
     """One chunk of a chunk loop (run_until, run_ensemble_until): its
     launch (launch_chunk), then its probe read in the `probe_fetch` span.
     Returns (state, probe as a list).
@@ -1578,7 +1578,7 @@ def run_chunk(launch, st, chunk: int, tracker, engine: str, watchdog_s: float,
 
     if chunk == 0:
         loss_seam(0)
-    st = launch_chunk(watched, st, chunk, tracker, engine)
+    st = launch_chunk(watched, st, chunk, tracker, engine, model)
     if max_chunks is None or chunk + 1 < max_chunks:
         loss_seam(chunk + 1)
     with _tspan(tracker, "probe_fetch", chunk=chunk):
@@ -1695,7 +1695,7 @@ def run_until(
     chunks = 0
     pending = False  # a due snapshot of this chunk's state, verified by its probe
     while True:
-        st, row = run_chunk(launch, st, chunks, tracker, engine, watchdog_s)
+        st, row = run_chunk(launch, st, chunks, tracker, engine, watchdog_s, model=model)
         chunks += 1
         probe = ChunkProbe.from_array(row)
         observe_chunk(probe, chunks - 1)

@@ -5,13 +5,8 @@ name lists the registered names with a closest-match hint."""
 
 from __future__ import annotations
 
-from shadow_tpu_torch.config.options import NotYetPorted
 from shadow_tpu_torch.config.options import reject_unknown as _reject_unknown
 from shadow_tpu_torch.simtime import parse_time_ns
-
-# registered in the reference, not yet in the port (none: every scripted
-# model of the reference is ported)
-_NOT_YET_PORTED = ()
 
 
 def _take(args: dict, time_keys=(), int_keys=()) -> "tuple[dict, dict]":
@@ -185,8 +180,12 @@ def unknown_model_error(name: str) -> str:
 
 
 def build_model(name: str, num_hosts: int, args: dict):
-    if name in _NOT_YET_PORTED:
-        raise NotYetPorted(f"model {name!r}")
     if name not in _REGISTRY:
         raise ValueError(unknown_model_error(name))
     return _REGISTRY[name](num_hosts, args)
+
+
+def register_model(name: str, builder) -> None:
+    """Add (or replace) the model a config's `processes[].path` names:
+    `builder(num_hosts, args)` returns the scripted host model."""
+    _REGISTRY[name] = builder

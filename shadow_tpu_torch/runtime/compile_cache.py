@@ -40,8 +40,9 @@ grid, the kernel's library loaded once for all the grid's shards.
 
 The payload is the pickled prepared chunk (its model, canonical static
 cfg, rounds per chunk, engine, and on the card the kernel instance, its
-dynamic shared memory and the library's source digest) and, where the
-chunk runs the kernel, the built library's bytes. A restarted daemon's
+dynamic shared memory and the library's tag: its TCP shape and source
+digest) and, where the chunk runs the kernel, the built library's bytes
+(the library of the model's shape). A restarted daemon's
 disk hit puts those bytes where the kernel loads its library
 (engine/megakernel.py install_library) and loads it: no nvcc. On the
 CPU there is nothing to load: the entry carries the chunk's record.
@@ -239,11 +240,12 @@ def serialize_chunk(exe) -> bytes:
         raise TypeError(f"{type(exe).__name__} is not a prepared ensemble or mesh chunk")
     library = None
     if exe.library_tag is not None:
-        from shadow_tpu_torch.engine.megakernel import PUMP_KERNEL
+        from shadow_tpu_torch.engine.megakernel import PUMP_KERNEL, tcp_shape
 
-        if exe.library_tag != PUMP_KERNEL.tag():
+        shape = tcp_shape(exe.model)
+        if exe.library_tag != PUMP_KERNEL.tag(shape):
             raise ValueError("the kernel's source changed since this chunk was prepared")
-        library = PUMP_KERNEL.library_path().read_bytes()
+        library = PUMP_KERNEL.library_path(shape).read_bytes()
     return pickle.dumps({"chunk": chunk, "library": library})
 
 
@@ -253,14 +255,15 @@ def deserialize_and_load(payload: bytes):
     doc = pickle.loads(payload)
     chunk, library = doc["chunk"], doc["library"]
     if library is not None:
-        from shadow_tpu_torch.engine.megakernel import PUMP_KERNEL
+        from shadow_tpu_torch.engine.megakernel import PUMP_KERNEL, tcp_shape
 
-        if chunk.library_tag != PUMP_KERNEL.tag():
+        shape = tcp_shape(chunk.model)
+        if chunk.library_tag != PUMP_KERNEL.tag(shape):
             raise ValueError(
                 f"library built from kernel source {chunk.library_tag}, this checkout "
-                f"builds {PUMP_KERNEL.tag()}")
-        PUMP_KERNEL.install_library(library)
-        PUMP_KERNEL.library()
+                f"builds {PUMP_KERNEL.tag(shape)}")
+        PUMP_KERNEL.install_library(library, shape)
+        PUMP_KERNEL.library(shape)
     return chunk
 
 

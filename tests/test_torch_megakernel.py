@@ -162,12 +162,25 @@ def test_kernel_args_validate_every_leaf(mid_run):
     with pytest.raises(ValueError, match="q_time"):
         mk.kernel_args(dataclasses.replace(tst, queue=strided), torch.tensor(int(we)),
                        tmodel, ttables, tcfg, rej, mk.PUMP_KERNEL.codel_table("cpu"))
-    # the kernel is built for TCP's one shape; another is refused
-    for shape in ({"ooo_ranges": 8}, {"segs_per_flush": 2}):
+    # a library per TCP shape up to MAX_TCP_SHAPE: a shape within it is
+    # taken (its leaves checked at its ranges: this state's ooo and sacked
+    # hold TGEN_TCP's 4), a shape past it refused with the limit named
+    r_max, s_max = mk.MAX_TCP_SHAPE
+    for shape in ({"ooo_ranges": r_max + 1}, {"segs_per_flush": s_max + 1}):
         other = dataclasses.replace(tmodel, tcp_params=dataclasses.replace(TGEN_TCP, **shape))
-        with pytest.raises(NotYetPorted, match="segments per flush"):
+        with pytest.raises(NotYetPorted, match=f"1 to {r_max} ranges and 1 to {s_max} segments"):
             mk.kernel_args(tst, torch.tensor(int(we)), other, ttables, tcfg, rej,
                            mk.PUMP_KERNEL.codel_table("cpu"))
+    wide_segs = dataclasses.replace(TGEN_TCP, segs_per_flush=s_max)
+    args, _ = mk.kernel_args(tst, torch.tensor(int(we)),
+                             dataclasses.replace(tmodel, tcp_params=wide_segs), ttables, tcfg,
+                             rej, mk.PUMP_KERNEL.codel_table("cpu"))
+    assert (args.R, args.segs_per_flush) == (4, s_max)
+    more_ranges = dataclasses.replace(TGEN_TCP, ooo_ranges=r_max)
+    with pytest.raises(ValueError, match="ooo"):
+        mk.kernel_args(tst, torch.tensor(int(we)),
+                       dataclasses.replace(tmodel, tcp_params=more_ranges), ttables, tcfg, rej,
+                       mk.PUMP_KERNEL.codel_table("cpu"))
 
 
 def test_c_struct_matches_the_ctypes_fields():
@@ -185,8 +198,9 @@ def test_c_struct_matches_the_ctypes_fields():
 
 def test_layout_constants_match_the_kernel_source():
     """The wrapper's copy of the kernel's compile-time layout equals the
-    constexprs in csrc/pump_megakernel.cu, and the one TCP shape the
-    kernel is built for is tgen's. Every instance the wrapper can pick is
+    constexprs in csrc/pump_megakernel.cu, and the default TCP shape (the
+    source's PUMP_NR and PUMP_NSEG defaults, which a build at any other
+    shape overrides) is tgen's. Every instance the wrapper can pick is
     instantiated in the source: per model a narrow one, built for the
     sockets its model has at its defaults (a narrow row's socket-match
     bitmask is 32 bits) and for pump_k up to MAX_K, and a wide one, which
@@ -207,7 +221,10 @@ def test_layout_constants_match_the_kernel_source():
             constexpr("WIDE_MATCH_WORDS")) == (mk.WIDE_LIST_CAP, mk.WIDE_FIFO_CAP,
                                                mk.WIDE_MATCH_WORDS)
     assert mk.MAX_K < mk.WIDE_LIST_CAP <= 127  # a list entry's FIFO reference is one byte
-    assert (constexpr("NR"), constexpr("NSEG")) == mk.TCP_SHAPE
+    defaults = {n: int(re.search(rf"#ifndef {n}\n#define {n} (\d+)\n#endif", src)[1])
+                for n in ("PUMP_NR", "PUMP_NSEG")}
+    assert (defaults["PUMP_NR"], defaults["PUMP_NSEG"]) == mk.TCP_SHAPE
+    assert "constexpr int NR = PUMP_NR, NSEG = PUMP_NSEG;" in src
     assert mk.TCP_SHAPE == (TGEN_TCP.ooo_ranges, TGEN_TCP.segs_per_flush)
     assert {m: constexpr(f"MODEL_{m.upper()}") for m in mk.MODEL_IDS} == mk.MODEL_IDS
     assert {m: constexpr(f"{m.upper()}_MAX_S") for m in mk.MAX_SOCKETS} == mk.MAX_SOCKETS

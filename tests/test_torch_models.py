@@ -184,7 +184,10 @@ def test_registry_rejects_unknown_args_like_the_reference(name):
 
 
 def test_registry_unknown_model_error_matches_the_reference():
-    assert registry._NOT_YET_PORTED == ()
+    # no registered name is held back as not yet ported: the port's
+    # registry is the reference's
+    assert not hasattr(registry, "_NOT_YET_PORTED")
+    assert registry.registered_models() == j_registry.registered_models()
     with pytest.raises(ValueError) as want:
         j_registry.build_model("gosip", 12, {})
     with pytest.raises(ValueError) as got:
